@@ -1,0 +1,117 @@
+"""Rehearse chip_smoke.py's control flow on the CPU.
+
+chip_smoke.py needs a CUDA device and nvcc, so the tests here cannot
+run it as it is. This rehearsal runs its ``main()`` in a subprocess with
+CUDA devices mapped to the CPU (a ``TorchFunctionMode`` that rewrites
+``device="cuda"``), CUDA events timed on the host clock, the build step
+skipped, the kernel wrapper replaced by its plain version plus the
+launch counter, and tiny widths (t5-base's data shapes, d_model 32,
+2 layers). It checks every phase's bookkeeping — launch counts per eval
+step and per served batch, the kernels JSON line with all its keys, the
+card line and the final verdict line — and that without CUDA the real
+script prints no result and exits non-zero.
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+
+pytest.importorskip("torch")
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+REHEARSAL = r"""
+import sys, time
+import torch
+from torch.overrides import TorchFunctionMode
+
+def to_cpu(x):
+    if isinstance(x, str) and x.startswith("cuda"):
+        return "cpu"
+    if isinstance(x, torch.device) and x.type == "cuda":
+        return torch.device("cpu")
+    return x
+
+class CudaOnCpu(TorchFunctionMode):
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        if func is torch.Tensor.cuda:
+            return args[0]
+        kwargs = {k: to_cpu(v) for k, v in (kwargs or {}).items()}
+        return func(*(to_cpu(a) for a in args), **kwargs)
+
+class HostEvent:
+    def __init__(self, **kw):
+        self.t = None
+    def record(self):
+        self.t = time.perf_counter()
+    def elapsed_time(self, other):
+        return (other.t - self.t) * 1e3
+
+torch.cuda.is_available = lambda: True
+torch.cuda.synchronize = lambda *a: None
+torch.cuda.Event = HostEvent
+torch.cuda.get_device_name = lambda i=0: "rehearsal"
+torch.cuda.device_count = lambda: 1
+_Generator = torch.Generator
+torch.Generator = lambda device=None: _Generator()
+
+from vqacl_tpu_torch.utils import device as D
+cpu = lambda d: torch.device("cpu")
+import vqacl_tpu_torch.models.vlt5 as V, vqacl_tpu_torch.serve as SV
+import vqacl_tpu_torch.train.step as ST
+D.resolve_device = V.resolve_device = SV.resolve_device = ST.resolve_device = cpu
+from vqacl_tpu_torch.ops import _build, fused_attention as fa
+_build.build = lambda names=(): []
+plain = fa.fused_attention_reference
+def counted(q, k, v, bias, mask, H, dropout_rate=0.0):
+    counted.launches += 1
+    return plain(q, k, v, bias, mask, H)
+counted.launches = 0
+fa.fused_attention = counted
+from vqacl_tpu_torch.utils import config as C
+_Config = C.Config
+def tiny():
+    c = _Config()
+    c.model = C.tiny_model_config(vocab_size=32200, feat_dim=2048, n_boxes=36,
+                                  max_text_length=20, gen_max_length=8)
+    return c
+C.Config = tiny
+import chip_smoke
+chip_smoke.card_line = lambda: "rehearsal card, 0 W"
+chip_smoke.EVAL_BATCH = 4
+with CudaOnCpu():
+    sys.exit(chip_smoke.main())
+"""
+
+
+def test_chip_smoke_rehearsal_on_cpu():
+    r = subprocess.run([sys.executable, "-c", REHEARSAL], cwd=REPO,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
+    lines = r.stdout.strip().splitlines()
+    assert json.loads(lines[-1]) == {"ok": True, "device": {
+        "platform": "gpu", "kind": "rehearsal", "count": 1}}
+    assert lines[-2] == "rehearsal card, 0 W"
+    kernels = json.loads(lines[-3])["kernels"]
+    keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
+    assert [set(k) for k in kernels] == [keys]
+    k1 = kernels[0]
+    assert k1["route"] == "cuda" and k1["bound_by"] in ("bytes", "operations")
+    assert os.path.exists(os.path.join(REPO, k1["source"]))
+    assert k1["launches"] == 2 * 3          # 2 layers x 3 timed eval steps
+    assert "fused_attention launches=6 (2/step)" in r.stdout
+
+
+def test_chip_smoke_without_cuda_prints_no_result():
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    r = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode != 0
+    assert r.stdout.strip() == ""

@@ -1,0 +1,17 @@
+"""vqacl_tpu_torch — the PyTorch/CUDA port of ``vqacl_tpu`` for one NVIDIA H100.
+
+Module names mirror ``vqacl_tpu`` so each counterpart is easy to find.
+The package imports ``torch`` and ``numpy`` only: nothing of JAX and
+nothing of ``vqacl_tpu``. Parameters are plain nested dicts of tensors
+with the same keys as the JAX pytree (``models/convert.py`` bridges the
+two). Entry points run on ``device="cuda"`` unless the caller passes
+another device; on a CPU tensor every kernel wrapper takes its plain
+PyTorch version, on a CUDA tensor it launches the hand-written kernel.
+
+This slice ports the serving path: ``serve.VQAPredictor``/``VQAServer``
+→ ``train.step.make_eval_step`` → ``models.vlt5.encode`` (the encoder
+attention runs in ``csrc/fused_attention_fwd.cu``) → prototype retrieval
+→ ``models.generate.greedy_decode``.
+"""
+
+__version__ = "0.1.0"

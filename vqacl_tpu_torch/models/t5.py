@@ -1,0 +1,215 @@
+"""T5 encoder and decoder pieces for the serving path.
+
+Counterpart of ``vqacl_tpu/models/t5.py``: plain functions on a nested
+dict of tensors with the JAX pytree's keys. Linear weights are kept in
+the JAX orientation ``[in, out]`` and applied as ``x @ W``.
+
+T5 specifics kept: RMS layer norm without mean or bias (variance in
+f32), unscaled dot-product attention with f32 scores and softmax, the
+relative position bias computed from one table per stack, an additive
+−1e9 mask (not −inf), ReLU feed-forward, and tied embeddings with the
+``d_model**-0.5`` output rescale. Cast points follow the JAX code:
+products that JAX runs with ``preferred_element_type=float32`` are
+computed here on f32 copies of the operands.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+Params = Dict[str, Any]
+
+NEG_INF = -1e9  # additive mask value; applied in f32 before softmax
+
+
+def layer_norm(w: torch.Tensor, x: torch.Tensor, eps: float) -> torch.Tensor:
+    """T5 RMS norm: no mean subtraction, no bias; variance in f32."""
+    dt = x.dtype
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * w.float()).to(dt)
+
+
+def relative_position_bucket(relative_position: torch.Tensor,
+                             bidirectional: bool,
+                             num_buckets: int,
+                             max_distance: int) -> torch.Tensor:
+    """Bucketed relative positions (HF T5 semantics), int32."""
+    rp = relative_position.to(torch.int32)
+    ret = torch.zeros_like(rp)
+    n = -rp
+    if bidirectional:
+        num_buckets //= 2
+        ret = ret + (n < 0).to(torch.int32) * num_buckets
+        n = n.abs()
+    else:
+        n = n.clamp_min(0)
+    max_exact = num_buckets // 2
+    is_small = n < max_exact
+    val_if_large = max_exact + (
+        torch.log(n.clamp_min(1).to(torch.float32) / max_exact)
+        / math.log(max_distance / max_exact)
+        * (num_buckets - max_exact)
+    ).to(torch.int32)
+    val_if_large = val_if_large.clamp_max(num_buckets - 1)
+    return ret + torch.where(is_small, n, val_if_large)
+
+
+def compute_position_bias(rel_bias_table: torch.Tensor,
+                          q_len: int, k_len: int,
+                          bidirectional: bool,
+                          num_buckets: int, max_distance: int,
+                          q_offset: int = 0) -> torch.Tensor:
+    """[1, heads, q_len, k_len] relative attention bias."""
+    dev = rel_bias_table.device
+    ctx = torch.arange(q_len, device=dev)[:, None] + q_offset
+    mem = torch.arange(k_len, device=dev)[None, :]
+    buckets = relative_position_bucket(mem - ctx, bidirectional,
+                                       num_buckets, max_distance)
+    values = rel_bias_table[buckets.long()]                 # [q, k, heads]
+    return values.permute(2, 0, 1)[None]                    # [1, h, q, k]
+
+
+def attention_scores_bias(mask: Optional[torch.Tensor],
+                          position_bias: Optional[torch.Tensor],
+                          dtype=torch.float32) -> Optional[torch.Tensor]:
+    """Padding/causal mask (1 = attend) and position bias as one additive
+    f32 term."""
+    bias = None
+    if position_bias is not None:
+        bias = position_bias.to(dtype)
+    if mask is not None:
+        add = (1.0 - mask.to(dtype)) * NEG_INF
+        bias = add if bias is None else bias + add
+    return bias
+
+
+def multihead_attention(p: Params,
+                        q_in: torch.Tensor,
+                        k_in: Optional[torch.Tensor],
+                        v_in: Optional[torch.Tensor],
+                        bias: Optional[torch.Tensor],
+                        num_heads: int,
+                        d_kv: int,
+                        kv_proj: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                        mask_add: Optional[torch.Tensor] = None,
+                        ) -> torch.Tensor:
+    """Unscaled T5 attention (inference). q_in [B,Lq,D]; k_in/v_in
+    [B,Lk,D], or ``kv_proj`` = already projected (k, v) [B,Lk,H,dk].
+    ``bias`` and ``mask_add`` are additive f32 terms broadcast to
+    [B,H,Lq,Lk]."""
+    B, Lq, _ = q_in.shape
+    dt = q_in.dtype
+    q = (q_in @ p["wq"].to(dt)).reshape(B, Lq, num_heads, d_kv)
+    if kv_proj is None:
+        Lk = k_in.shape[1]
+        k = (k_in @ p["wk"].to(dt)).reshape(B, Lk, num_heads, d_kv)
+        v = (v_in @ p["wv"].to(dt)).reshape(B, Lk, num_heads, d_kv)
+    else:
+        k, v = kv_proj
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    if bias is not None:
+        scores = scores + bias
+    if mask_add is not None:
+        scores = scores + mask_add
+    w = torch.softmax(scores, dim=-1).to(dt)
+    out = torch.einsum("bhqk,bkhd->bqhd", w.float(), v.float()).to(dt)
+    return out.reshape(B, Lq, num_heads * d_kv) @ p["wo"].to(dt)
+
+
+def mlp_apply(p: Params, x: torch.Tensor, activation: str) -> torch.Tensor:
+    dt = x.dtype
+    h = x @ p["wi"].to(dt)
+    if activation == "relu":
+        h = torch.relu(h)
+    elif activation in ("gelu", "gated-gelu"):
+        h = torch.nn.functional.gelu(h)
+    else:
+        raise ValueError(activation)
+    return h @ p["wo"].to(dt)
+
+
+def encoder_block(p: Params, cfg, x: torch.Tensor,
+                  bias: Optional[torch.Tensor],
+                  mask_add: Optional[torch.Tensor] = None) -> torch.Tensor:
+    h = layer_norm(p["ln1"], x, cfg.layer_norm_epsilon)
+    x = x + multihead_attention(p["attn"], h, h, h, bias, cfg.num_heads,
+                                cfg.d_kv, mask_add=mask_add)
+    h = layer_norm(p["ln2"], x, cfg.layer_norm_epsilon)
+    return x + mlp_apply(p["mlp"], h, cfg.feed_forward_proj)
+
+
+def encoder_block_fused(p: Params, cfg, x: torch.Tensor,
+                        pos_bias: torch.Tensor,
+                        mask: torch.Tensor) -> torch.Tensor:
+    """``encoder_block`` with the attention core in
+    ``ops.fused_attention`` (the CUDA kernel on CUDA tensors).
+    pos_bias [H,L,L] f32 for the first L positions, mask [B,S]."""
+    from vqacl_tpu_torch.ops.fused_attention import fused_encoder_attention
+
+    h = layer_norm(p["ln1"], x, cfg.layer_norm_epsilon)
+    dt = h.dtype
+    B, S, _ = h.shape
+    a = p["attn"]
+    q = (h @ a["wq"].to(dt)).reshape(B, S, cfg.num_heads, cfg.d_kv)
+    k = (h @ a["wk"].to(dt)).reshape(B, S, cfg.num_heads, cfg.d_kv)
+    v = (h @ a["wv"].to(dt)).reshape(B, S, cfg.num_heads, cfg.d_kv)
+    o = fused_encoder_attention(q, k, v, pos_bias, mask)
+    x = x + o @ a["wo"].to(dt)
+    h = layer_norm(p["ln2"], x, cfg.layer_norm_epsilon)
+    return x + mlp_apply(p["mlp"], h, cfg.feed_forward_proj)
+
+
+def encoder_stack(p: Params, cfg, inputs_embeds: torch.Tensor,
+                  position_bias: Optional[torch.Tensor],
+                  fused: Optional[Dict[str, Any]] = None,
+                  mask_add: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Encoder over precomputed embeddings.
+
+    Unfused: ``position_bias`` [1,H,S,S] and the padding mask
+    ``mask_add`` [B,1,1,S] are additive terms. Fused (``fused`` dict with
+    ``pos_bias`` [H,L,L] and ``mask`` [B,S]): attention runs in
+    ``ops.fused_attention``."""
+    x = inputs_embeds
+    for i in range(cfg.num_layers):
+        blk = p[f"block_{i}"]
+        if fused is not None:
+            x = encoder_block_fused(blk, cfg, x, fused["pos_bias"],
+                                    fused["mask"])
+        else:
+            x = encoder_block(blk, cfg, x, position_bias, mask_add)
+    return layer_norm(p["final_ln"], x, cfg.layer_norm_epsilon)
+
+
+def causal_mask(L: int, device=None) -> torch.Tensor:
+    """[1,1,L,L] lower-triangular attend mask."""
+    return torch.tril(torch.ones((L, L), dtype=torch.float32,
+                                 device=device))[None, None]
+
+
+def embed_tokens(shared: torch.Tensor, ids: torch.Tensor, dtype
+                 ) -> torch.Tensor:
+    """Gather, then cast (never casts the whole table)."""
+    return shared[ids.long()].to(dtype)
+
+
+def lm_logits(shared: torch.Tensor, hidden: torch.Tensor, d_model: int,
+              tie_word_embeddings: bool = True,
+              head_f32: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Tied LM head with the mesh-tf rescale → f32 logits [..., V].
+
+    The rescale multiplies in the compute dtype (the scalar rounded to
+    it first, as JAX's weakly typed scalar is); the product with the
+    table accumulates in f32. ``head_f32`` is ``shared`` already cast to
+    the compute dtype and back to f32, for callers that apply the head
+    many times."""
+    h = hidden
+    if tie_word_embeddings:
+        h = h * torch.tensor(d_model ** -0.5, dtype=h.dtype, device=h.device)
+    if head_f32 is None:
+        head_f32 = shared.to(h.dtype).float()
+    return h.float() @ head_f32.t()

@@ -1,0 +1,106 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` has a plain C interface and is compiled on first
+use with ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared`` into
+``build/kernels/`` at the root of the checkout (listed in
+``.gitignore``), then loaded with ``ctypes``. The library file name
+carries a hash of the source and the flags, so an edited source is
+rebuilt and never mistaken for an old build. Nothing here runs when the
+module is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from typing import Dict, Iterable, List
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C signatures of the entry points, per source file
+SIGNATURES = {
+    "fused_attention_fwd": {
+        # q, k, v, bias, mask, o, B, Tq, Sk, H, dk, L, dtype, stream
+        "fused_attention_fwd": ([_P] * 6 + [_I] * 7 + [_P], _I),
+        "fused_attention_error_string": ([_I], ctypes.c_char_p),
+    },
+}
+
+_libs: Dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+def _nvcc() -> str:
+    cands = [shutil.which("nvcc"),
+             os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                          "bin", "nvcc")]
+    for c in cands:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
+                       "machine with the CUDA toolkit")
+
+
+def _lib_path(name: str) -> str:
+    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
+
+
+def _start(name: str):
+    """Start nvcc for ``name`` unless its library exists; → (path, proc)."""
+    out = _lib_path(name)
+    if os.path.exists(out):
+        return out, None
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return out, (proc, tmp, cmd)
+
+
+def _finish(out: str, started) -> None:
+    if started is None:
+        return
+    proc, tmp, cmd = started
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                           f"{' '.join(cmd)}\n{log}")
+    os.replace(tmp, out)   # atomic: a concurrent build sees all or none
+
+
+def build(names: Iterable[str] = tuple(SIGNATURES)) -> List[str]:
+    """Compile the named kernels, all nvcc processes started together;
+    returns the library paths."""
+    names = list(names)
+    started = [_start(n) for n in names]
+    for out, s in started:
+        _finish(out, s)
+    return [out for out, _ in started]
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built on first use, with
+    ``argtypes``/``restype`` set for every entry point."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            path, = build([name])
+            lib = ctypes.CDLL(path)
+            for fn, (argtypes, restype) in SIGNATURES[name].items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = restype
+            _libs[name] = lib
+        return lib

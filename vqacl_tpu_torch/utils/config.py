@@ -1,0 +1,80 @@
+"""Run configuration for the serving path.
+
+Counterpart of ``vqacl_tpu/utils/config.py``, cut to the fields the
+serving path reads. The defaults are the same t5-base geometry. There is
+no yaml round-trip here, so the module needs nothing beyond the standard
+library, and no TPU mesh knobs.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+
+@dataclass
+class ModelConfig:
+    """VL-T5 architecture hyperparameters (t5-base defaults)."""
+
+    vocab_size: int = 32200          # 32100 sentencepiece+extra ids + 100 vis ids
+    d_model: int = 768
+    d_kv: int = 64
+    num_heads: int = 12
+    d_ff: int = 3072
+    num_layers: int = 12             # encoder layers
+    num_decoder_layers: int = 12
+    relative_attention_num_buckets: int = 32
+    relative_attention_max_distance: int = 128
+    layer_norm_epsilon: float = 1e-6
+    feed_forward_proj: str = "relu"  # t5-base v1.0 uses ReLU
+    tie_word_embeddings: bool = True
+    pad_token_id: int = 0
+    eos_token_id: int = 1
+    decoder_start_token_id: int = 0
+
+    # --- visual embedding ---
+    feat_dim: int = 2048             # Faster-RCNN region feature dim
+    pos_dim: int = 4                 # (x1,y1,x2,y2); +1 area appended in-model
+    n_images: int = 2                # img_order embedding table size
+    use_vis_order_embedding: bool = True
+    use_vis_layer_norm: bool = True
+    individual_vis_layer_norm: bool = True
+
+    # --- sequence geometry ---
+    max_text_length: int = 20
+    n_boxes: int = 36
+    gen_max_length: int = 20         # HF generate() default max_length
+    target_max_length: int = 10      # answer token budget
+
+    # --- prototype mechanism ---
+    n_ques_types: int = 10           # Q prototype bank rows
+    n_categories: int = 80           # V prototype bank rows (COCO)
+    use_prototype: bool = True
+
+    # Encoder attention through ops/fused_attention.py (the CUDA kernel
+    # on CUDA tensors, its plain version on CPU tensors). False runs the
+    # unfused path with the full [1,H,S,S] bias, kept as the reference
+    # the kernel path is compared with.
+    fused_attention: bool = True
+
+    @property
+    def encoder_len(self) -> int:
+        return self.max_text_length + self.n_boxes
+
+
+@dataclass
+class Config:
+    model: ModelConfig = field(default_factory=ModelConfig)
+
+
+def tiny_model_config(**overrides) -> ModelConfig:
+    """A scaled-down architecture for tests (same code path, tiny shapes);
+    the same sizes as ``vqacl_tpu.utils.config.tiny_model_config``."""
+    base = dict(
+        vocab_size=256, d_model=32, d_kv=8, num_heads=4, d_ff=64,
+        num_layers=2, num_decoder_layers=2, relative_attention_num_buckets=8,
+        relative_attention_max_distance=16, feat_dim=16, max_text_length=6,
+        n_boxes=4, gen_max_length=6, target_max_length=5,
+        n_ques_types=10, n_categories=80,
+    )
+    base.update(overrides)
+    return ModelConfig(**base)
