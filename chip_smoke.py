@@ -1,22 +1,34 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one NVIDIA GPU (an H100) and
-check it.
+"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU
+(an H100) and check them.
 
     python3 chip_smoke.py        # from the root of a checkout
 
 Phases, each of which exits non-zero on failure:
 
-1. Build every CUDA kernel of the path from ``vqacl_tpu_torch/csrc``.
+1. Build every CUDA kernel of the paths from ``vqacl_tpu_torch/csrc``,
+   one nvcc per source, all started together.
 2. Kernel check: each kernel against its plain PyTorch version on the
-   same inputs, at the eval shape and at rectangular and odd shapes, with
-   the tolerance printed beside the error; CUDA-event times of the
-   kernel, the plain version and one library call (a yardstick only).
-3. The slice: random-init t5-base (seeded), cast for inference, bf16,
-   ``make_eval_step`` at batch 100 on a synthetic batch; the kernel's
-   launch count over the timed steps; the encoder through the kernel
+   same inputs, with the tolerance printed beside the error. K1 (the
+   inference forward) at the eval shape and at rectangular and odd
+   shapes; K1′ (training forward) and K2 (backward) at the train shape,
+   rectangular and odd f32 shapes and the decoder shapes, at dropout 0
+   and 0.1 (the plain version draws the kernels' own Philox mask, which
+   is also compared bit for bit). CUDA-event times of each kernel, its
+   plain version and one library call (a yardstick only).
+3. The eval slice: random-init t5-base (seeded), cast for inference,
+   bf16, ``make_eval_step`` at batch 100 on a synthetic batch; the
+   launch counts over the timed steps; the encoder through the kernel
    against the unfused encoder; f32 tokens on the card against the CPU
    plain path on a tiny config.
-4. Serving: ``VQAServer`` over a ``VQAPredictor`` answers concurrent
+4. The training slice: random-init t5-base, f32 master weights, bf16
+   compute, dropout 0.1, ``make_train_step`` at batch 80 on one
+   synthetic batch; ``train_step_ms``, the launch counts per step, every
+   metric finite and the loss falling; at dropout 0 the parameter
+   gradients through the kernels against the unfused encoder's; three
+   f32 train steps on a tiny config on the card against the CPU plain
+   path.
+5. Serving: ``VQAServer`` over a ``VQAPredictor`` answers concurrent
    ``submit()`` calls with no errors.
 
 The second-to-last lines are a JSON object of per-kernel numbers and the
@@ -43,10 +55,22 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 # max |kernel - plain| <= ATOL + RTOL * |plain|, per dtype: bf16 output
 # rounding (2^-8 relative) and a p rounded to bf16 on either side of a
-# tie give up to ~2 ulps; f32 differs only in summation order
+# tie give up to ~2 ulps; f32 differs only in summation order. K1′'s p
+# and K2's dbias are f32 whatever the inputs' dtype.
 TOL = {"bfloat16": (1e-2, 1e-2), "float32": (1e-5, 1e-5)}
 EVAL_BATCH = 100
 EVAL_STEPS = 3
+TRAIN_BATCH = 80
+TRAIN_WARMUP = 2
+TRAIN_STEPS = 10
+DROPOUT = 0.1
+# parameter gradients through the kernels vs the unfused encoder, as
+# ‖g_kernel − g_plain‖ / ‖g_plain‖ over all parameters: in bf16 the two
+# backward passes round at different points (autograd of the plain path
+# takes the bf16-rounded probabilities, K2 works in f32), in f32 only the
+# summation order differs
+GRAD_REL_TOL = {"bfloat16": 3e-2, "float32": 1e-4}
+SMALL_PARAM_TOL = 3e-5
 
 
 def log(*a):
@@ -161,6 +185,203 @@ def check_attention(fa, name, B, Tq, Sk, H, dk, L, dtype,
     return row
 
 
+def train_attention_inputs(B, Tq, Sk, H, dk, L, dtype, text_len, seed,
+                           causal=False):
+    """attention_inputs plus do [B,Tq,H·dk]; with ``causal`` the bias is
+    the decoder's full [H,T,T] bias (−1e9 above the diagonal) and every
+    key is on, as the decoder's self-attention has it."""
+    q, k, v, bias, mask = attention_inputs(B, Tq, Sk, H, dk, L, dtype,
+                                           text_len, seed)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    do = torch.randn(B, Tq, H * dk, generator=g, device="cuda").to(dtype)
+    if causal:
+        up = torch.triu(torch.ones(L, L, device="cuda"), diagonal=1)
+        bias = bias + up * -1e9
+        mask = torch.ones_like(mask)
+    return q, k, v, do, bias, mask
+
+
+def _close(out, ref, dtype):
+    atol, rtol = TOL[dtype]
+    diff = (out.float() - ref.float()).abs()
+    ok = bool((diff <= atol + rtol * ref.float().abs()).all()) \
+        and bool(torch.isfinite(out.float()).all())
+    return float(diff.max()), ok
+
+
+def check_train_attention(fa, name, B, Tq, Sk, H, dk, L, dtype, rate,
+                          text_len=None, causal=False, timed=False):
+    """K1′ and K2 vs their plain versions (the plain version draws the
+    kernels' Philox mask; that mask is checked against the kernels' own
+    bit for bit). With ``timed``: times, bounds and library yardsticks.
+    → (K1′ row, K2 row)."""
+    dt = getattr(torch, dtype)
+    q, k, v, do, bias, mask = train_attention_inputs(
+        B, Tq, Sk, H, dk, L, dt, text_len or Sk, seed=B + Tq + Sk,
+        causal=causal)
+    seed = torch.tensor([20260 + Tq], dtype=torch.int32, device="cuda")
+    o, p = fa.fused_attention_fwd_train(q, k, v, bias, mask, seed, H, rate)
+    ro, rp = fa.fused_attention_fwd_train_reference(q, k, v, bias, mask,
+                                                    seed, H, rate)
+    grads = fa.fused_attention_bwd(q, k, v, p, seed, do, H, L, rate)
+    rgrads = fa.fused_attention_bwd_reference(q, k, v, rp, seed, do, H, L,
+                                              rate)
+    torch.cuda.synchronize()
+    if o.dtype != dt or o.shape != (B, Tq, H * dk) \
+            or p.shape != (B, H * Tq, Sk):
+        fail(f"{name}: K1' output {o.dtype} {tuple(o.shape)} p "
+             f"{tuple(p.shape)}")
+    errs, oks = {}, []
+    for key, a, b, tol_dt in (("o", o, ro, dtype), ("p", p, rp, "float32"),
+                              ("dq", grads[0], rgrads[0], dtype),
+                              ("dk", grads[1], rgrads[1], dtype),
+                              ("dv", grads[2], rgrads[2], dtype)):
+        errs[key], ok = _close(a, b, tol_dt)
+        oks.append(ok)
+    if L:
+        errs["dbias"], ok = _close(grads[3], rgrads[3], "float32")
+        oks.append(ok)
+    elif grads[3] is not None:
+        fail(f"{name}: K2 wrote dbias with L = 0")
+    kept = 1.0
+    if rate:
+        mine = fa.fused_attention_keep_mask(seed, B, H, Tq, Sk, rate)
+        plain = fa.philox_keep_mask(seed, B, H, Tq, Sk, rate)
+        kept = float(mine.float().mean())
+        if not torch.equal(mine, plain):
+            fail(f"{name}: the PyTorch Philox mask differs from the "
+                 f"kernels'")
+        if abs(kept - (1 - rate)) > 0.02:
+            fail(f"{name}: kept share {kept:.4f} for rate {rate}")
+    atol, rtol = TOL[dtype]
+    log(f"kernel_check {name}: B={B} Tq={Tq} Sk={Sk} H={H} dk={dk} L={L} "
+        f"{dtype} rate={rate} kept={kept:.4f} max_abs_err "
+        + " ".join(f"{k}={e:.3e}" for k, e in errs.items())
+        + f" tol=atol {atol:g} + rtol {rtol:g} (p, dbias: f32 tol)"
+        f" -> {'ok' if all(oks) else 'MISMATCH'}")
+    if not all(oks):
+        fail(f"{name}: K1'/K2 disagree with their plain versions")
+    fwd_row = {"max_abs_err": max(errs["o"], errs["p"])}
+    bwd_row = {"max_abs_err": max(v for k, v in errs.items()
+                                  if k not in ("o", "p"))}
+    if not timed:
+        return fwd_row, bwd_row
+
+    sets = [(q, k, v, do, bias, mask)] + [
+        train_attention_inputs(B, Tq, Sk, H, dk, L, dt, text_len or Sk,
+                               seed=200 + i) for i in range(3)]
+    ps = [fa.fused_attention_fwd_train(s[0], s[1], s[2], s[4], s[5], seed,
+                                       H, rate)[1] for s in sets]
+    fwd_row["ms"] = time_ms([
+        lambda s=s: fa.fused_attention_fwd_train(s[0], s[1], s[2], s[4],
+                                                 s[5], seed, H, rate)
+        for s in sets])
+    fwd_row["plain_ms"] = time_ms([
+        lambda s=s: fa.fused_attention_fwd_train_reference(
+            s[0], s[1], s[2], s[4], s[5], seed, H, rate) for s in sets])
+    bwd_row["ms"] = time_ms([
+        lambda s=s, p=p: fa.fused_attention_bwd(s[0], s[1], s[2], p, seed,
+                                                s[3], H, L, rate)
+        for s, p in zip(sets, ps)])
+    bwd_row["plain_ms"] = time_ms([
+        lambda s=s, p=p: fa.fused_attention_bwd_reference(
+            s[0], s[1], s[2], p, seed, s[3], H, L, rate)
+        for s, p in zip(sets, ps)])
+    lib = sdpa_times(sets, B, Tq, Sk, H, dk, L, dt, rate)
+    fwd_row["library_ms"], bwd_row["library_ms"] = lib["fwd"], lib["bwd"]
+
+    elem = q.element_size()
+    panel = H * dk * elem
+    p_bytes = B * H * Tq * Sk * 4
+    small = B * Sk * 4 + H * L * L * 4 + 4
+    prod = 2 * B * H * Tq * Sk * dk          # one [Tq,Sk]x[·,dk] product
+    peak = PEAK_FLOPS[dtype]
+    f32 = PEAK_FLOPS["float32"]
+    # K1': q,k,v in, o and p out; q·k and p·v on the inputs' type
+    fwd_bytes = (2 * B * Tq + 2 * B * Sk) * panel + p_bytes + small
+    fwd_ops_s = 2 * prod / peak
+    # K2: q,k,v,do,p in, dq,dk,dv out; do·vᵀ on the inputs' type, the
+    # three products with the f32 p or ds on f32
+    bwd_bytes = ((2 * B * Tq + 2 * B * Sk) * panel + p_bytes
+                 + (B * Tq + 2 * B * Sk) * panel + H * L * L * 4 + 4)
+    bwd_ops_s = prod / peak + 3 * prod / f32
+    for row, nbytes, ops_s, flops in ((fwd_row, fwd_bytes, fwd_ops_s,
+                                       2 * prod),
+                                      (bwd_row, bwd_bytes, bwd_ops_s,
+                                       4 * prod)):
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops_s * 1e3
+        row["bound_ms"] = max(t_bytes, t_ops)
+        row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        row["bytes"], row["flops"] = nbytes, flops
+    log(f"kernel_time {name} K1': kernel_ms={fwd_row['ms']:.5f} "
+        f"plain_ms={fwd_row['plain_ms']:.5f} "
+        f"library_ms={fwd_row['library_ms']:.5f} ({lib['backend']} fwd) "
+        f"bound_ms={fwd_row['bound_ms']:.5f} ({fwd_row['bound_by']}: "
+        f"{fwd_bytes} B, {2 * prod} FLOP)")
+    log(f"kernel_time {name} K2: kernel_ms={bwd_row['ms']:.5f} "
+        f"plain_ms={bwd_row['plain_ms']:.5f} "
+        f"library_ms={bwd_row['library_ms']:.5f} ({lib['backend']} "
+        f"fwd+bwd {lib['fwd_bwd']:.5f} - fwd) "
+        f"bound_ms={bwd_row['bound_ms']:.5f} ({bwd_row['bound_by']}: "
+        f"{bwd_bytes} B, {4 * prod} FLOP)")
+    return fwd_row, bwd_row
+
+
+def sdpa_times(sets, B, Tq, Sk, H, dk, L, dt, rate):
+    """PyTorch SDPA with the same additive bias and dropout: forward
+    time, and its backward as forward+backward minus forward, on the
+    first backend that takes the inputs. Yardsticks only."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    F = torch.nn.functional
+    heads = lambda x: x.view(B, -1, H, dk).transpose(1, 2)
+
+    def args(q, k, v, do, bias, mask):
+        add = torch.zeros(B, H, Tq, Sk, device="cuda")
+        if bias is not None:
+            add[:, :, :L, :L] = bias
+        add = add + ((1.0 - mask) * -1e9)[:, None, None, :]
+        return ([heads(x).detach().requires_grad_() for x in (q, k, v)],
+                heads(do), add.to(dt))
+
+    lib_sets = [args(*s) for s in sets]
+    for backend in (SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel([backend]):
+                def fwd(a):
+                    with torch.no_grad():
+                        F.scaled_dot_product_attention(
+                            *a[0], attn_mask=a[2], dropout_p=rate, scale=1.0)
+
+                def fwd_bwd(a):
+                    out = F.scaled_dot_product_attention(
+                        *a[0], attn_mask=a[2], dropout_p=rate, scale=1.0)
+                    out.backward(a[1])
+
+                fwd_bwd(lib_sets[0])
+                t_fwd = time_ms([lambda a=a: fwd(a) for a in lib_sets])
+                t_all = time_ms([lambda a=a: fwd_bwd(a) for a in lib_sets])
+        except RuntimeError as e:
+            log(f"sdpa {backend.name}: not usable here ({e})")
+            continue
+        return {"backend": backend.name, "fwd": t_fwd, "fwd_bwd": t_all,
+                "bwd": t_all - t_fwd}
+    fail("no SDPA backend takes the attention inputs")
+
+
+def _grads(vlt5, tree_leaves, tree_map, params, mcfg, batch, proto, dtype):
+    """(loss, flat f32 gradient) of the deterministic training forward."""
+    live = tree_map(lambda p: p.detach().requires_grad_(), params)
+    out = vlt5.forward_train(live, mcfg, batch, proto, 0.5, 0.3,
+                             generator=None, dtype=dtype)
+    leaves = tree_leaves(live)
+    gs = torch.autograd.grad(out.loss, leaves, allow_unused=True)
+    flat = torch.cat([(torch.zeros_like(p) if g is None else g).float()
+                      .reshape(-1) for p, g in zip(leaves, gs)])
+    return float(out.loss.detach()), flat
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -182,8 +403,21 @@ def main() -> int:
     from vqacl_tpu_torch.ops import _build
     from vqacl_tpu_torch.ops import fused_attention as fa
     from vqacl_tpu_torch.serve import VQAPredictor, VQAServer
-    from vqacl_tpu_torch.train.step import make_eval_step
+    from vqacl_tpu_torch.train.optim import (make_transform, tree_leaves,
+                                             tree_map)
+    from vqacl_tpu_torch.train.state import TrainState
+    from vqacl_tpu_torch.train.step import make_eval_step, make_train_step
     from vqacl_tpu_torch.utils.config import Config, tiny_model_config
+
+    counters = (fa.fused_attention, fa.fused_attention_fwd_train,
+                fa.fused_attention_bwd)
+
+    def zero_counts():
+        for c in counters:
+            c.launches = 0
+
+    def read_counts():
+        return tuple(c.launches for c in counters)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -213,6 +447,25 @@ def main() -> int:
                     "float32")
     check_attention(fa, "odd_width_f32", 3, 13, 29, 4, 8, 5,
                     "float32")
+    k1p = k2 = None
+    for rate in (0.0, DROPOUT):
+        rows = check_train_attention(fa, "train_shape", TRAIN_BATCH, S, S, H,
+                                     dk, L, "bfloat16", rate, text_len=L,
+                                     timed=rate == DROPOUT)
+        if rate == DROPOUT:
+            k1p, k2 = rows
+        check_train_attention(fa, "rect_f32_L0", 8, 10, 58, H, dk, 0,
+                              "float32", rate)
+        check_train_attention(fa, "rect_bf16_bias", 16, 19, 37, H, dk, 7,
+                              "bfloat16", rate)
+        check_train_attention(fa, "odd_width_f32", 3, 13, 29, 4, 8, 5,
+                              "float32", rate)
+        check_train_attention(fa, "decoder_self_causal_f32", 8, 10, 10, H,
+                              dk, 10, "float32", rate, causal=True)
+        check_train_attention(fa, "decoder_self_causal_bf16", 16, 10, 10,
+                              H, dk, 10, "bfloat16", rate, causal=True)
+        check_train_attention(fa, "decoder_cross_bf16_L0", 16, 10, S + 2, H,
+                              dk, 0, "bfloat16", rate, text_len=L)
 
     # ---- 3. the slice at t5-base -----------------------------------------
     t0 = time.time()
@@ -235,14 +488,14 @@ def main() -> int:
     ev = make_eval_step(cfg, dtype=torch.bfloat16, device="cuda")
     tokens = ev(cast, proto, batch)             # warm-up
     torch.cuda.synchronize()
-    fa.fused_attention.launches = 0
+    zero_counts()
     times = []
     for _ in range(EVAL_STEPS):
         t0 = time.perf_counter()
         tokens = ev(cast, proto, batch)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-    eval_launches = fa.fused_attention.launches
+    eval_launches, eval_k1p, eval_k2 = read_counts()
     per_step = eval_launches / EVAL_STEPS
     eval_step_ms = sorted(times)[len(times) // 2]
     log(f"eval_step: bs {EVAL_BATCH} bf16 eval_step_ms={eval_step_ms:.3f} "
@@ -251,6 +504,8 @@ def main() -> int:
     if eval_launches != m.num_layers * EVAL_STEPS:
         fail(f"expected {m.num_layers} kernel launches per eval step, got "
              f"{per_step:g}")
+    if eval_k1p or eval_k2:
+        fail(f"the eval step launched K1' {eval_k1p} and K2 {eval_k2} times")
 
     tok = tokens.cpu().numpy()
     T = m.gen_max_length - 1
@@ -314,7 +569,124 @@ def main() -> int:
     if not (tok_cpu == tok_gpu).all():
         fail("f32 tokens on the card differ from the CPU plain path")
 
-    # ---- 4. serving -------------------------------------------------------
+    del cast, h_k, h_p
+    torch.cuda.empty_cache()
+
+    # ---- 4. the training slice at t5-base ---------------------------------
+    tcfg = Config()
+    tm_ = tcfg.model
+    t0 = time.time()
+    tparams = vlt5.init_vlt5_params(0, tm_, device="cuda")
+    tx = make_transform(tcfg.train)
+    tproto0 = ProtoState.create(tm_.n_ques_types, tm_.n_categories,
+                                tm_.d_model, device="cuda")
+    # warm-up of one step: step 0 is HF's zero update, every later step
+    # runs at the configured lr
+    state = TrainState.create(tparams, tx, tproto0, seed=0,
+                              warmup_iters=1.0, t_total=1000.0)
+    tbatch = next(SyntheticVQA(2 * TRAIN_BATCH, seed=0).batches(
+        TRAIN_BATCH, seed=0))["tensors"]
+    step = make_train_step(tcfg, dtype=torch.bfloat16, device="cuda")
+    log(f"train: t5-base f32 master weights, bf16 compute, dropout "
+        f"{tm_.dropout_rate}, batch {TRAIN_BATCH}, lr {tcfg.train.lr}, "
+        f"adam {tcfg.train.adam_impl}/{tcfg.train.adam_dtype}; set-up "
+        f"{time.time() - t0:.1f} s")
+    losses, all_metrics = [], []
+    for _ in range(TRAIN_WARMUP):
+        state, met = step(state, tbatch)
+        all_metrics.append({k: float(v) for k, v in met.items()})
+    torch.cuda.synchronize()
+    zero_counts()
+    ttimes = []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, met = step(state, tbatch)
+        torch.cuda.synchronize()
+        ttimes.append((time.perf_counter() - t0) * 1e3)
+        all_metrics.append({k: float(v) for k, v in met.items()})
+    train_k1, train_k1p, train_k2 = read_counts()
+    losses = [mt["loss"] for mt in all_metrics]
+    train_step_ms = sorted(ttimes)[len(ttimes) // 2]
+    log(f"train_step: bs {TRAIN_BATCH} bf16 train_step_ms={train_step_ms:.3f}"
+        f" (all: {', '.join(f'{t:.3f}' for t in ttimes)}) launches over "
+        f"{TRAIN_STEPS} steps: K1={train_k1} K1'={train_k1p} K2={train_k2}")
+    log(f"train losses: {', '.join(f'{x:.4f}' for x in losses)}; last "
+        f"metrics {json.dumps(all_metrics[-1])}")
+    if not all(np.isfinite(v) for mt in all_metrics for v in mt.values()):
+        fail("a train-step metric is not finite")
+    if train_k1 != 0 or train_k1p != tm_.num_layers * TRAIN_STEPS \
+            or train_k2 != tm_.num_layers * TRAIN_STEPS:
+        fail(f"expected 0 K1 and {tm_.num_layers} K1'/K2 launches per "
+             f"train step, got {train_k1}/{train_k1p}/{train_k2} over "
+             f"{TRAIN_STEPS} steps")
+    if not np.mean(losses[-3:]) < np.mean(losses[:3]):
+        fail(f"the loss did not fall on a fixed batch: {losses}")
+    if float(state.step) != TRAIN_WARMUP + TRAIN_STEPS:
+        fail(f"train state step {int(state.step)}")
+
+    # gradients through K1'/K2 vs the unfused encoder, at dropout 0
+    gb = {k: torch.from_numpy(v).cuda() for k, v in tbatch.items()}
+    m_unf = Config().model
+    m_unf.fused_attention = False
+    grad_rel = {}
+    for dname, nb in (("bfloat16", TRAIN_BATCH), ("float32", 8)):
+        dtp = getattr(torch, dname)
+        part = {k: v[:nb] for k, v in gb.items()}
+        lf, gf = _grads(vlt5, tree_leaves, tree_map, state.params, tm_,
+                        part, tproto0, dtp)
+        lu, gu = _grads(vlt5, tree_leaves, tree_map, state.params, m_unf,
+                        part, tproto0, dtp)
+        grad_rel[dname] = float((gf - gu).norm() / gu.norm())
+        log(f"grad check {dname} bs {nb}: loss kernel {lf:.6f} plain "
+            f"{lu:.6f}; |g_kernel - g_plain| / |g_plain| = "
+            f"{grad_rel[dname]:.3e} (tol {GRAD_REL_TOL[dname]:g})")
+        if not grad_rel[dname] <= GRAD_REL_TOL[dname]:
+            fail(f"{dname} gradients through the kernels disagree with the "
+                 f"unfused encoder")
+        del gf, gu
+    del state, tparams, step
+    torch.cuda.empty_cache()
+
+    # small-input reference: three f32 train steps on the card == the CPU
+    # plain path (dropout 0). cuBLAS and the CPU sum in other orders, and
+    # the Adam direction m/(√v+ε) magnifies that for gradient entries near
+    # ε, so parameters are held to 3 % of one lr-1e-3 update (a wrong
+    # gradient or Adam term moves them by a whole update)
+    small = Config()
+    small.model = tiny_model_config(vocab_size=32200, dropout_rate=0.0)
+    small.train.lr = 1e-3
+    sm = small.model
+    sp = vlt5.init_vlt5_params(5, sm, device="cpu")
+    spro = ProtoState.create(sm.n_ques_types, sm.n_categories, sm.d_model,
+                             device="cpu")
+    sbatches = [b["tensors"] for b in SyntheticVQA(
+        24, seed=6, feat_dim=sm.feat_dim, n_boxes=sm.n_boxes,
+        text_len=sm.max_text_length, vocab_size=sm.vocab_size,
+        answer_vocab=8).batches(8, seed=1)]
+    stx = make_transform(small.train)
+    s_cpu = TrainState.create(sp, stx, spro, seed=0, warmup_iters=1.0,
+                              t_total=40.0)
+    s_gpu = TrainState.create(to_device(sp, "cuda"), stx, spro.to("cuda"),
+                              seed=0, warmup_iters=1.0, t_total=40.0)
+    step_cpu = make_train_step(small, dtype=torch.float32, device="cpu")
+    step_gpu = make_train_step(small, dtype=torch.float32, device="cuda")
+    small_loss_err = 0.0
+    for b in sbatches:
+        s_cpu, mc = step_cpu(s_cpu, b)
+        s_gpu, mg = step_gpu(s_gpu, b)
+        small_loss_err = max(small_loss_err, abs(float(mg["loss"])
+                                                 - float(mc["loss"]))
+                             / abs(float(mc["loss"])))
+    pc, pg = tree_leaves(s_cpu.params), tree_leaves(s_gpu.params)
+    small_param_err = max(float((a - b.cpu()).abs().max())
+                          for a, b in zip(pc, pg))
+    log(f"small f32 train reference: 3 steps card vs CPU plain path: loss "
+        f"rel err {small_loss_err:.3e} (tol 1e-5), param max abs err "
+        f"{small_param_err:.3e} (tol {SMALL_PARAM_TOL:g})")
+    if not (small_loss_err <= 1e-5 and small_param_err <= SMALL_PARAM_TOL):
+        fail("f32 train steps on the card differ from the CPU plain path")
+
+    # ---- 5. serving -------------------------------------------------------
     store = MemoryFeatureStore()
     imgs = SyntheticVQA(32, seed=4).examples
     for i, ex in enumerate(imgs):
@@ -325,7 +697,7 @@ def main() -> int:
     with VQAServer(pred, max_wait_ms=5.0) as srv:
         srv.submit("warm up?", "img0").result(timeout=300)
         warm = srv.stats()
-        fa.fused_attention.launches = 0
+        zero_counts()
         answers, errors = [], []
         start = threading.Barrier(n_clients)
 
@@ -364,24 +736,36 @@ def main() -> int:
         fail(f"serving launched the kernel {serve_launches} times over "
              f"{batches} batches")
 
-    kernels = [{
-        "name": "fused_attention_fwd",
-        "route": "cuda",
-        "source": "vqacl_tpu_torch/csrc/fused_attention_fwd.cu",
-        "replaces": "vqacl_tpu/ops/fused_attention.py:159",
-        "launches": eval_launches,
-        "max_abs_err": k1["max_abs_err"],
-        "ms": k1["ms"],
-        "plain_ms": k1["plain_ms"],
-        "bound_ms": k1["bound_ms"],
-        "bound_by": k1["bound_by"],
-        "library_ms": k1["library_ms"],
-    }]
+    def row(name, source, replaces, launches, r):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                     "bound_ms", "bound_by", "library_ms")}}
+
+    fwd_src = "vqacl_tpu_torch/csrc/fused_attention_fwd.cu"
+    kernels = [
+        row("fused_attention_fwd", fwd_src,
+            "vqacl_tpu/ops/fused_attention.py:159", eval_launches, k1),
+        row("fused_attention_fwd_train", fwd_src,
+            "vqacl_tpu/ops/fused_attention.py:199", train_k1p, k1p),
+        row("fused_attention_bwd",
+            "vqacl_tpu_torch/csrc/fused_attention_bwd.cu",
+            "vqacl_tpu/ops/fused_attention.py:272", train_k2, k2),
+    ]
     log("summary " + json.dumps({
         "eval_step_ms": eval_step_ms, "eval_batch": EVAL_BATCH,
         "launches_per_eval_step": per_step, "encoder_rel_err": enc_rel,
-        "rows_equal": rows_equal, "serve": st, "serve_wall_s": wall,
-        "card": card}))
+        "rows_equal": rows_equal, "train_step_ms": train_step_ms,
+        "train_step_ms_all": ttimes, "train_batch": TRAIN_BATCH,
+        "train_losses": losses,
+        "launches_per_train_step": {
+            "K1": train_k1 / TRAIN_STEPS, "K1p": train_k1p / TRAIN_STEPS,
+            "K2": train_k2 / TRAIN_STEPS},
+        "grad_rel_err": grad_rel, "small_train_loss_rel_err": small_loss_err,
+        "small_train_param_err": small_param_err,
+        "kernel_bytes_flops": {"K1p": [k1p["bytes"], k1p["flops"]],
+                               "K2": [k2["bytes"], k2["flops"]]},
+        "serve": st, "serve_wall_s": wall, "card": card}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

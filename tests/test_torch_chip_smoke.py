@@ -4,12 +4,12 @@ chip_smoke.py needs a CUDA device and nvcc, so the tests here cannot
 run it as it is. This rehearsal runs its ``main()`` in a subprocess with
 CUDA devices mapped to the CPU (a ``TorchFunctionMode`` that rewrites
 ``device="cuda"``), CUDA events timed on the host clock, the build step
-skipped, the kernel wrapper replaced by its plain version plus the
-launch counter, and tiny widths (t5-base's data shapes, d_model 32,
-2 layers). It checks every phase's bookkeeping — launch counts per eval
-step and per served batch, the kernels JSON line with all its keys, the
-card line and the final verdict line — and that without CUDA the real
-script prints no result and exits non-zero.
+skipped, each kernel wrapper (K1, K1′, K2) replaced by its plain version
+plus the launch counter, and tiny widths (t5-base's data shapes, d_model
+32, 2 layers). It checks every phase's bookkeeping — launch counts per
+eval step, per train step and per served batch, the kernels JSON line
+with all its keys, the card line and the final verdict line — and that
+without CUDA the real script prints no result and exits non-zero.
 """
 
 import json
@@ -65,23 +65,39 @@ import vqacl_tpu_torch.train.step as ST
 D.resolve_device = V.resolve_device = SV.resolve_device = ST.resolve_device = cpu
 from vqacl_tpu_torch.ops import _build, fused_attention as fa
 _build.build = lambda names=(): []
-plain = fa.fused_attention_reference
-def counted(q, k, v, bias, mask, H, dropout_rate=0.0):
+dispatch = fa.fused_attention
+def counted(q, k, v, bias, mask, H, dropout_rate=0.0, seed=None):
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return dispatch(q, k, v, bias, mask, H, dropout_rate, seed)
     counted.launches += 1
-    return plain(q, k, v, bias, mask, H)
-counted.launches = 0
+    return fa.fused_attention_reference(q, k, v, bias, mask, H)
+def counted_fwd_train(*a):
+    counted_fwd_train.launches += 1
+    return fa.fused_attention_fwd_train_reference(*a)
+def counted_bwd(*a):
+    counted_bwd.launches += 1
+    return fa.fused_attention_bwd_reference(*a)
+for f in (counted, counted_fwd_train, counted_bwd):
+    f.launches = 0
 fa.fused_attention = counted
+fa.fused_attention_fwd_train = counted_fwd_train
+fa.fused_attention_bwd = counted_bwd
+fa.fused_attention_keep_mask = fa.philox_keep_mask
 from vqacl_tpu_torch.utils import config as C
 _Config = C.Config
 def tiny():
     c = _Config()
     c.model = C.tiny_model_config(vocab_size=32200, feat_dim=2048, n_boxes=36,
                                   max_text_length=20, gen_max_length=8)
+    c.train.lr = 1e-2
     return c
 C.Config = tiny
 import chip_smoke
 chip_smoke.card_line = lambda: "rehearsal card, 0 W"
 chip_smoke.EVAL_BATCH = 4
+chip_smoke.TRAIN_BATCH = 8
+chip_smoke.TRAIN_STEPS = 4
 with CudaOnCpu():
     sys.exit(chip_smoke.main())
 """
@@ -98,12 +114,21 @@ def test_chip_smoke_rehearsal_on_cpu():
     kernels = json.loads(lines[-3])["kernels"]
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
-    assert [set(k) for k in kernels] == [keys]
-    k1 = kernels[0]
-    assert k1["route"] == "cuda" and k1["bound_by"] in ("bytes", "operations")
-    assert os.path.exists(os.path.join(REPO, k1["source"]))
+    assert [set(k) for k in kernels] == [keys] * 3
+    assert [k["name"] for k in kernels] == [
+        "fused_attention_fwd", "fused_attention_fwd_train",
+        "fused_attention_bwd"]
+    for k in kernels:
+        assert k["route"] == "cuda" and k["bound_by"] in ("bytes",
+                                                          "operations")
+        assert os.path.exists(os.path.join(REPO, k["source"]))
+        assert k["replaces"].startswith("vqacl_tpu/ops/fused_attention.py:")
+    k1, k1p, k2 = kernels
     assert k1["launches"] == 2 * 3          # 2 layers x 3 timed eval steps
     assert "fused_attention launches=6 (2/step)" in r.stdout
+    assert k1p["launches"] == k2["launches"] == 2 * 4   # x 4 train steps
+    assert "launches over 4 steps: K1=0 K1'=8 K2=8" in r.stdout
+    assert "rate=0.1 kept=0.9" in r.stdout
 
 
 def test_chip_smoke_without_cuda_prints_no_result():

@@ -289,12 +289,17 @@ runpy.run_path("chip_smoke.py", run_name="chip_smoke_import_check")
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax")
        and sys.modules[m] is not None]
 assert not bad, bad
+print(" ".join(mods))
 print("imported", len(mods))
 """
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.split()[-1]) >= 15
+    assert int(r.stdout.split()[-1]) >= 18
+    imported = set(r.stdout.split())
+    for m in ("train.optim", "train.state", "train.step", "profile_train",
+              "ops.fused_attention", "ops._build"):
+        assert f"vqacl_tpu_torch.{m}" in imported, m
 
 
 def test_entry_points_need_a_device_without_cuda(slice_setup):

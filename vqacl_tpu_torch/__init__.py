@@ -8,10 +8,13 @@ two). Entry points run on ``device="cuda"`` unless the caller passes
 another device; on a CPU tensor every kernel wrapper takes its plain
 PyTorch version, on a CUDA tensor it launches the hand-written kernel.
 
-This slice ports the serving path: ``serve.VQAPredictor``/``VQAServer``
+Ported so far: the serving path, ``serve.VQAPredictor``/``VQAServer``
 → ``train.step.make_eval_step`` → ``models.vlt5.encode`` (the encoder
 attention runs in ``csrc/fused_attention_fwd.cu``) → prototype retrieval
-→ ``models.generate.greedy_decode``.
+→ ``models.generate.greedy_decode``; and the training step,
+``train.step.make_train_step`` → ``models.vlt5.forward_train`` (the
+encoder attention's forward and backward in ``csrc/fused_attention_fwd.cu``
+and ``csrc/fused_attention_bwd.cu``) → backward → ``train.optim``.
 """
 
 __version__ = "0.1.0"

@@ -1,17 +1,26 @@
 // Encoder-attention forward for the VL-T5 joint encoder, hand-written for
-// Hopper (sm_90a), bound to PyTorch through a plain C entry point (ctypes).
+// Hopper (sm_90a), bound to PyTorch through plain C entry points (ctypes).
 //
-// Replaces the Pallas TPU kernel vqacl_tpu/ops/fused_attention.py
-// `_fwd_kernel_batched` (and its serial twin `_fwd_kernel`, same math),
-// reached through `_call_fwd(save_p=False)`, for the inference path
-// (dropout 0, no saved probabilities).
+// Replaces the Pallas TPU kernels of vqacl_tpu/ops/fused_attention.py:
+//   K1  `_fwd_kernel_batched` (and its serial twin `_fwd_kernel`, same math)
+//       through `_call_fwd(save_p=False)`: the inference forward, entry
+//       `fused_attention_fwd` (dropout 0, no saved probabilities);
+//   K1' `_fwd_kernel_batched_save_p` / `_fwd_kernel_save_p` through
+//       `_call_fwd(save_p=True)`: the training forward, entry
+//       `fused_attention_fwd_train`. It also writes the PRE-dropout
+//       probabilities p [B, H*Tq, Sk] f32 for the backward kernel K2
+//       (fused_attention_bwd.cu) and applies dropout from the Philox
+//       streams of philox.cuh, which K2 regenerates.
+// Both are one template (`kTrain`), so K1' is K1 plus the two extra steps.
 //
 // Per (batch b, head h), for every query row i:
 //   s[j] = q[i]·k[j] in f32 (q, k upcast, UNSCALED T5 attention)
 //        + bias[h, i, j]              only when i < min(L,Tq), j < min(L,Sk)
 //        + (1 - mask[b, j]) * -1e9    key padding mask
-//   p    = softmax(s) in f32, then rounded to v's dtype
-//   o[i] = p·v with f32 accumulation, written in q's dtype.
+//   p    = softmax(s) in f32                  (K1': stored to p[b, h*Tq+i, j])
+//   K1': p = keep(b,h,i,j) ? p / (1 - rate) : 0   when rate > 0
+//   p is rounded to v's dtype, then o[i] = p·v with f32 accumulation,
+//   written in q's dtype.
 // q/o are [B, Tq, H*dk] and k/v [B, Sk, H*dk]: the layout the projection
 // GEMMs produce, so the wrapper does no transposes; the head is the
 // column panel [h*dk, (h+1)*dk). bias is [H, L, L] f32 (the relative bias
@@ -20,25 +29,27 @@
 // here, so the wrapper needs no padding to a multiple of 8.
 //
 // What bounds it on the card. At the eval shape (B=100, Tq=Sk=56, H=12,
-// dk=64, bf16) q/k/v/o are 4 x 100*56*768*2 B = 34.4 MB of device memory
-// traffic against 2*2*100*12*56*56*64 = 0.96 GFLOP: about 28 FLOP/byte,
-// far below the H100's ~295 FLOP/byte bf16 ridge, so the least time is
-// set by memory bandwidth: 10.3 us at 3.35 TB/s. chip_smoke.py prints the
-// measured time beside this bound (PERF.md: 0.174 ms on an H100 80GB HBM3
-// at 700 W, so this version is far from it).
+// dk=64, bf16) K1 moves q/k/v/o, 4 x 100*56*768*2 B = 34.4 MB, against
+// 2*2*100*12*56*56*64 = 0.96 GFLOP: about 28 FLOP/byte, far below the
+// H100's ~295 FLOP/byte bf16 ridge, so the least time is set by memory
+// bandwidth: 10.3 us at 3.35 TB/s. At the train shape (B=80, S=56) K1'
+// moves q/k/v/o 27.5 MB plus p 12.0 MB = 39.6 MB, about 11.8 us at
+// 3.35 TB/s, against 0.77 GFLOP. chip_smoke.py prints the measured times
+// beside these bounds (PERF.md: this version is far from them).
 //
 // What the design does about it. Each element of q/k/v is read from
-// device memory once and o is written once: the head's K and V panels
-// (Sk x dk) are staged in shared memory by the block, and scores and
-// probabilities never leave the SM (the plain PyTorch version writes the
-// [B,H,Tq,Sk] scores and probabilities to device memory and transposes
-// q/k/v/o). The arithmetic is scalar f32 FMAs from shared memory -- one
-// block per (b, h), one warp per query row, lane-strided keys, warp-shuffle
-// max and sum, each lane owning dk/32 output columns. That is a simple
-// first version, and what it reaches first is not memory but the shared
-// memory load rate: every FMA of q.k and p.v needs two 4-byte shared loads
-// (0.48 G FMAs -> ~30 M warp-wide loads, ~115 us at one load per clock per
-// SM). Register tiling (several query rows per warp, vector loads), wgmma
+// device memory once and o (and K1's p) written once: the head's K and V
+// panels (Sk x dk) are staged in shared memory by the block, and scores
+// never leave the SM (the plain PyTorch version writes the [B,H,Tq,Sk]
+// scores and probabilities to device memory and transposes q/k/v/o); the
+// dropout bits are computed in registers, never stored. The arithmetic is
+// scalar f32 FMAs from shared memory -- one block per (b, h), one warp per
+// query row, lane-strided keys, warp-shuffle max and sum, each lane owning
+// dk/32 output columns. That is a simple first version, and what it
+// reaches first is not memory but the shared memory load rate: every FMA
+// of q.k and p.v needs two 4-byte shared loads (0.48 G FMAs at the eval
+// shape -> ~30 M warp-wide loads, ~115 us at one load per clock per SM).
+// Register tiling (several query rows per warp, vector loads), wgmma
 // tiles, TMA staging and several heads per block are work for a later
 // version.
 
@@ -46,6 +57,9 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+#include <stdint.h>
+
+#include "philox.cuh"
 
 namespace {
 
@@ -85,12 +99,15 @@ __device__ __forceinline__ float warp_sum(float x) {
 //   sneg [Sk]          additive key mask
 //   sq   [kWarps][dk]  the current query row of each warp
 //   sp   [kWarps][Sk]  scores, then probabilities, of each warp's row
-template <typename T>
+// kTrain (K1'): also store p, and drop with Philox when `dropout` is set.
+template <typename T, bool kTrain>
 __global__ void __launch_bounds__(kThreads)
 fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
            const T* __restrict__ v, const float* __restrict__ bias,
            const float* __restrict__ mask, T* __restrict__ o,
-           int Tq, int Sk, int H, int dk, int L) {
+           int Tq, int Sk, int H, int dk, int L, float* __restrict__ p_out,
+           const int* __restrict__ seed, int dropout, uint32_t thresh,
+           float keep_div) {
   extern __shared__ float smem[];
   const int h = blockIdx.x;
   const int b = blockIdx.y;
@@ -121,6 +138,8 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int Lq = min(L, Tq);
   const int Lk = min(L, Sk);
   const float* hbias = bias + (size_t)h * L * L;  // not read when L == 0
+  const uint32_t s0 = (kTrain && dropout) ? (uint32_t)seed[0] : 0u;
+  const int bh = b * H + h;
 
   for (int i = warp; i < Tq; i += kWarps) {
     const T* qrow = q + ((size_t)b * Tq + i) * HD + (size_t)h * dk;
@@ -145,8 +164,15 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       sum += e;
     }
     sum = warp_sum(sum);
-    for (int j = lane; j < Sk; j += 32)
-      wp[j] = to_f32(from_f32<T>(wp[j] / sum));  // p cast to v's dtype
+    for (int j = lane; j < Sk; j += 32) {
+      float pj = wp[j] / sum;
+      if (kTrain) {
+        p_out[((size_t)bh * Tq + i) * Sk + j] = pj;  // pre-dropout
+        if (dropout)
+          pj = philox::keep(s0, bh, i, j, thresh) ? pj / keep_div : 0.0f;
+      }
+      wp[j] = to_f32(from_f32<T>(pj));  // p cast to v's dtype
+    }
     __syncwarp();
 
     T* orow = o + ((size_t)b * Tq + i) * HD + (size_t)h * dk;
@@ -159,24 +185,26 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T>
+template <typename T, bool kTrain>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const float* bias, const float* mask, void* o, int B,
-                   int Tq, int Sk, int H, int dk, int L, cudaStream_t stream) {
+                   int Tq, int Sk, int H, int dk, int L, float* p,
+                   const int* seed, int dropout, uint32_t thresh,
+                   float keep_div, cudaStream_t stream) {
   const size_t smem = sizeof(float) *
       ((size_t)Sk * (dk + 1) + (size_t)Sk * dk + Sk + (size_t)kWarps * dk +
        (size_t)kWarps * Sk);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        fwd_kernel<T, kTrain>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return err;
   }
   const dim3 grid(H, B);
-  fwd_kernel<T><<<grid, kThreads, smem, stream>>>(
+  fwd_kernel<T, kTrain><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), bias, mask, static_cast<T*>(o), Tq, Sk, H, dk,
-      L);
+      L, p, seed, dropout, thresh, keep_div);
   return cudaGetLastError();
 }
 
@@ -193,11 +221,41 @@ extern "C" int fused_attention_fwd(const void* q, const void* k,
   const float* mask_f = static_cast<const float*>(mask);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)launch<float>(q, k, v, bias_f, mask_f, o, B, Tq, Sk, H, dk, L,
-                              s);
+    return (int)launch<float, false>(q, k, v, bias_f, mask_f, o, B, Tq, Sk, H,
+                                     dk, L, nullptr, nullptr, 0, 0u, 1.0f, s);
   if (dtype == 1)
-    return (int)launch<__nv_bfloat16>(q, k, v, bias_f, mask_f, o, B, Tq, Sk,
-                                      H, dk, L, s);
+    return (int)launch<__nv_bfloat16, false>(q, k, v, bias_f, mask_f, o, B, Tq,
+                                             Sk, H, dk, L, nullptr, nullptr, 0,
+                                             0u, 1.0f, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K1': as above, and also p [B, H*Tq, Sk] f32 (pre-dropout). With
+// dropout != 0, element (b, h, i, j) is kept when its Philox bits (key
+// seed[0], a device int32) are below `thresh`, and kept p is divided by
+// keep_div = 1 - rate (both computed by the wrapper as the Pallas kernel
+// does).
+extern "C" int fused_attention_fwd_train(const void* q, const void* k,
+                                         const void* v, const void* bias,
+                                         const void* mask, const void* seed,
+                                         void* o, void* p, int B, int Tq,
+                                         int Sk, int H, int dk, int L,
+                                         int dtype, int dropout,
+                                         unsigned int thresh, float keep_div,
+                                         void* stream) {
+  const float* bias_f = static_cast<const float*>(bias);
+  const float* mask_f = static_cast<const float*>(mask);
+  const int* seed_i = static_cast<const int*>(seed);
+  float* p_f = static_cast<float*>(p);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return (int)launch<float, true>(q, k, v, bias_f, mask_f, o, B, Tq, Sk, H,
+                                    dk, L, p_f, seed_i, dropout, thresh,
+                                    keep_div, s);
+  if (dtype == 1)
+    return (int)launch<__nv_bfloat16, true>(q, k, v, bias_f, mask_f, o, B, Tq,
+                                            Sk, H, dk, L, p_f, seed_i, dropout,
+                                            thresh, keep_div, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -63,6 +63,21 @@ class SyntheticVQA:
                 "answers": [str(ans_tok)],
             })
 
+    def batches(self, batch_size: int, epochs: int = 1, seed: int = 0,
+                drop_last: bool = True):
+        """Collated batches over ``epochs`` seeded permutations of the
+        pool; the same order as the JAX package's for the same seed."""
+        rng = np.random.default_rng(seed)
+        for _ in range(epochs):
+            order = rng.permutation(self.n)
+            for s in range(0, self.n - (batch_size - 1 if drop_last else 0),
+                           batch_size):
+                idx = order[s:s + batch_size]
+                if drop_last and len(idx) < batch_size:
+                    break
+                yield collate([self.examples[i] for i in idx],
+                              feat_dim=self.feat_dim, n_boxes=self.n_boxes)
+
 
 def synthetic_batch(batch_size: int = 8, seed: int = 0, **kw) -> Dict:
     """One collated batch."""

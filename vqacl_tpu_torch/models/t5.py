@@ -1,8 +1,13 @@
-"""T5 encoder and decoder pieces for the serving path.
+"""T5 encoder and decoder pieces for the serving and training paths.
 
 Counterpart of ``vqacl_tpu/models/t5.py``: plain functions on a nested
 dict of tensors with the JAX pytree's keys. Linear weights are kept in
 the JAX orientation ``[in, out]`` and applied as ``x @ W``.
+
+Dropout follows the JAX placement (attention weights, MLP hidden, each
+residual branch, stack input and output). A ``generator`` argument
+(``torch.Generator`` on the tensors' device) turns it on; ``None`` is
+the deterministic path, as JAX's ``deterministic=True``.
 
 T5 specifics kept: RMS layer norm without mean or bias (variance in
 f32), unscaled dot-product attention with f32 scores and softmax, the
@@ -32,6 +37,17 @@ def layer_norm(w: torch.Tensor, x: torch.Tensor, eps: float) -> torch.Tensor:
     var = (xf * xf).mean(dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * w.float()).to(dt)
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Keep each element with probability 1 − rate and scale kept ones
+    by 1/(1 − rate); the identity without a generator or at rate 0."""
+    if generator is None or rate == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) \
+        < (1.0 - rate)
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
 def relative_position_bucket(relative_position: torch.Tensor,
@@ -97,11 +113,13 @@ def multihead_attention(p: Params,
                         d_kv: int,
                         kv_proj: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                         mask_add: Optional[torch.Tensor] = None,
+                        dropout_rate: float = 0.0,
+                        generator: Optional[torch.Generator] = None,
                         ) -> torch.Tensor:
-    """Unscaled T5 attention (inference). q_in [B,Lq,D]; k_in/v_in
-    [B,Lk,D], or ``kv_proj`` = already projected (k, v) [B,Lk,H,dk].
-    ``bias`` and ``mask_add`` are additive f32 terms broadcast to
-    [B,H,Lq,Lk]."""
+    """Unscaled T5 attention. q_in [B,Lq,D]; k_in/v_in [B,Lk,D], or
+    ``kv_proj`` = already projected (k, v) [B,Lk,H,dk]. ``bias`` and
+    ``mask_add`` are additive f32 terms broadcast to [B,H,Lq,Lk]. With a
+    ``generator`` the f32 attention weights take dropout."""
     B, Lq, _ = q_in.shape
     dt = q_in.dtype
     q = (q_in @ p["wq"].to(dt)).reshape(B, Lq, num_heads, d_kv)
@@ -116,12 +134,15 @@ def multihead_attention(p: Params,
         scores = scores + bias
     if mask_add is not None:
         scores = scores + mask_add
-    w = torch.softmax(scores, dim=-1).to(dt)
+    w = torch.softmax(scores, dim=-1)
+    w = dropout(w, dropout_rate, generator).to(dt)
     out = torch.einsum("bhqk,bkhd->bqhd", w.float(), v.float()).to(dt)
     return out.reshape(B, Lq, num_heads * d_kv) @ p["wo"].to(dt)
 
 
-def mlp_apply(p: Params, x: torch.Tensor, activation: str) -> torch.Tensor:
+def mlp_apply(p: Params, x: torch.Tensor, activation: str,
+              dropout_rate: float = 0.0,
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
     dt = x.dtype
     h = x @ p["wi"].to(dt)
     if activation == "relu":
@@ -130,27 +151,38 @@ def mlp_apply(p: Params, x: torch.Tensor, activation: str) -> torch.Tensor:
         h = torch.nn.functional.gelu(h)
     else:
         raise ValueError(activation)
+    h = dropout(h, dropout_rate, generator)
     return h @ p["wo"].to(dt)
 
 
 def encoder_block(p: Params, cfg, x: torch.Tensor,
                   bias: Optional[torch.Tensor],
-                  mask_add: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  mask_add: Optional[torch.Tensor] = None,
+                  generator: Optional[torch.Generator] = None
+                  ) -> torch.Tensor:
+    rate = cfg.dropout_rate
     h = layer_norm(p["ln1"], x, cfg.layer_norm_epsilon)
-    x = x + multihead_attention(p["attn"], h, h, h, bias, cfg.num_heads,
-                                cfg.d_kv, mask_add=mask_add)
+    a = multihead_attention(p["attn"], h, h, h, bias, cfg.num_heads,
+                            cfg.d_kv, mask_add=mask_add, dropout_rate=rate,
+                            generator=generator)
+    x = x + dropout(a, rate, generator)
     h = layer_norm(p["ln2"], x, cfg.layer_norm_epsilon)
-    return x + mlp_apply(p["mlp"], h, cfg.feed_forward_proj)
+    m = mlp_apply(p["mlp"], h, cfg.feed_forward_proj, rate, generator)
+    return x + dropout(m, rate, generator)
 
 
 def encoder_block_fused(p: Params, cfg, x: torch.Tensor,
-                        pos_bias: torch.Tensor,
-                        mask: torch.Tensor) -> torch.Tensor:
+                        pos_bias: torch.Tensor, mask: torch.Tensor,
+                        seed: Optional[torch.Tensor] = None,
+                        generator: Optional[torch.Generator] = None
+                        ) -> torch.Tensor:
     """``encoder_block`` with the attention core in
-    ``ops.fused_attention`` (the CUDA kernel on CUDA tensors).
-    pos_bias [H,L,L] f32 for the first L positions, mask [B,S]."""
+    ``ops.fused_attention`` (the CUDA kernels on CUDA tensors).
+    pos_bias [H,L,L] f32 for the first L positions, mask [B,S], seed
+    int32 [1] (the layer's attention-dropout stream)."""
     from vqacl_tpu_torch.ops.fused_attention import fused_encoder_attention
 
+    rate = cfg.dropout_rate
     h = layer_norm(p["ln1"], x, cfg.layer_norm_epsilon)
     dt = h.dtype
     B, S, _ = h.shape
@@ -158,37 +190,110 @@ def encoder_block_fused(p: Params, cfg, x: torch.Tensor,
     q = (h @ a["wq"].to(dt)).reshape(B, S, cfg.num_heads, cfg.d_kv)
     k = (h @ a["wk"].to(dt)).reshape(B, S, cfg.num_heads, cfg.d_kv)
     v = (h @ a["wv"].to(dt)).reshape(B, S, cfg.num_heads, cfg.d_kv)
-    o = fused_encoder_attention(q, k, v, pos_bias, mask)
-    x = x + o @ a["wo"].to(dt)
+    o = fused_encoder_attention(
+        q, k, v, pos_bias, mask,
+        dropout_rate=0.0 if generator is None else rate, seed=seed)
+    x = x + dropout(o @ a["wo"].to(dt), rate, generator)
     h = layer_norm(p["ln2"], x, cfg.layer_norm_epsilon)
-    return x + mlp_apply(p["mlp"], h, cfg.feed_forward_proj)
+    m = mlp_apply(p["mlp"], h, cfg.feed_forward_proj, rate, generator)
+    return x + dropout(m, rate, generator)
 
 
 def encoder_stack(p: Params, cfg, inputs_embeds: torch.Tensor,
                   position_bias: Optional[torch.Tensor],
                   fused: Optional[Dict[str, Any]] = None,
-                  mask_add: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  mask_add: Optional[torch.Tensor] = None,
+                  generator: Optional[torch.Generator] = None
+                  ) -> torch.Tensor:
     """Encoder over precomputed embeddings.
 
     Unfused: ``position_bias`` [1,H,S,S] and the padding mask
     ``mask_add`` [B,1,1,S] are additive terms. Fused (``fused`` dict with
     ``pos_bias`` [H,L,L] and ``mask`` [B,S]): attention runs in
-    ``ops.fused_attention``."""
-    x = inputs_embeds
-    for i in range(cfg.num_layers):
-        blk = p[f"block_{i}"]
-        if fused is not None:
-            x = encoder_block_fused(blk, cfg, x, fused["pos_bias"],
-                                    fused["mask"])
-        else:
-            x = encoder_block(blk, cfg, x, position_bias, mask_add)
-    return layer_norm(p["final_ln"], x, cfg.layer_norm_epsilon)
+    ``ops.fused_attention``, each layer with its own dropout seed drawn
+    from ``generator`` on its device (no host round trip)."""
+    rate = cfg.dropout_rate
+    x = dropout(inputs_embeds, rate, generator)
+    if fused is not None:
+        seeds = [None] * cfg.num_layers
+        if generator is not None:
+            seeds = torch.randint(0, 2 ** 31 - 1, (cfg.num_layers,),
+                                  generator=generator, dtype=torch.int32,
+                                  device=generator.device)
+        for i in range(cfg.num_layers):
+            x = encoder_block_fused(
+                p[f"block_{i}"], cfg, x, fused["pos_bias"], fused["mask"],
+                None if generator is None else seeds[i:i + 1], generator)
+    else:
+        for i in range(cfg.num_layers):
+            x = encoder_block(p[f"block_{i}"], cfg, x, position_bias,
+                              mask_add, generator)
+    x = layer_norm(p["final_ln"], x, cfg.layer_norm_epsilon)
+    return dropout(x, rate, generator)
+
+
+def decoder_block(p: Params, cfg, x: torch.Tensor,
+                  self_bias: Optional[torch.Tensor],
+                  enc_states: torch.Tensor,
+                  cross_bias: Optional[torch.Tensor],
+                  generator: Optional[torch.Generator] = None
+                  ) -> torch.Tensor:
+    """Teacher-forced decoder block: causal self-attention (``self_bias``
+    [·,H,T,T] holds the causal mask and the relative bias), cross-
+    attention to the encoder (``cross_bias`` [B,1,1,S]), MLP."""
+    rate = cfg.dropout_rate
+    h = layer_norm(p["ln1"], x, cfg.layer_norm_epsilon)
+    a = multihead_attention(p["attn"], h, h, h, self_bias, cfg.num_heads,
+                            cfg.d_kv, dropout_rate=rate, generator=generator)
+    x = x + dropout(a, rate, generator)
+    h = layer_norm(p["ln2"], x, cfg.layer_norm_epsilon)
+    c = multihead_attention(p["cross_attn"], h, enc_states, enc_states,
+                            cross_bias, cfg.num_heads, cfg.d_kv,
+                            dropout_rate=rate, generator=generator)
+    x = x + dropout(c, rate, generator)
+    h = layer_norm(p["ln3"], x, cfg.layer_norm_epsilon)
+    m = mlp_apply(p["mlp"], h, cfg.feed_forward_proj, rate, generator)
+    return x + dropout(m, rate, generator)
+
+
+def decoder_stack(p: Params, cfg, inputs_embeds: torch.Tensor,
+                  enc_states: torch.Tensor,
+                  enc_mask: Optional[torch.Tensor],
+                  generator: Optional[torch.Generator] = None
+                  ) -> torch.Tensor:
+    """Teacher-forced decoder (unfused, with no decoder padding mask, as
+    the train path runs it). inputs_embeds [B,T,D]; enc_mask [B,S]."""
+    T = inputs_embeds.shape[1]
+    dev = inputs_embeds.device
+    pb = compute_position_bias(p["rel_bias"], T, T, bidirectional=False,
+                               num_buckets=cfg.relative_attention_num_buckets,
+                               max_distance=cfg.relative_attention_max_distance)
+    self_bias = attention_scores_bias(causal_mask(T, dev), pb)
+    cross_mask = None if enc_mask is None else enc_mask[:, None, None, :]
+    cross_bias = attention_scores_bias(cross_mask, None)
+    rate = cfg.dropout_rate
+    x = dropout(inputs_embeds, rate, generator)
+    for i in range(cfg.num_decoder_layers):
+        x = decoder_block(p[f"block_{i}"], cfg, x, self_bias, enc_states,
+                          cross_bias, generator)
+    x = layer_norm(p["final_ln"], x, cfg.layer_norm_epsilon)
+    return dropout(x, rate, generator)
 
 
 def causal_mask(L: int, device=None) -> torch.Tensor:
     """[1,1,L,L] lower-triangular attend mask."""
     return torch.tril(torch.ones((L, L), dtype=torch.float32,
                                  device=device))[None, None]
+
+
+def shift_right(labels: torch.Tensor, decoder_start_token_id: int,
+                pad_token_id: int) -> torch.Tensor:
+    """HF ``_shift_right``: prepend the start token, drop the last, and
+    replace -100 with pad."""
+    start = torch.full_like(labels[:, :1], decoder_start_token_id)
+    shifted = torch.cat([start, labels[:, :-1]], dim=1)
+    return torch.where(shifted == -100, torch.full_like(shifted, pad_token_id),
+                       shifted)
 
 
 def embed_tokens(shared: torch.Tensor, ids: torch.Tensor, dtype

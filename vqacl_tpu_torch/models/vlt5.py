@@ -1,23 +1,31 @@
-"""VL-T5 joint text+vision encoder and prototype retrieval for serving.
+"""VL-T5: joint text+vision T5 encoder-decoder with prototype augmentation.
 
-Counterpart of ``vqacl_tpu/models/vlt5.py``, cut to the serving path:
+Counterpart of ``vqacl_tpu/models/vlt5.py``, cut to the serving and
+training paths:
 
   ``init_vlt5_params``          seeded random init (numpy), the JAX pytree's keys
   ``cast_params_for_inference`` pre-cast the matmul weights once
   ``joint_pos_bias``            text-text-only relative bias
   ``encode``                    text‖visual joint encoding
-  ``augment``                   retrieval-only prototype concat
+  ``augment``                   prototype EMA update + retrieval + concat
+  ``decode_hidden``/``decode_train``  teacher-forced decoder (+ LM head)
+  ``fused_head_loss``           tied LM head + weighted CE as one
+                                ``autograd.Function``
+  ``forward_train``             the train-time forward → loss, new
+                                prototype state, aux metrics
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from vqacl_tpu_torch.models import t5
-from vqacl_tpu_torch.models.prototype import ProtoState, cosine_retrieve
+from vqacl_tpu_torch.models.prototype import (ProtoState, batch_class_means,
+                                              cosine_retrieve, memory_loss,
+                                              proto_update)
 from vqacl_tpu_torch.models.visual_embedding import apply_visual_embedding
 from vqacl_tpu_torch.utils.device import resolve_device
 
@@ -135,13 +143,15 @@ def encode(params: Params, cfg,
            vis_feats: torch.Tensor,            # [B, N, feat_dim]
            boxes: torch.Tensor,                # [B, N, 4]
            dtype=torch.float32,
+           generator: Optional[torch.Generator] = None,
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Joint encoder → (hidden [B, L+N, D], enc_mask [B, L+N] f32).
 
     With ``cfg.fused_attention`` the attention runs in
     ``ops.fused_attention`` with the relative bias of the text-text block
     only (the rest of the joint bias is zero, so it never moves);
-    otherwise the full [1,H,S,S] bias and a [B,1,1,S] mask are added."""
+    otherwise the full [1,H,S,S] bias and a [B,1,1,S] mask are added.
+    A ``generator`` turns dropout on (training)."""
     B, L = input_ids.shape
     N = vis_feats.shape[1]
     # text keys attend unless pad; region keys always attend
@@ -162,31 +172,240 @@ def encode(params: Params, cfg,
             max_distance=cfg.relative_attention_max_distance)[0]  # [H,L,L]
         fused = {"pos_bias": text_bias.contiguous(), "mask": enc_mask}
         hidden = t5.encoder_stack(params["encoder"], cfg, inputs, None,
-                                  fused=fused)
+                                  fused=fused, generator=generator)
     else:
         pos_bias = joint_pos_bias(params, cfg, L, N)
         mask_add = t5.attention_scores_bias(enc_mask[:, None, None, :], None)
         hidden = t5.encoder_stack(params["encoder"], cfg, inputs, pos_bias,
-                                  mask_add=mask_add)
+                                  mask_add=mask_add, generator=generator)
     return hidden, enc_mask
 
 
+class ProtoAux(NamedTuple):
+    loss_memory_q: torch.Tensor
+    loss_memory_v: torch.Tensor
+    retrieval_acc_q: torch.Tensor
+    retrieval_acc_v: torch.Tensor
+
+    @staticmethod
+    def empty(device) -> "ProtoAux":
+        """No memory loss (0) and no retrieval accuracy (-1)."""
+        zero = torch.zeros((), dtype=torch.float32, device=device)
+        none = torch.full((), -1.0, dtype=torch.float32, device=device)
+        return ProtoAux(zero, zero, none, none)
+
+
 def augment(cfg, hidden: torch.Tensor, enc_mask: torch.Tensor,
-            proto_state: ProtoState) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Retrieval-only prototype augmentation: mean-pool the text (first
-    L positions, pads included) and visual positions, retrieve the
-    nearest Q and V prototypes, and append them (detached) as two more
-    encoder positions. → (hidden_aug [B, S+2, D], enc_mask_aug [B, S+2])."""
+            proto_state: ProtoState,
+            ques_labels: Optional[torch.Tensor] = None,   # [B, NQ] one-hot
+            cate_labels: Optional[torch.Tensor] = None,   # [B, NV] one-hot
+            proto_update_flag: bool = False,
+            use_memory_loss: bool = False,
+            proto_alpha: float = 0.5, proto_beta: float = 0.5,
+            ) -> Tuple[torch.Tensor, torch.Tensor, ProtoState, ProtoAux]:
+    """Prototype update + retrieval + concat. Mean-pool the text (first
+    L positions, pads included) and visual positions; with
+    ``proto_update_flag`` update the banks from this batch's class means
+    first (and, with ``use_memory_loss``, pull the pooled hiddens toward
+    the old banks); retrieve the nearest Q and V prototypes and append
+    them (detached) as two more encoder positions.
+    → (hidden_aug [B, S+2, D], enc_mask_aug [B, S+2], state, aux)."""
     L = cfg.max_text_length
     pooled_q = hidden[:, :L, :].float().mean(dim=1)             # [B,D]
     pooled_v = hidden[:, L:, :].float().mean(dim=1)             # [B,D]
-    q_vec, _, _ = cosine_retrieve(proto_state.q_proto, pooled_q)
-    v_vec, _, _ = cosine_retrieve(proto_state.v_proto, pooled_v)
+    dev = hidden.device
+    aux = ProtoAux.empty(dev)
+    if proto_update_flag:
+        if ques_labels is None or cate_labels is None:
+            raise ValueError("augment: the prototype update needs labels")
+        cur_q, num_q = batch_class_means(pooled_q, ques_labels)
+        cur_v, num_v = batch_class_means(pooled_v, cate_labels)
+        if use_memory_loss:
+            lq, lv = memory_loss(pooled_q, pooled_v, ques_labels,
+                                 cate_labels, proto_state)
+            aux = aux._replace(loss_memory_q=lq, loss_memory_v=lv)
+        proto_state = proto_update(proto_state, cur_q, cur_v, num_q, num_v,
+                                   proto_alpha, proto_beta)
+        q_vec, _, acc_q = cosine_retrieve(proto_state.q_proto, pooled_q,
+                                          ques_labels)
+        v_vec, _, acc_v = cosine_retrieve(proto_state.v_proto, pooled_v,
+                                          cate_labels)
+        aux = aux._replace(retrieval_acc_q=acc_q, retrieval_acc_v=acc_v)
+    else:
+        q_vec, _, _ = cosine_retrieve(proto_state.q_proto, pooled_q)
+        v_vec, _, _ = cosine_retrieve(proto_state.v_proto, pooled_v)
     q_vec = q_vec.detach().to(hidden.dtype)[:, None, :]
     v_vec = v_vec.detach().to(hidden.dtype)[:, None, :]
     hidden_aug = torch.cat([hidden, q_vec, v_vec], dim=1)
     B = hidden.shape[0]
     mask_aug = torch.cat(
-        [enc_mask, torch.ones((B, 2), dtype=enc_mask.dtype,
-                              device=enc_mask.device)], dim=1)
-    return hidden_aug, mask_aug
+        [enc_mask, torch.ones((B, 2), dtype=enc_mask.dtype, device=dev)],
+        dim=1)
+    return hidden_aug, mask_aug, proto_state, aux
+
+
+# ---------------------------------------------------------------------------
+# teacher-forced decoding and the loss
+# ---------------------------------------------------------------------------
+
+def decode_hidden(params: Params, cfg, hidden: torch.Tensor,
+                  enc_mask: torch.Tensor, labels: torch.Tensor,
+                  generator: Optional[torch.Generator] = None,
+                  dtype=torch.float32) -> torch.Tensor:
+    """Teacher-forced decoder states [B, T, D] (before the LM head).
+    ``labels`` uses -100 for padding and is shifted right here, as HF
+    does."""
+    dec_ids = t5.shift_right(labels, cfg.decoder_start_token_id,
+                             cfg.pad_token_id)
+    dec_emb = t5.embed_tokens(params["shared"], dec_ids, dtype)
+    return t5.decoder_stack(params["decoder"], cfg, dec_emb, hidden, enc_mask,
+                            generator=generator)
+
+
+def decode_train(params: Params, cfg, hidden: torch.Tensor,
+                 enc_mask: torch.Tensor, labels: torch.Tensor,
+                 generator: Optional[torch.Generator] = None,
+                 dtype=torch.float32) -> torch.Tensor:
+    """Teacher-forced decode → f32 logits [B, T, vocab]."""
+    seq = decode_hidden(params, cfg, hidden, enc_mask, labels,
+                        generator=generator, dtype=dtype)
+    return t5.lm_logits(params["shared"], seq, cfg.d_model,
+                        cfg.tie_word_embeddings)
+
+
+def _safe_labels(labels: torch.Tensor, vocab: int) -> torch.Tensor:
+    return torch.where(labels == -100, 0, labels).clamp(0, vocab - 1).long()
+
+
+def token_cross_entropy(logits: torch.Tensor, labels: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-token CE with ignore_index=-100 → (loss [B,T], mask [B,T])."""
+    mask = (labels != -100).float()
+    safe = _safe_labels(labels, logits.shape[-1])
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -logp.gather(-1, safe[..., None])[..., 0]
+    return nll * mask, mask
+
+
+def weighted_lm_loss(logits: torch.Tensor, labels: torch.Tensor,
+                     scores: torch.Tensor) -> torch.Tensor:
+    """Per-token CE → per-sequence mean over non-pad → × per-sample
+    answer score → batch mean."""
+    nll, mask = token_cross_entropy(logits, labels)
+    per_seq = nll.sum(dim=1) / mask.sum(dim=1).clamp_min(1.0)
+    return (per_seq * scores.float()).mean()
+
+
+def _token_weights(labels: torch.Tensor, scores: torch.Tensor
+                   ) -> torch.Tensor:
+    """d(loss)/d(nll[b,t]) of the weighted loss: mask × score_b /
+    (valid_b · B)."""
+    mask = (labels != -100).float()
+    denom = mask.sum(dim=1, keepdim=True).clamp_min(1.0)
+    return mask * scores.float()[:, None] / (denom * labels.shape[0])
+
+
+def _head_logits(hidden: torch.Tensor, shared: torch.Tensor,
+                 rescale: float) -> torch.Tensor:
+    """f32 logits of the rescaled hidden against the table cast to the
+    hidden's dtype (f32 products of the rounded operands)."""
+    dt = hidden.dtype
+    h = hidden * torch.tensor(rescale, dtype=dt, device=hidden.device)
+    return h.float() @ shared.to(dt).float().t()
+
+
+class _FusedHeadLoss(torch.autograd.Function):
+    """Tied LM head + weighted CE as one op. Its residuals are (hidden,
+    lse): the logits are recomputed in backward, so neither the f32
+    log-softmax nor f32 d(logits) is kept; d(logits) goes into the two
+    gradient products in the hidden's dtype."""
+
+    @staticmethod
+    def forward(ctx, hidden, shared, labels, scores, rescale):
+        logits = _head_logits(hidden, shared, rescale)
+        lse = torch.logsumexp(logits, dim=-1)                     # [B,T]
+        safe = _safe_labels(labels, logits.shape[-1])
+        ll = logits.gather(-1, safe[..., None])[..., 0]
+        loss = ((lse - ll) * _token_weights(labels, scores)).sum()
+        ctx.save_for_backward(hidden, shared, labels, scores, lse)
+        ctx.rescale = rescale
+        return loss
+
+    @staticmethod
+    def backward(ctx, g):
+        hidden, shared, labels, scores, lse = ctx.saved_tensors
+        rescale = ctx.rescale
+        logits = _head_logits(hidden, shared, rescale)            # recompute
+        p = torch.exp(logits - lse[..., None])
+        safe = _safe_labels(labels, logits.shape[-1])
+        w = _token_weights(labels, scores) * g
+        p.scatter_add_(-1, safe[..., None], -torch.ones_like(lse)[..., None])
+        dt = hidden.dtype
+        dlogits = (p * w[..., None]).to(dt)
+        rs = torch.tensor(rescale, dtype=dt, device=hidden.device)
+        dh = (dlogits.float() @ shared.to(dt).float()).to(dt) * rs
+        dshared = (dlogits.float().flatten(0, 1).t()
+                   @ (hidden * rs).float().flatten(0, 1)).to(shared.dtype)
+        # the real scores cotangent: d/d(score_b) = the per-sequence
+        # mean NLL / B
+        mask = (labels != -100).float()
+        nll = (lse - logits.gather(-1, safe[..., None])[..., 0]) * mask
+        valid = mask.sum(dim=1).clamp_min(1.0)
+        dscores = (g * nll.sum(dim=1) / valid / labels.shape[0]
+                   ).to(scores.dtype)
+        return dh, dshared, None, dscores, None
+
+
+def fused_head_loss(hidden: torch.Tensor, shared: torch.Tensor,
+                    labels: torch.Tensor, scores: torch.Tensor,
+                    rescale: float) -> torch.Tensor:
+    """``weighted_lm_loss`` of the tied head's logits of ``hidden``
+    [B,T,D] (scaled by ``rescale``) against ``labels`` [B,T] (-100 pad),
+    weighted by ``scores`` [B]; differentiable in hidden, shared and
+    scores."""
+    return _FusedHeadLoss.apply(hidden, shared, labels, scores, rescale)
+
+
+# ---------------------------------------------------------------------------
+# the train-time forward
+# ---------------------------------------------------------------------------
+
+class ForwardOut(NamedTuple):
+    loss: torch.Tensor
+    proto_state: ProtoState
+    aux: ProtoAux
+
+
+def forward_train(params: Params, cfg, batch: Dict[str, torch.Tensor],
+                  proto_state: ProtoState,
+                  proto_alpha: float, proto_beta: float,
+                  use_prototype: bool = True,
+                  use_memory_loss: bool = False,
+                  lambda_q: float = 0.0, lambda_v: float = 0.0,
+                  generator: Optional[torch.Generator] = None,
+                  dtype=torch.bfloat16) -> ForwardOut:
+    """The full training forward. batch: input_ids [B,L], vis_feats
+    [B,N,feat_dim], boxes [B,N,4], target_ids [B,T] (-100 padded),
+    scores [B], ques_labels [B,NQ], cate_labels [B,NV], all on the
+    parameters' device. ``generator`` drives dropout (None: off)."""
+    hidden, enc_mask = encode(params, cfg, batch["input_ids"],
+                              batch["vis_feats"], batch["boxes"],
+                              dtype=dtype, generator=generator)
+    if use_prototype:
+        hidden, enc_mask, proto_state, aux = augment(
+            cfg, hidden, enc_mask, proto_state,
+            ques_labels=batch["ques_labels"],
+            cate_labels=batch["cate_labels"], proto_update_flag=True,
+            use_memory_loss=use_memory_loss, proto_alpha=proto_alpha,
+            proto_beta=proto_beta)
+    else:
+        aux = ProtoAux.empty(hidden.device)
+    seq = decode_hidden(params, cfg, hidden, enc_mask, batch["target_ids"],
+                        generator=generator, dtype=dtype)
+    rescale = cfg.d_model ** -0.5 if cfg.tie_word_embeddings else 1.0
+    loss = fused_head_loss(seq, params["shared"], batch["target_ids"],
+                           batch["scores"], rescale)
+    if use_memory_loss:
+        loss = loss + lambda_q * aux.loss_memory_q \
+            + lambda_v * aux.loss_memory_v
+    return ForwardOut(loss=loss, proto_state=proto_state, aux=aux)

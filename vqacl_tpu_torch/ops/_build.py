@@ -4,9 +4,10 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled on first
 use with ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared`` into
 ``build/kernels/`` at the root of the checkout (listed in
 ``.gitignore``), then loaded with ``ctypes``. The library file name
-carries a hash of the source and the flags, so an edited source is
-rebuilt and never mistaken for an old build. Nothing here runs when the
-module is imported.
+carries a hash of the source, of every shared header ``csrc/*.cuh`` and
+of the flags, so an edited source or header is rebuilt and never
+mistaken for an old build. Nothing here runs when the module is
+imported.
 """
 
 from __future__ import annotations
@@ -27,12 +28,26 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_U = ctypes.c_uint
+_F = ctypes.c_float
 # C signatures of the entry points, per source file
 SIGNATURES = {
     "fused_attention_fwd": {
         # q, k, v, bias, mask, o, B, Tq, Sk, H, dk, L, dtype, stream
         "fused_attention_fwd": ([_P] * 6 + [_I] * 7 + [_P], _I),
+        # q, k, v, bias, mask, seed, o, p, B, Tq, Sk, H, dk, L, dtype,
+        # dropout, thresh, keep_div, stream
+        "fused_attention_fwd_train": ([_P] * 8 + [_I] * 8 + [_U, _F, _P],
+                                      _I),
         "fused_attention_error_string": ([_I], ctypes.c_char_p),
+    },
+    "fused_attention_bwd": {
+        # q, k, v, p, seed, do, dq, dk, dv, dbias_part, dbias, B, Tq, Sk,
+        # H, dk, L, dtype, dropout, thresh, keep_div, stream
+        "fused_attention_bwd": ([_P] * 11 + [_I] * 8 + [_U, _F, _P], _I),
+        # seed, out, B*H, Tq, Sk, thresh, stream
+        "fused_attention_keep_mask": ([_P] * 2 + [_I] * 3 + [_U, _P], _I),
+        "fused_attention_bwd_error_string": ([_I], ctypes.c_char_p),
     },
 }
 
@@ -52,8 +67,15 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """Library path for ``csrc/<name>.cu``, named by a hash of the source,
+    every ``csrc/*.cuh`` (name and bytes) and the flags."""
+    digest = hashlib.sha256()
+    sources = [f"{name}.cu"] + sorted(
+        f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for fname in sources:
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            digest.update(fname.encode() + b"\0" + f.read() + b"\0")
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 

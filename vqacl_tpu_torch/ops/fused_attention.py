@@ -1,27 +1,40 @@
 """Fused multi-head attention for the VL-T5 joint encoder.
 
-Counterpart of ``vqacl_tpu/ops/fused_attention.py``. The kernel,
-``csrc/fused_attention_fwd.cu``, replaces the Pallas forward
-``_fwd_kernel_batched`` (see the note at the top of that file for what
-it computes, what bounds it and how). It consumes q/k/v in the
-projection GEMMs' ``[B, S, H·dk]`` layout, adds the relative bias on the
-top-left ``L×L`` block only and the −1e9 key mask, runs an f32 softmax,
-casts the probabilities to v's dtype and accumulates ``p·v`` in f32.
+Counterpart of ``vqacl_tpu/ops/fused_attention.py``. Three hand-written
+CUDA kernels replace its Pallas kernels (the note at the top of each
+source says what it computes, what bounds it and how):
 
-``fused_attention`` dispatches on the tensors' device: CPU tensors take
-``fused_attention_reference`` (the plain PyTorch version with the same
-cast points, used by the CPU tests); CUDA tensors launch the kernel or
-raise. ``fused_attention.launches`` counts the kernel launches.
+  K1   ``fused_attention``            inference forward
+       (``csrc/fused_attention_fwd.cu``, entry ``fused_attention_fwd``)
+  K1′  ``fused_attention_fwd_train``  training forward: also saves the
+       pre-dropout probabilities p [B,H·Tq,Sk] f32 and applies dropout
+       (same source, entry ``fused_attention_fwd_train``)
+  K2   ``fused_attention_bwd``        backward from the saved p
+       (``csrc/fused_attention_bwd.cu``)
 
-Only the inference forward is ported: ``dropout_rate > 0`` raises until
-the training slice brings the Philox-seeded dropout, the saved-
-probability forward, the backward kernel and the autograd wrapper.
+They consume q/k/v in the projection GEMMs' ``[B, S, H·dk]`` layout, add
+the relative bias on the top-left ``L×L`` block only and the −1e9 key
+mask, run an f32 softmax, cast the (dropped) probabilities to v's dtype
+and accumulate ``p·v`` in f32. Dropout keeps an element when its
+Philox4x32-10 bits (``csrc/philox.cuh``; ``philox_keep_mask`` here is
+the same stream in PyTorch) fall below ``uint32((1−rate)·(2³²−1))``, the
+Pallas kernel's rule, and scales kept p by 1/(1−rate). The TPU's own
+random bits cannot be reproduced, so parity with JAX holds at rate 0.
+
+``_FusedAttention`` is the custom VJP (K3, single device): its forward
+runs K1′ and saves p and the seed, its backward runs K2. Dispatch in
+``fused_attention``: with grad enabled and q, k or v requiring grad the
+call goes through ``_FusedAttention``; otherwise it runs K1, which is
+inference-only (``dropout_rate > 0`` raises there). Each wrapper takes
+its plain PyTorch version (``*_reference``) for CPU tensors, so the CPU
+tests run the same autograd logic; on CUDA tensors it launches its
+kernel or raises, and counts the launch in ``<wrapper>.launches``.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -29,33 +42,142 @@ NEG_INF = -1e9
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
+# Philox4x32-10 constants (csrc/philox.cuh)
+_M0, _M1 = 0xD2511F53, 0xCD9E8D57
+_W0, _W1 = 0x9E3779B9, 0xBB67AE85
+_U32 = 0xFFFFFFFF
 
-def fused_attention_reference(q: torch.Tensor, k: torch.Tensor,
-                              v: torch.Tensor, bias: Optional[torch.Tensor],
-                              mask: torch.Tensor, num_heads: int
-                              ) -> torch.Tensor:
-    """Plain PyTorch attention with the kernel's semantics.
 
-    q [B,Tq,H·dk], k/v [B,Sk,H·dk]; bias [H,L,L] f32 for the first L
-    query/key positions, or None (L = 0); mask [B,Sk], 1 = attend.
-    → [B,Tq,H·dk] in q's dtype."""
-    B, Tq, HD = q.shape
-    Sk = k.shape[1]
-    H = num_heads
-    dk = HD // H
-    qh = q.reshape(B, Tq, H, dk).permute(0, 2, 1, 3).float()
-    kh = k.reshape(B, Sk, H, dk).permute(0, 2, 1, 3).float()
-    vh = v.reshape(B, Sk, H, dk).permute(0, 2, 1, 3)
-    s = qh @ kh.transpose(-1, -2)                             # [B,H,Tq,Sk]
+def dropout_threshold(rate: float) -> int:
+    """The Pallas kernel's keep threshold: keep when bits < this."""
+    return int((1.0 - rate) * (2 ** 32 - 1))
+
+
+def philox4x32_10(c0, c1, c2, c3, k0, k1):
+    """Philox4x32-10 on int64 tensors holding uint32 words (products wrap
+    modulo 2⁶⁴, so their low and high 32-bit halves are exact)."""
+    for r in range(10):
+        if r:
+            k0 = (k0 + _W0) & _U32
+            k1 = (k1 + _W1) & _U32
+        p0 = c0 * _M0
+        p1 = c2 * _M1
+        c0, c1, c2, c3 = (((p1 >> 32) & _U32) ^ c1 ^ k0, p1 & _U32,
+                          ((p0 >> 32) & _U32) ^ c3 ^ k1, p0 & _U32)
+    return c0, c1, c2, c3
+
+
+def philox_keep_mask(seed: torch.Tensor, B: int, H: int, Tq: int, Sk: int,
+                     rate: float) -> torch.Tensor:
+    """The keep mask [B,H,Tq,Sk] (bool) that K1′ and K2 apply: key
+    (seed, 0), counter (j // 4, i, b·H + h, 0), word j % 4."""
+    dev = seed.device
+    J = (Sk + 3) // 4
+    i64 = torch.int64
+    c0 = torch.arange(J, dtype=i64, device=dev).view(1, 1, J)
+    c1 = torch.arange(Tq, dtype=i64, device=dev).view(1, Tq, 1)
+    c2 = torch.arange(B * H, dtype=i64, device=dev).view(B * H, 1, 1)
+    shape = (B * H, Tq, J)
+    c0, c1, c2 = (c.expand(shape) for c in (c0, c1, c2))
+    c3 = torch.zeros(shape, dtype=i64, device=dev)
+    k0 = seed.reshape(()).to(i64) & _U32
+    words = philox4x32_10(c0, c1, c2, c3, k0, 0)
+    bits = torch.stack(words, dim=-1).reshape(B * H, Tq, 4 * J)[..., :Sk]
+    return (bits < dropout_threshold(rate)).view(B, H, Tq, Sk)
+
+
+def _heads(x: torch.Tensor, H: int) -> torch.Tensor:
+    """[B,S,H·dk] → [B,H,S,dk]."""
+    B, S, HD = x.shape
+    return x.reshape(B, S, H, HD // H).permute(0, 2, 1, 3)
+
+
+def _merge(x: torch.Tensor) -> torch.Tensor:
+    """[B,H,S,dk] → [B,S,H·dk]."""
+    B, H, S, dk = x.shape
+    return x.permute(0, 2, 1, 3).reshape(B, S, H * dk)
+
+
+def _probs(q, k, bias, mask, H) -> torch.Tensor:
+    """Softmax probabilities [B,H,Tq,Sk] f32 with the kernels' bias and
+    mask terms."""
+    Tq, Sk = q.shape[1], k.shape[1]
+    s = _heads(q, H).float() @ _heads(k, H).float().transpose(-1, -2)
     if bias is not None and bias.shape[-1] > 0:
         L = bias.shape[-1]
         blk = torch.zeros((H, Tq, Sk), dtype=torch.float32, device=q.device)
         blk[:, :L, :L] = bias.float()
         s = s + blk
     s = s + ((1.0 - mask.float()) * NEG_INF)[:, None, None, :]
-    p = torch.softmax(s, dim=-1)
-    o = p.to(v.dtype).float() @ vh.float()                    # [B,H,Tq,dk]
-    return o.permute(0, 2, 1, 3).reshape(B, Tq, HD).to(q.dtype)
+    return torch.softmax(s, dim=-1)
+
+
+def _keep_div(rate: float, device) -> torch.Tensor:
+    """1 − rate as an f32 tensor: a true division, as in the kernels
+    (a Python scalar divisor becomes a reciprocal multiply on CUDA)."""
+    return torch.tensor(1.0 - rate, dtype=torch.float32, device=device)
+
+
+def fused_attention_reference(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, bias: Optional[torch.Tensor],
+                              mask: torch.Tensor, num_heads: int
+                              ) -> torch.Tensor:
+    """Plain PyTorch version of K1.
+
+    q [B,Tq,H·dk], k/v [B,Sk,H·dk]; bias [H,L,L] f32 for the first L
+    query/key positions, or None (L = 0); mask [B,Sk], 1 = attend.
+    → [B,Tq,H·dk] in q's dtype."""
+    p = _probs(q, k, bias, mask, num_heads)
+    o = p.to(v.dtype).float() @ _heads(v, num_heads).float()
+    return _merge(o).to(q.dtype)
+
+
+def fused_attention_fwd_train_reference(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+        bias: Optional[torch.Tensor], mask: torch.Tensor,
+        seed: torch.Tensor, num_heads: int, dropout_rate: float
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K1′ → (o [B,Tq,H·dk] in q's dtype,
+    pre-dropout p [B,H·Tq,Sk] f32)."""
+    B, Tq, _ = q.shape
+    Sk = k.shape[1]
+    H = num_heads
+    p = _probs(q, k, bias, mask, H)
+    pd = p
+    if dropout_rate > 0.0:
+        keep = philox_keep_mask(seed, B, H, Tq, Sk, dropout_rate)
+        pd = torch.where(keep, p / _keep_div(dropout_rate, p.device), 0.0)
+    o = pd.to(v.dtype).float() @ _heads(v, H).float()
+    return _merge(o).to(q.dtype), p.reshape(B, H * Tq, Sk)
+
+
+def fused_attention_bwd_reference(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, p: torch.Tensor,
+        seed: torch.Tensor, do: torch.Tensor, num_heads: int, L: int,
+        dropout_rate: float
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """Plain PyTorch version of K2 → (dq, dk, dv in q's dtype, dbias
+    [H,L,L] f32, or None when L = 0)."""
+    B, Tq, _ = q.shape
+    Sk = k.shape[1]
+    H = num_heads
+    qh, kh, vh, doh = (_heads(x, H).float() for x in (q, k, v, do))
+    p = p.reshape(B, H, Tq, Sk)
+    pd = p
+    if dropout_rate > 0.0:
+        keep = philox_keep_mask(seed, B, H, Tq, Sk, dropout_rate)
+        kd = _keep_div(dropout_rate, p.device)
+        pd = torch.where(keep, p / kd, 0.0)
+    dv = pd.transpose(-1, -2) @ doh
+    dp = doh @ vh.transpose(-1, -2)
+    if dropout_rate > 0.0:
+        dp = torch.where(keep, dp / kd, 0.0)
+    ds = p * (dp - (p * dp).sum(dim=-1, keepdim=True))
+    dq = ds @ kh
+    dk = ds.transpose(-1, -2) @ qh
+    dbias = ds[:, :, :L, :L].sum(dim=0) if L else None
+    return (_merge(dq).to(q.dtype), _merge(dk).to(q.dtype),
+            _merge(dv).to(q.dtype), dbias)
 
 
 def _check(name: str, t: torch.Tensor, dtype, shape) -> None:
@@ -67,18 +189,9 @@ def _check(name: str, t: torch.Tensor, dtype, shape) -> None:
                          f"{t.is_contiguous()}")
 
 
-def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    bias: Optional[torch.Tensor], mask: torch.Tensor,
-                    num_heads: int, dropout_rate: float = 0.0
-                    ) -> torch.Tensor:
-    """q [B,Tq,H·dk], k/v [B,Sk,H·dk] (f32 or bf16, one dtype); bias
-    [H,L,L] f32 covering the first L positions, or None; mask [B,Sk]
-    (1 = attend) → [B,Tq,H·dk] in q's dtype."""
-    if dropout_rate > 0.0:
-        raise NotImplementedError(
-            "fused_attention: dropout is not ported yet (inference only)")
-    if q.device.type == "cpu":
-        return fused_attention_reference(q, k, v, bias, mask, num_heads)
+def _validate_qkv(q, k, v, num_heads, extra=()):
+    """Check the kernels' q/k/v on a CUDA device, and that ``extra``
+    tensors lie on the same device → (B, Tq, Sk, dk)."""
     if q.device.type != "cuda":
         raise ValueError(f"fused_attention: unsupported device {q.device}")
     B, Tq, HD = q.shape
@@ -92,6 +205,16 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check("q", q, q.dtype, (B, Tq, HD))
     _check("k", k, q.dtype, (B, Sk, HD))
     _check("v", v, q.dtype, (B, Sk, HD))
+    for t in (k, v) + tuple(extra):
+        if t.device != q.device:
+            raise ValueError("fused_attention: tensors on different devices")
+    return B, Tq, Sk, HD // H
+
+
+def _validate_bias_mask(q, bias, mask, num_heads, Sk):
+    """Check the forward kernels' bias [H,L,L] (or None) and mask [B,Sk]
+    → (L, mask as contiguous f32)."""
+    B, Tq, _ = q.shape
     mask = mask.to(torch.float32).contiguous()
     _check("mask", mask, torch.float32, (B, Sk))
     L = 0 if bias is None else bias.shape[-1]
@@ -99,38 +222,205 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"fused_attention: bias block {L} exceeds "
                          f"(Tq, Sk) = ({Tq}, {Sk})")
     if L:
-        _check("bias", bias, torch.float32, (H, L, L))
-    for t in (k, v, mask) + ((bias,) if L else ()):
+        _check("bias", bias, torch.float32, (num_heads, L, L))
+    for t in (mask,) + ((bias,) if L else ()):
         if t.device != q.device:
             raise ValueError("fused_attention: tensors on different devices")
+    return L, mask
+
+
+def _stream(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def _raise_on(err: int, lib, what: str, error_string: str) -> None:
+    if err != 0:
+        msg = getattr(lib, error_string)(err).decode()
+        raise RuntimeError(f"{what} launch failed: {msg}")
+
+
+def _launch_k1(q, k, v, bias, mask, num_heads) -> torch.Tensor:
     from vqacl_tpu_torch.ops import _build
 
+    B, Tq, Sk, dk = _validate_qkv(q, k, v, num_heads)
+    L, mask = _validate_bias_mask(q, bias, mask, num_heads, Sk)
     lib = _build.load("fused_attention_fwd")
     o = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.fused_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         bias.data_ptr() if L else None, mask.data_ptr(), o.data_ptr(),
-        B, Tq, Sk, H, HD // H, L, _DTYPE_CODE[q.dtype],
-        ctypes.c_void_p(stream))
-    if err != 0:
-        msg = lib.fused_attention_error_string(err).decode()
-        raise RuntimeError(f"fused_attention_fwd launch failed: {msg}")
+        B, Tq, Sk, num_heads, dk, L, _DTYPE_CODE[q.dtype], _stream(q))
+    _raise_on(err, lib, "fused_attention_fwd", "fused_attention_error_string")
     fused_attention.launches += 1
     return o
+
+
+def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    bias: Optional[torch.Tensor], mask: torch.Tensor,
+                    num_heads: int, dropout_rate: float = 0.0,
+                    seed: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q [B,Tq,H·dk], k/v [B,Sk,H·dk] (f32 or bf16, one dtype); bias
+    [H,L,L] f32 covering the first L positions, or None; mask [B,Sk]
+    (1 = attend); seed int32 [1] on q's device (the layer's dropout
+    stream; zeros when None) → [B,Tq,H·dk] in q's dtype.
+
+    Differentiable calls go through K1′/K2; others run K1 (counted in
+    ``fused_attention.launches``)."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        if seed is None:
+            seed = torch.zeros((1,), dtype=torch.int32, device=q.device)
+        return _FusedAttention.apply(q, k, v, bias, mask, seed, num_heads,
+                                     float(dropout_rate))
+    if dropout_rate > 0.0:
+        raise NotImplementedError(
+            "fused_attention: the inference kernel takes no dropout; "
+            "dropout runs only on the differentiable (training) path")
+    if q.device.type == "cpu":
+        return fused_attention_reference(q, k, v, bias, mask, num_heads)
+    return _launch_k1(q, k, v, bias, mask, num_heads)
 
 
 fused_attention.launches = 0
 
 
+def fused_attention_fwd_train(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, bias: Optional[torch.Tensor],
+                              mask: torch.Tensor, seed: torch.Tensor,
+                              num_heads: int, dropout_rate: float
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1′ → (o in q's dtype, pre-dropout p [B,H·Tq,Sk] f32)."""
+    if q.device.type == "cpu":
+        return fused_attention_fwd_train_reference(
+            q, k, v, bias, mask, seed, num_heads, dropout_rate)
+    from vqacl_tpu_torch.ops import _build
+
+    B, Tq, Sk, dk = _validate_qkv(q, k, v, num_heads, (seed,))
+    L, mask = _validate_bias_mask(q, bias, mask, num_heads, Sk)
+    _check("seed", seed, torch.int32, (1,))
+    lib = _build.load("fused_attention_fwd")
+    o = torch.empty_like(q)
+    p = torch.empty((B, num_heads * Tq, Sk), dtype=torch.float32,
+                    device=q.device)
+    drop = dropout_rate > 0.0
+    err = lib.fused_attention_fwd_train(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        bias.data_ptr() if L else None, mask.data_ptr(), seed.data_ptr(),
+        o.data_ptr(), p.data_ptr(), B, Tq, Sk, num_heads, dk, L,
+        _DTYPE_CODE[q.dtype], int(drop),
+        dropout_threshold(dropout_rate) if drop else 0,
+        1.0 - dropout_rate, _stream(q))
+    _raise_on(err, lib, "fused_attention_fwd_train",
+              "fused_attention_error_string")
+    fused_attention_fwd_train.launches += 1
+    return o, p
+
+
+fused_attention_fwd_train.launches = 0
+
+
+def fused_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        p: torch.Tensor, seed: torch.Tensor,
+                        do: torch.Tensor, num_heads: int, L: int,
+                        dropout_rate: float
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                   Optional[torch.Tensor]]:
+    """K2 → (dq, dk, dv in q's dtype, dbias [H,L,L] f32 or None if L=0)."""
+    if q.device.type == "cpu":
+        return fused_attention_bwd_reference(q, k, v, p, seed, do,
+                                             num_heads, L, dropout_rate)
+    from vqacl_tpu_torch.ops import _build
+
+    H = num_heads
+    B, Tq, Sk, dk = _validate_qkv(q, k, v, H, (p, seed, do))
+    HD = H * dk
+    _check("p", p, torch.float32, (B, H * Tq, Sk))
+    _check("do", do, q.dtype, (B, Tq, HD))
+    _check("seed", seed, torch.int32, (1,))
+    if L > min(Tq, Sk):
+        raise ValueError(f"fused_attention_bwd: bias block {L} exceeds "
+                         f"(Tq, Sk) = ({Tq}, {Sk})")
+    lib = _build.load("fused_attention_bwd")
+    dq = torch.empty_like(q)
+    dk_ = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    dbias = part = None
+    if L:
+        part = torch.empty((B, H, L, L), dtype=torch.float32,
+                           device=q.device)
+        dbias = torch.empty((H, L, L), dtype=torch.float32, device=q.device)
+    drop = dropout_rate > 0.0
+    err = lib.fused_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), p.data_ptr(),
+        seed.data_ptr(), do.data_ptr(), dq.data_ptr(), dk_.data_ptr(),
+        dv.data_ptr(), part.data_ptr() if L else None,
+        dbias.data_ptr() if L else None, B, Tq, Sk, H, dk, L,
+        _DTYPE_CODE[q.dtype], int(drop),
+        dropout_threshold(dropout_rate) if drop else 0,
+        1.0 - dropout_rate, _stream(q))
+    _raise_on(err, lib, "fused_attention_bwd",
+              "fused_attention_bwd_error_string")
+    fused_attention_bwd.launches += 1
+    return dq, dk_, dv, dbias
+
+
+fused_attention_bwd.launches = 0
+
+
+def fused_attention_keep_mask(seed: torch.Tensor, B: int, H: int, Tq: int,
+                              Sk: int, rate: float) -> torch.Tensor:
+    """The keep mask [B,H,Tq,Sk] (bool) as the CUDA kernels draw it, for
+    holding ``philox_keep_mask`` against them on the card."""
+    from vqacl_tpu_torch.ops import _build
+
+    if seed.device.type != "cuda":
+        raise ValueError("fused_attention_keep_mask: needs a CUDA seed")
+    _check("seed", seed, torch.int32, (1,))
+    lib = _build.load("fused_attention_bwd")
+    out = torch.empty((B, H, Tq, Sk), dtype=torch.uint8, device=seed.device)
+    err = lib.fused_attention_keep_mask(seed.data_ptr(), out.data_ptr(),
+                                        B * H, Tq, Sk,
+                                        dropout_threshold(rate),
+                                        _stream(seed))
+    _raise_on(err, lib, "fused_attention_keep_mask",
+              "fused_attention_bwd_error_string")
+    return out.bool()
+
+
+class _FusedAttention(torch.autograd.Function):
+    """The custom VJP (K3 on one device): forward through K1′, which
+    saves p; backward through K2, which regenerates the keep mask from
+    the saved seed."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, mask, seed, num_heads, dropout_rate):
+        o, p = fused_attention_fwd_train(q, k, v, bias, mask, seed,
+                                         num_heads, dropout_rate)
+        ctx.save_for_backward(q, k, v, p, seed)
+        ctx.num_heads = num_heads
+        ctx.dropout_rate = dropout_rate
+        ctx.L = 0 if bias is None else bias.shape[-1]
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, p, seed = ctx.saved_tensors
+        dq, dk, dv, dbias = fused_attention_bwd(
+            q, k, v, p, seed, do.contiguous(), ctx.num_heads, ctx.L,
+            ctx.dropout_rate)
+        return dq, dk, dv, dbias, None, None, None, None
+
+
 def _fused_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                pos_bias: Optional[torch.Tensor], mask: torch.Tensor,
-               dropout_rate: float = 0.0) -> torch.Tensor:
+               dropout_rate: float = 0.0,
+               seed: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q [B,Tq,H,dk], k/v [B,Sk,H,dk] (the projection outputs, reshaped
-    flat without a copy); pos_bias [H,L,L] or None; mask [B,Sk]
-    → [B,Tq,H·dk]. The JAX wrapper pads to a multiple of 8 for the TPU's
-    tiling; the CUDA kernel handles ragged lengths itself, so nothing is
-    padded here (padded keys are masked, so the result is the same)."""
+    flat without a copy); pos_bias [H,L,L] or None; mask [B,Sk]; seed
+    int32 [1] → [B,Tq,H·dk]. The JAX wrapper pads to a multiple of 8 for
+    the TPU's tiling; the CUDA kernels handle ragged lengths themselves,
+    so nothing is padded here (padded keys are masked, so the result is
+    the same)."""
     B, Tq, H, dk = q.shape
     Sk = k.shape[1]
     bias = None
@@ -141,20 +431,25 @@ def _fused_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         bias = pos_bias.to(torch.float32).contiguous()
     return fused_attention(q.reshape(B, Tq, H * dk), k.reshape(B, Sk, H * dk),
                            v.reshape(B, Sk, H * dk), bias, mask, H,
-                           dropout_rate=dropout_rate)
+                           dropout_rate=dropout_rate, seed=seed)
 
 
 def fused_encoder_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             pos_bias: torch.Tensor, mask: torch.Tensor,
-                            dropout_rate: float = 0.0) -> torch.Tensor:
+                            dropout_rate: float = 0.0,
+                            seed: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
     """Self-attention: q/k/v [B,S,H,dk], pos_bias [H,L,L] f32 covering the
-    first L positions, mask [B,S] → [B,S,H·dk]."""
-    return _fused_mha(q, k, v, pos_bias, mask, dropout_rate=dropout_rate)
+    first L positions, mask [B,S], seed int32 [1] → [B,S,H·dk]."""
+    return _fused_mha(q, k, v, pos_bias, mask, dropout_rate=dropout_rate,
+                      seed=seed)
 
 
 def fused_cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          mask: torch.Tensor,
-                          dropout_rate: float = 0.0) -> torch.Tensor:
+                          mask: torch.Tensor, dropout_rate: float = 0.0,
+                          seed: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
     """Bias-free rectangular attention: q [B,Tq,H,dk], k/v [B,Sk,H,dk],
-    mask [B,Sk] → [B,Tq,H·dk]."""
-    return _fused_mha(q, k, v, None, mask, dropout_rate=dropout_rate)
+    mask [B,Sk], seed int32 [1] → [B,Tq,H·dk]."""
+    return _fused_mha(q, k, v, None, mask, dropout_rate=dropout_rate,
+                      seed=seed)

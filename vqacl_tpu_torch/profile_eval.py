@@ -88,7 +88,7 @@ def main(argv=None) -> dict:
             t0 = time.perf_counter()
             hidden, mask = vlt5.encode(params, m, **dev_batch,
                                        dtype=torch.bfloat16)
-            hidden, mask = vlt5.augment(m, hidden, mask, proto)
+            hidden, mask, _, _ = vlt5.augment(m, hidden, mask, proto)
             torch.cuda.synchronize()
             t1 = time.perf_counter()
             greedy_decode(params, m, hidden, mask, dtype=torch.bfloat16)

@@ -1,12 +1,19 @@
-"""Eval step (counterpart of ``vqacl_tpu/train/step.py::make_eval_step``).
+"""Train and eval steps (counterpart of ``vqacl_tpu/train/step.py``).
 
-encode once → prototype retrieval without update → greedy decode. The
-train step comes with the training slice.
+``make_train_step``: forward (encode with dropout through the fused
+attention kernels K1′/K2 → prototype EMA update + retrieval → teacher-
+forced decoder → fused head loss) → backward → clip → AdamW direction →
+decoupled decay → warmup schedule, run eagerly. Metrics stay on the
+device, so a step never waits for the card unless its caller reads one.
+
+``make_eval_step``: encode once (K1) → prototype retrieval without
+update → greedy decode. ``make_loss_eval_step``: the teacher-forced
+validation loss with retrieval-only prototypes.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -14,9 +21,110 @@ import torch
 from vqacl_tpu_torch.models import vlt5
 from vqacl_tpu_torch.models.generate import greedy_decode
 from vqacl_tpu_torch.models.prototype import ProtoState
+from vqacl_tpu_torch.train.optim import (dynamic_lr, global_norm,
+                                         make_transform, tree_leaves,
+                                         tree_map, tree_unflatten)
+from vqacl_tpu_torch.train.state import TrainState
 from vqacl_tpu_torch.utils.device import resolve_device
 
 _BATCH_KEYS = ("input_ids", "vis_feats", "boxes")
+_TRAIN_KEYS = _BATCH_KEYS + ("target_ids", "scores", "ques_labels",
+                             "cate_labels")
+
+
+def _to_device(batch: Dict, keys, dev: torch.device) -> Dict:
+    """The named entries of ``batch`` (numpy arrays or tensors) on ``dev``."""
+    out = {}
+    for k in keys:
+        x = batch[k]
+        if isinstance(x, np.ndarray):
+            x = torch.from_numpy(x)
+        out[k] = x.to(dev, non_blocking=True)
+    return out
+
+
+def make_train_step(cfg, dtype=torch.bfloat16, device="cuda",
+                    use_prototype: Optional[bool] = None,
+                    use_memory_loss: bool = False) -> Callable:
+    """Returns ``(state, batch) -> (state, metrics)``.
+
+    ``state`` is a ``TrainState`` on ``device`` (made with the transform
+    ``make_transform(cfg.train)``); batch: input_ids [B,L] int32,
+    vis_feats [B,N,feat_dim], boxes [B,N,4], target_ids [B,T] (-100
+    pad), scores [B], ques_labels [B,NQ], cate_labels [B,NV], as numpy
+    arrays or tensors. Metrics (0-dim tensors on the device): loss,
+    grad_norm (before clipping), lr, loss_memory_Q/V, retrieval_acc_Q/V.
+    With ``cfg.train.grad_accum`` > 1 the batch runs as that many equal
+    microbatches in order, the prototype state threaded through them,
+    and the grads are averaged."""
+    dev = resolve_device(device)
+    mcfg, tcfg = cfg.model, cfg.train
+    if use_prototype is None:
+        use_prototype = mcfg.use_prototype
+    tx = make_transform(tcfg)
+    accum = int(tcfg.grad_accum)
+
+    def loss_and_grads(params, proto, batch, generator):
+        live = tree_map(lambda p: p.detach().requires_grad_(), params)
+        out = vlt5.forward_train(
+            live, mcfg, batch, proto,
+            proto_alpha=tcfg.proto_alpha, proto_beta=tcfg.proto_beta,
+            use_prototype=use_prototype, use_memory_loss=use_memory_loss,
+            lambda_q=tcfg.lambda_Q, lambda_v=tcfg.lambda_V,
+            generator=generator, dtype=dtype)
+        leaves = tree_leaves(live)
+        grads = torch.autograd.grad(out.loss, leaves, allow_unused=True)
+        grads = tree_unflatten(params, [
+            torch.zeros_like(p) if g is None else g
+            for p, g in zip(leaves, grads)])
+        aux = tuple(a.detach() for a in out.aux)
+        return out.loss.detach(), out.proto_state, aux, grads
+
+    def accum_grads(state, batch):
+        B = next(iter(batch.values())).shape[0]
+        if B % accum:
+            raise ValueError(f"batch size {B} not divisible by "
+                             f"grad_accum={accum}")
+        mb = B // accum
+        proto = state.proto
+        gsum = tree_map(torch.zeros_like, state.params)
+        losses, auxes = [], []
+        for i in range(accum):
+            part = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+            loss, proto, aux, g = loss_and_grads(state.params, proto, part,
+                                                 state.generator)
+            gsum = tree_map(torch.add, gsum, g)
+            losses.append(loss)
+            auxes.append(aux)
+        grads = tree_map(lambda g: g / accum, gsum)
+        aux = tuple(torch.stack(a).mean() for a in zip(*auxes))
+        return torch.stack(losses).mean(), proto, aux, grads
+
+    def train_step(state: TrainState, batch: Dict
+                   ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        batch = _to_device(batch, _TRAIN_KEYS, dev)
+        if accum > 1:
+            loss, proto, aux, grads = accum_grads(state, batch)
+        else:
+            loss, proto, aux, grads = loss_and_grads(
+                state.params, state.proto, batch, state.generator)
+        with torch.no_grad():
+            updates, opt_state = tx.update(grads, state.opt_state,
+                                           state.params)
+            lr = dynamic_lr(state.step.float(), state.sched, tcfg.lr,
+                            tcfg.schedule)
+            params = tree_map(lambda p, u: p - lr * u, state.params, updates)
+            gnorm = global_norm(grads)
+        new_state = state._replace(step=state.step + 1, params=params,
+                                   opt_state=opt_state, proto=proto)
+        metrics = {
+            "loss": loss, "grad_norm": gnorm, "lr": lr,
+            "loss_memory_Q": aux[0], "loss_memory_V": aux[1],
+            "retrieval_acc_Q": aux[2], "retrieval_acc_V": aux[3],
+        }
+        return new_state, metrics
+
+    return train_step
 
 
 def make_eval_step(cfg, dtype=torch.bfloat16, device="cuda") -> Callable:
@@ -27,19 +135,43 @@ def make_eval_step(cfg, dtype=torch.bfloat16, device="cuda") -> Callable:
     dev = resolve_device(device)
     mcfg = cfg.model
 
-    def to_dev(x):
-        if isinstance(x, np.ndarray):
-            x = torch.from_numpy(x)
-        return x.to(dev, non_blocking=True)
-
     @torch.inference_mode()
     def eval_step(params: Dict, proto: ProtoState, batch: Dict
                   ) -> torch.Tensor:
-        ids, feats, boxes = (to_dev(batch[k]) for k in _BATCH_KEYS)
-        hidden, enc_mask = vlt5.encode(params, mcfg, ids, feats, boxes,
+        b = _to_device(batch, _BATCH_KEYS, dev)
+        hidden, enc_mask = vlt5.encode(params, mcfg, b["input_ids"],
+                                       b["vis_feats"], b["boxes"],
                                        dtype=dtype)
         if mcfg.use_prototype:
-            hidden, enc_mask = vlt5.augment(mcfg, hidden, enc_mask, proto)
+            hidden, enc_mask, _, _ = vlt5.augment(mcfg, hidden, enc_mask,
+                                                  proto)
         return greedy_decode(params, mcfg, hidden, enc_mask, dtype=dtype)
 
     return eval_step
+
+
+def make_loss_eval_step(cfg, dtype=torch.bfloat16, device="cuda",
+                        use_prototype: Optional[bool] = None) -> Callable:
+    """Returns ``(params, proto, batch) -> loss`` (0-dim f32 on
+    ``device``): the teacher-forced weighted loss with retrieval-only
+    prototypes, no dropout, no grad and no bank update."""
+    dev = resolve_device(device)
+    mcfg = cfg.model
+    if use_prototype is None:
+        use_prototype = mcfg.use_prototype
+
+    @torch.no_grad()
+    def eval_loss(params: Dict, proto: ProtoState, batch: Dict
+                  ) -> torch.Tensor:
+        b = _to_device(batch, _TRAIN_KEYS, dev)
+        hidden, enc_mask = vlt5.encode(params, mcfg, b["input_ids"],
+                                       b["vis_feats"], b["boxes"],
+                                       dtype=dtype)
+        if use_prototype:
+            hidden, enc_mask, _, _ = vlt5.augment(mcfg, hidden, enc_mask,
+                                                  proto)
+        logits = vlt5.decode_train(params, mcfg, hidden, enc_mask,
+                                   b["target_ids"], dtype=dtype)
+        return vlt5.weighted_lm_loss(logits, b["target_ids"], b["scores"])
+
+    return eval_loss

@@ -1,8 +1,9 @@
-"""Run configuration for the serving path.
+"""Run configuration for the serving and training paths.
 
 Counterpart of ``vqacl_tpu/utils/config.py``, cut to the fields the
-serving path reads. The defaults are the same t5-base geometry. There is
-no yaml round-trip here, so the module needs nothing beyond the standard
+ported paths read. The defaults are the JAX package's: the same t5-base
+geometry and the same optimisation hyperparameters. There is no yaml
+round-trip here, so the module needs nothing beyond the standard
 library, and no TPU mesh knobs.
 """
 
@@ -24,6 +25,7 @@ class ModelConfig:
     num_decoder_layers: int = 12
     relative_attention_num_buckets: int = 32
     relative_attention_max_distance: int = 128
+    dropout_rate: float = 0.1
     layer_norm_epsilon: float = 1e-6
     feed_forward_proj: str = "relu"  # t5-base v1.0 uses ReLU
     tie_word_embeddings: bool = True
@@ -62,8 +64,36 @@ class ModelConfig:
 
 
 @dataclass
+class TrainConfig:
+    """Optimisation hyperparameters (the JAX package's defaults)."""
+
+    lr: float = 1e-4
+    warmup_ratio: float = 0.1
+    weight_decay: float = 0.01
+    adam_eps: float = 1e-6
+    adam_dtype: str = "bfloat16"     # Adam moment storage; arithmetic is f32
+    adam_impl: str = "hf"            # "hf": HF AdamW direction (ε on the
+                                     # uncorrected √v, correction in the step
+                                     # size); "torch": m̂/(√v̂+ε)
+    adam_beta1: float = 0.9
+    adam_beta2: float = 0.999
+    clip_grad_norm: float = 5.0
+    grad_accum: int = 1              # equal microbatches per optimizer step
+    batch_size: int = 80
+    valid_batch_size: int = 100
+    schedule: str = "constant_warmup"   # or "linear_warmup"
+    freeze: bool = False             # train only the shared embedding
+    proto_alpha: float = 0.5         # Q memory-bank EMA coefficient
+    proto_beta: float = 0.3          # V bank EMA coefficient
+    lambda_Q: float = 0.01           # memory-loss weights
+    lambda_V: float = 0.1
+    use_memory_loss: bool = False
+
+
+@dataclass
 class Config:
     model: ModelConfig = field(default_factory=ModelConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
 
 
 def tiny_model_config(**overrides) -> ModelConfig:
