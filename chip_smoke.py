@@ -14,8 +14,10 @@ Phases, each of which exits non-zero on failure:
    shapes; K1′ (training forward) and K2 (backward) at the train shape,
    rectangular and odd f32 shapes and the decoder shapes, at dropout 0
    and 0.1 (the plain version draws the kernels' own Philox mask, which
-   is also compared bit for bit). CUDA-event times of each kernel, its
-   plain version and one library call (a yardstick only).
+   is also compared bit for bit), timed also at the fused decoder's
+   shapes; K5 (``dw_splitk``, xᵀ·g) at the probe's shape and at odd
+   shapes. CUDA-event times of each kernel, its plain version and one
+   library call (a yardstick only).
 3. The eval slice: random-init t5-base (seeded), cast for inference,
    bf16, ``make_eval_step`` at batch 100 on a synthetic batch; the
    launch counts over the timed steps; the encoder through the kernel
@@ -28,8 +30,20 @@ Phases, each of which exits non-zero on failure:
    gradients through the kernels against the unfused encoder's; three
    f32 train steps on a tiny config on the card against the CPU plain
    path.
+   4b. The same with the fused decoder (``fused_decoder``): the decoder's
+   causal self-attention and cross-attention through K1′/K2 too (36
+   launches of each per step), gradients against the unfused decoder,
+   three tiny f32 steps on the card against the CPU, and
+   ``make_loss_eval_step`` through K1 (36 launches per step) against the
+   unfused decoder's loss.
+   4c. Block recompute: one step from one state and one generator seed
+   with ``remat`` False, "full" and "dots" gives the same loss,
+   gradients and generator state; K1′ replays in the backward pass
+   (72 launches per step); the peak device memory of each mode.
 5. Serving: ``VQAServer`` over a ``VQAPredictor`` answers concurrent
    ``submit()`` calls with no errors.
+6. ``vqacl_tpu_torch.mm_bench``: the probe's matrix products and the K5
+   weight-gradient kernel ``dw_splitk`` at the probe's shapes.
 
 The second-to-last lines are a JSON object of per-kernel numbers and the
 card's name and power limit; the last line is the run's verdict as JSON.
@@ -71,6 +85,21 @@ DROPOUT = 0.1
 # summation order differs
 GRAD_REL_TOL = {"bfloat16": 3e-2, "float32": 1e-4}
 SMALL_PARAM_TOL = 3e-5
+# the loss-eval step through the fused decoder vs the unfused decoder,
+# relative: bf16 rounds p before p·v in the kernel and after the f32
+# softmax in the plain path; f32 differs only in summation order
+LOSS_EVAL_RTOL = {"bfloat16": 5e-3, "float32": 1e-5}
+# remat replays the block's own arithmetic on the same inputs, so the
+# gradients agree to the last bit; the bound leaves room for nothing else
+REMAT_GRAD_RTOL = 1e-6
+# K5 (xᵀ·g) at the probe's shape (K = batch x sequence rows of the MLP
+# input, D = d_model, F = d_ff) and at odd shapes; both sides sum in
+# f32 in other orders: |kernel - plain| <= DW_RTOL * Σ_k|x_kd g_kf| + 1e-6
+DW_PROBE = (4480, 768, 3072)
+DW_ODD = ((100, 40, 72), (97, 131, 257))
+DW_RTOL = 1e-5
+MM_BENCH_SHAPES = None       # None: the probe's own
+MM_BENCH_REPS = 5
 
 
 def log(*a):
@@ -370,13 +399,81 @@ def sdpa_times(sets, B, Tq, Sk, H, dk, L, dt, rate):
     fail("no SDPA backend takes the attention inputs")
 
 
-def _grads(vlt5, tree_leaves, tree_map, params, mcfg, batch, proto, dtype):
-    """(loss, flat f32 gradient) of the deterministic training forward."""
+def dw_inputs(K, D, F, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(K, D, generator=g, device="cuda").to(dtype)
+    dy = torch.randn(K, F, generator=g, device="cuda").to(dtype)
+    return x, dy
+
+
+def check_dw(dw, name, K, D, F, dtype, timed=False):
+    """K5 vs its plain version (and a second launch bit for bit); with
+    ``timed`` also the times, bound and library yardstick."""
+    dt = getattr(torch, dtype)
+    x, dy = dw_inputs(K, D, F, dt, seed=K + D + F)
+    out = dw.dw_splitk(x, dy)
+    ref = dw.dw_splitk_reference(x, dy)
+    again = dw.dw_splitk(x, dy)
+    scale = x.float().abs().t() @ dy.float().abs()
+    torch.cuda.synchronize()
+    if out.dtype != torch.float32 or out.shape != (D, F):
+        fail(f"{name}: output {out.dtype} {tuple(out.shape)}")
+    diff = (out - ref).abs()
+    tol = DW_RTOL * scale + 1e-6
+    err = float(diff.max())
+    ok = bool((diff <= tol).all()) and bool(torch.isfinite(out).all())
+    same = torch.equal(out, again)
+    log(f"kernel_check {name}: K={K} D={D} F={F} {dtype} max_abs_err="
+        f"{err:.3e} max err/tol={float((diff / tol).max()):.3e} tol="
+        f"{DW_RTOL:g}*sum|x*g| + 1e-6; second launch equal: {same} -> "
+        f"{'ok' if ok and same else 'MISMATCH'}")
+    if not (ok and same):
+        fail(f"{name}: dw_splitk disagrees with its plain version")
+    row = {"max_abs_err": err}
+    if not timed:
+        return row
+    sets = [(x, dy)] + [dw_inputs(K, D, F, dt, seed=300 + i)
+                        for i in range(3)]
+    row["ms"] = time_ms([lambda s=s: dw.dw_splitk(*s) for s in sets])
+    row["plain_ms"] = time_ms([lambda s=s: dw.dw_splitk_reference(*s)
+                               for s in sets])
+    # bf16 out (cuBLAS sums in f32 and rounds the result)
+    row["library_ms"] = time_ms([lambda s=s: torch.matmul(s[0].t(), s[1])
+                                 for s in sets])
+    elem = x.element_size()
+    nbytes = (K * D + K * F) * elem + D * F * 4
+    flops = 2 * K * D * F
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    row["bound_ms"] = max(t_bytes, t_ops)
+    row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    row["bytes"], row["flops"] = nbytes, flops
+    log(f"kernel_time {name}: kernel_ms={row['ms']:.5f} "
+        f"plain_ms={row['plain_ms']:.5f} library_ms={row['library_ms']:.5f} "
+        f"(torch.matmul(x.t(), g), {dtype} out) bound_ms="
+        f"{row['bound_ms']:.5f} ({row['bound_by']}: {nbytes} B, {flops} "
+        f"FLOP)")
+    return row
+
+
+def _grads(vlt5, tree_leaves, tree_map, params, mcfg, batch, proto, dtype,
+           generator=None, remat=False, peak=None):
+    """(loss, flat f32 gradient) of the training forward (deterministic
+    without a ``generator``). With a ``peak`` dict, its "bytes" get the
+    device memory peak of the forward and backward above their start
+    (the gradients included, their flat copy not)."""
+    if peak is not None:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
     live = tree_map(lambda p: p.detach().requires_grad_(), params)
     out = vlt5.forward_train(live, mcfg, batch, proto, 0.5, 0.3,
-                             generator=None, dtype=dtype)
+                             generator=generator, dtype=dtype, remat=remat)
     leaves = tree_leaves(live)
     gs = torch.autograd.grad(out.loss, leaves, allow_unused=True)
+    if peak is not None:
+        torch.cuda.synchronize()
+        peak["bytes"] = torch.cuda.max_memory_allocated() - start
     flat = torch.cat([(torch.zeros_like(p) if g is None else g).float()
                       .reshape(-1) for p, g in zip(leaves, gs)])
     return float(out.loss.detach()), flat
@@ -400,13 +497,16 @@ def main() -> int:
     from vqacl_tpu_torch.models import vlt5
     from vqacl_tpu_torch.models.convert import to_device
     from vqacl_tpu_torch.models.prototype import ProtoState
-    from vqacl_tpu_torch.ops import _build
+    from vqacl_tpu_torch import mm_bench
+    from vqacl_tpu_torch.ops import _build, dw
     from vqacl_tpu_torch.ops import fused_attention as fa
     from vqacl_tpu_torch.serve import VQAPredictor, VQAServer
     from vqacl_tpu_torch.train.optim import (make_transform, tree_leaves,
                                              tree_map)
     from vqacl_tpu_torch.train.state import TrainState
-    from vqacl_tpu_torch.train.step import make_eval_step, make_train_step
+    from vqacl_tpu_torch.train.step import (make_eval_step,
+                                            make_loss_eval_step,
+                                            make_train_step)
     from vqacl_tpu_torch.utils.config import Config, tiny_model_config
 
     counters = (fa.fused_attention, fa.fused_attention_fwd_train,
@@ -466,6 +566,28 @@ def main() -> int:
                               H, dk, 10, "bfloat16", rate, causal=True)
         check_train_attention(fa, "decoder_cross_bf16_L0", 16, 10, S + 2, H,
                               dk, 0, "bfloat16", rate, text_len=L)
+    # the fused decoder's shapes at the train batch (K4): K1′/K2 with
+    # dropout in training, K1 in the loss-eval step
+    T = m.target_max_length
+    dec_rows = {
+        "self": check_train_attention(
+            fa, "decoder_self_train", TRAIN_BATCH, T, T, H, dk, T,
+            "bfloat16", DROPOUT, causal=True, timed=True),
+        "cross": check_train_attention(
+            fa, "decoder_cross_train", TRAIN_BATCH, T, S + 2, H, dk, 0,
+            "bfloat16", DROPOUT, text_len=L, timed=True),
+        "self_eval": check_attention(
+            fa, "decoder_self_eval", TRAIN_BATCH, T, T, H, dk, T,
+            "bfloat16", timed=True),
+        "cross_eval": check_attention(
+            fa, "decoder_cross_eval", TRAIN_BATCH, T, S + 2, H, dk, 0,
+            "bfloat16", text_len=L, timed=True)}
+    # K5 at the probe's shape and at odd shapes
+    k5 = check_dw(dw, "dw_probe", *DW_PROBE, "bfloat16", timed=True)
+    check_dw(dw, "dw_probe_f32", *DW_PROBE, "float32")
+    for shape in DW_ODD:
+        for dname in ("bfloat16", "float32"):
+            check_dw(dw, "dw_odd", *shape, dname)
 
     # ---- 3. the slice at t5-base -----------------------------------------
     t0 = time.time()
@@ -580,111 +702,244 @@ def main() -> int:
     tx = make_transform(tcfg.train)
     tproto0 = ProtoState.create(tm_.n_ques_types, tm_.n_categories,
                                 tm_.d_model, device="cuda")
-    # warm-up of one step: step 0 is HF's zero update, every later step
-    # runs at the configured lr
-    state = TrainState.create(tparams, tx, tproto0, seed=0,
-                              warmup_iters=1.0, t_total=1000.0)
     tbatch = next(SyntheticVQA(2 * TRAIN_BATCH, seed=0).batches(
         TRAIN_BATCH, seed=0))["tensors"]
-    step = make_train_step(tcfg, dtype=torch.bfloat16, device="cuda")
+    gb = {k: torch.from_numpy(v).cuda() for k, v in tbatch.items()}
     log(f"train: t5-base f32 master weights, bf16 compute, dropout "
         f"{tm_.dropout_rate}, batch {TRAIN_BATCH}, lr {tcfg.train.lr}, "
         f"adam {tcfg.train.adam_impl}/{tcfg.train.adam_dtype}; set-up "
         f"{time.time() - t0:.1f} s")
-    losses, all_metrics = [], []
-    for _ in range(TRAIN_WARMUP):
-        state, met = step(state, tbatch)
-        all_metrics.append({k: float(v) for k, v in met.items()})
-    torch.cuda.synchronize()
-    zero_counts()
-    ttimes = []
-    for _ in range(TRAIN_STEPS):
-        t0 = time.perf_counter()
-        state, met = step(state, tbatch)
-        torch.cuda.synchronize()
-        ttimes.append((time.perf_counter() - t0) * 1e3)
-        all_metrics.append({k: float(v) for k, v in met.items()})
-    train_k1, train_k1p, train_k2 = read_counts()
-    losses = [mt["loss"] for mt in all_metrics]
-    train_step_ms = sorted(ttimes)[len(ttimes) // 2]
-    log(f"train_step: bs {TRAIN_BATCH} bf16 train_step_ms={train_step_ms:.3f}"
-        f" (all: {', '.join(f'{t:.3f}' for t in ttimes)}) launches over "
-        f"{TRAIN_STEPS} steps: K1={train_k1} K1'={train_k1p} K2={train_k2}")
-    log(f"train losses: {', '.join(f'{x:.4f}' for x in losses)}; last "
-        f"metrics {json.dumps(all_metrics[-1])}")
-    if not all(np.isfinite(v) for mt in all_metrics for v in mt.values()):
-        fail("a train-step metric is not finite")
-    if train_k1 != 0 or train_k1p != tm_.num_layers * TRAIN_STEPS \
-            or train_k2 != tm_.num_layers * TRAIN_STEPS:
-        fail(f"expected 0 K1 and {tm_.num_layers} K1'/K2 launches per "
-             f"train step, got {train_k1}/{train_k1p}/{train_k2} over "
-             f"{TRAIN_STEPS} steps")
-    if not np.mean(losses[-3:]) < np.mean(losses[:3]):
-        fail(f"the loss did not fall on a fixed batch: {losses}")
-    if float(state.step) != TRAIN_WARMUP + TRAIN_STEPS:
-        fail(f"train state step {int(state.step)}")
 
+    def drive_train(run_cfg, label, per_step):
+        """TRAIN_WARMUP + TRAIN_STEPS train steps on one batch from the
+        seeded init; checks the launches per step (K1 0, K1′ and K2
+        ``per_step``), finite metrics, a falling loss → (state, record)."""
+        # warm-up of one step: step 0 is HF's zero update, every later
+        # step runs at the configured lr
+        state = TrainState.create(tparams, tx, tproto0, seed=0,
+                                  warmup_iters=1.0, t_total=1000.0)
+        step = make_train_step(run_cfg, dtype=torch.bfloat16, device="cuda")
+        all_metrics = []
+        for _ in range(TRAIN_WARMUP):
+            state, met = step(state, tbatch)
+            all_metrics.append({k: float(v) for k, v in met.items()})
+        torch.cuda.synchronize()
+        zero_counts()
+        ttimes = []
+        for _ in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            state, met = step(state, tbatch)
+            torch.cuda.synchronize()
+            ttimes.append((time.perf_counter() - t0) * 1e3)
+            all_metrics.append({k: float(v) for k, v in met.items()})
+        k1, k1p, k2 = read_counts()
+        losses = [mt["loss"] for mt in all_metrics]
+        ms = sorted(ttimes)[len(ttimes) // 2]
+        log(f"{label}: bs {TRAIN_BATCH} bf16 train_step_ms={ms:.3f} (all: "
+            f"{', '.join(f'{t:.3f}' for t in ttimes)}) launches over "
+            f"{TRAIN_STEPS} steps: K1={k1} K1'={k1p} K2={k2}")
+        log(f"{label} losses: {', '.join(f'{x:.4f}' for x in losses)}; last "
+            f"metrics {json.dumps(all_metrics[-1])}")
+        if not all(np.isfinite(v) for mt in all_metrics for v in mt.values()):
+            fail(f"{label}: a train-step metric is not finite")
+        if (k1, k1p, k2) != (0, per_step * TRAIN_STEPS,
+                             per_step * TRAIN_STEPS):
+            fail(f"{label}: expected 0 K1 and {per_step} K1'/K2 launches per "
+                 f"train step, got {k1}/{k1p}/{k2} over {TRAIN_STEPS} steps")
+        if not np.mean(losses[-3:]) < np.mean(losses[:3]):
+            fail(f"{label}: the loss did not fall on a fixed batch: {losses}")
+        if float(state.step) != TRAIN_WARMUP + TRAIN_STEPS:
+            fail(f"{label}: train state step {int(state.step)}")
+        return state, {"train_step_ms": ms, "train_step_ms_all": ttimes,
+                       "losses": losses, "launches": (k1, k1p, k2)}
+
+    def grad_check(params, m_kernel, m_plain, what):
+        """Parameter gradients at dropout 0, kernels vs plain attention,
+        in bf16 at the train batch and in f32 at batch 8."""
+        rel = {}
+        for dname, nb in (("bfloat16", TRAIN_BATCH), ("float32", 8)):
+            dtp = getattr(torch, dname)
+            part = {k: v[:nb] for k, v in gb.items()}
+            lf, gf = _grads(vlt5, tree_leaves, tree_map, params, m_kernel,
+                            part, tproto0, dtp)
+            lu, gu = _grads(vlt5, tree_leaves, tree_map, params, m_plain,
+                            part, tproto0, dtp)
+            rel[dname] = float((gf - gu).norm() / gu.norm())
+            log(f"grad check {what} {dname} bs {nb}: loss kernel {lf:.6f} "
+                f"plain {lu:.6f}; |g_kernel - g_plain| / |g_plain| = "
+                f"{rel[dname]:.3e} (tol {GRAD_REL_TOL[dname]:g})")
+            if not rel[dname] <= GRAD_REL_TOL[dname]:
+                fail(f"{dname} gradients through the kernels disagree with "
+                     f"the {what}")
+            del gf, gu
+        return rel
+
+    def small_train_reference(fused_decoder):
+        """Three f32 train steps of a tiny config on the card == the CPU
+        plain path (dropout 0). cuBLAS and the CPU sum in other orders,
+        and the Adam direction m/(√v+ε) magnifies that for gradient
+        entries near ε, so parameters are held to 3 % of one lr-1e-3
+        update (a wrong gradient or Adam term moves them by a whole
+        update) → (loss rel err, param max abs err)."""
+        small = Config()
+        small.model = tiny_model_config(vocab_size=32200, dropout_rate=0.0,
+                                        fused_decoder=fused_decoder)
+        small.train.lr = 1e-3
+        sm = small.model
+        sp = vlt5.init_vlt5_params(5, sm, device="cpu")
+        spro = ProtoState.create(sm.n_ques_types, sm.n_categories,
+                                 sm.d_model, device="cpu")
+        sbatches = [b["tensors"] for b in SyntheticVQA(
+            24, seed=6, feat_dim=sm.feat_dim, n_boxes=sm.n_boxes,
+            text_len=sm.max_text_length, vocab_size=sm.vocab_size,
+            answer_vocab=8).batches(8, seed=1)]
+        stx = make_transform(small.train)
+        s_cpu = TrainState.create(sp, stx, spro, seed=0, warmup_iters=1.0,
+                                  t_total=40.0)
+        s_gpu = TrainState.create(to_device(sp, "cuda"), stx,
+                                  spro.to("cuda"), seed=0, warmup_iters=1.0,
+                                  t_total=40.0)
+        step_cpu = make_train_step(small, dtype=torch.float32, device="cpu")
+        step_gpu = make_train_step(small, dtype=torch.float32, device="cuda")
+        loss_err = 0.0
+        for b in sbatches:
+            s_cpu, mc = step_cpu(s_cpu, b)
+            s_gpu, mg = step_gpu(s_gpu, b)
+            loss_err = max(loss_err, abs(float(mg["loss"])
+                                         - float(mc["loss"]))
+                           / abs(float(mc["loss"])))
+        pc, pg = tree_leaves(s_cpu.params), tree_leaves(s_gpu.params)
+        param_err = max(float((a - b.cpu()).abs().max())
+                        for a, b in zip(pc, pg))
+        log(f"small f32 train reference (fused_decoder={fused_decoder}): 3 "
+            f"steps card vs CPU plain path: loss rel err {loss_err:.3e} "
+            f"(tol 1e-5), param max abs err {param_err:.3e} (tol "
+            f"{SMALL_PARAM_TOL:g})")
+        if not (loss_err <= 1e-5 and param_err <= SMALL_PARAM_TOL):
+            fail("f32 train steps on the card differ from the CPU plain path")
+        return loss_err, param_err
+
+    state, train = drive_train(tcfg, "train_step", tm_.num_layers)
+    train_step_ms, ttimes = train["train_step_ms"], train["train_step_ms_all"]
+    losses = train["losses"]
+    train_k1, train_k1p, train_k2 = train["launches"]
     # gradients through K1'/K2 vs the unfused encoder, at dropout 0
-    gb = {k: torch.from_numpy(v).cuda() for k, v in tbatch.items()}
     m_unf = Config().model
     m_unf.fused_attention = False
-    grad_rel = {}
+    grad_rel = grad_check(state.params, tm_, m_unf, "unfused encoder")
+    del state
+    torch.cuda.empty_cache()
+    small_loss_err, small_param_err = small_train_reference(False)
+
+    # ---- 4b. the fused decoder (K4) ---------------------------------------
+    fcfg = Config()
+    fcfg.model.fused_decoder = True
+    fm = fcfg.model
+    # per step: 12 encoder blocks + 12 decoder self- + 12 cross-attentions
+    fd_per_step = fm.num_layers + 2 * fm.num_decoder_layers
+    state, fd_train = drive_train(fcfg, "train_step_fused_decoder",
+                                  fd_per_step)
+    fd_k1, fd_k1p, fd_k2 = fd_train["launches"]
+    log(f"train_step_ms: unfused decoder {train_step_ms:.3f}, fused decoder "
+        f"{fd_train['train_step_ms']:.3f}")
+    m_dec_unf = Config().model          # fused encoder, plain decoder
+    fd_grad_rel = grad_check(state.params, fm, m_dec_unf, "unfused decoder")
+    fd_small = small_train_reference(True)
+    # the loss-eval step: K1 in the encoder and in both decoder attentions
+    fd_eval = {}
     for dname, nb in (("bfloat16", TRAIN_BATCH), ("float32", 8)):
         dtp = getattr(torch, dname)
-        part = {k: v[:nb] for k, v in gb.items()}
-        lf, gf = _grads(vlt5, tree_leaves, tree_map, state.params, tm_,
-                        part, tproto0, dtp)
-        lu, gu = _grads(vlt5, tree_leaves, tree_map, state.params, m_unf,
-                        part, tproto0, dtp)
-        grad_rel[dname] = float((gf - gu).norm() / gu.norm())
-        log(f"grad check {dname} bs {nb}: loss kernel {lf:.6f} plain "
-            f"{lu:.6f}; |g_kernel - g_plain| / |g_plain| = "
-            f"{grad_rel[dname]:.3e} (tol {GRAD_REL_TOL[dname]:g})")
-        if not grad_rel[dname] <= GRAD_REL_TOL[dname]:
-            fail(f"{dname} gradients through the kernels disagree with the "
-                 f"unfused encoder")
-        del gf, gu
-    del state, tparams, step
-    torch.cuda.empty_cache()
+        part = {k: v[:nb] for k, v in tbatch.items()}
+        plain_cfg = Config()
+        loss_u = float(make_loss_eval_step(plain_cfg, dtype=dtp,
+                                           device="cuda")(
+            state.params, state.proto, part))
+        ev = make_loss_eval_step(fcfg, dtype=dtp, device="cuda")
+        ev(state.params, state.proto, part)          # warm-up
+        torch.cuda.synchronize()
+        zero_counts()
+        loss_f = float(ev(state.params, state.proto, part))
+        counts = read_counts()
+        rel = abs(loss_f - loss_u) / abs(loss_u)
+        fd_eval[dname] = {"loss_fused": loss_f, "loss_unfused": loss_u,
+                          "rel": rel, "launches": counts}
+        log(f"loss_eval fused decoder {dname} bs {nb}: loss {loss_f:.6f} vs "
+            f"unfused decoder {loss_u:.6f}, rel {rel:.3e} (tol "
+            f"{LOSS_EVAL_RTOL[dname]:g}); launches K1={counts[0]} "
+            f"K1'={counts[1]} K2={counts[2]}")
+        if counts != (fd_per_step, 0, 0):
+            fail(f"expected {fd_per_step} K1 launches and no K1'/K2 per "
+                 f"loss-eval step, got {counts}")
+        if not (np.isfinite(loss_f) and rel <= LOSS_EVAL_RTOL[dname]):
+            fail("the fused decoder's eval loss disagrees with the unfused "
+                 "decoder's")
+    loss_eval_k1 = fd_eval["bfloat16"]["launches"][0]
 
-    # small-input reference: three f32 train steps on the card == the CPU
-    # plain path (dropout 0). cuBLAS and the CPU sum in other orders, and
-    # the Adam direction m/(√v+ε) magnifies that for gradient entries near
-    # ε, so parameters are held to 3 % of one lr-1e-3 update (a wrong
-    # gradient or Adam term moves them by a whole update)
-    small = Config()
-    small.model = tiny_model_config(vocab_size=32200, dropout_rate=0.0)
-    small.train.lr = 1e-3
-    sm = small.model
-    sp = vlt5.init_vlt5_params(5, sm, device="cpu")
-    spro = ProtoState.create(sm.n_ques_types, sm.n_categories, sm.d_model,
-                             device="cpu")
-    sbatches = [b["tensors"] for b in SyntheticVQA(
-        24, seed=6, feat_dim=sm.feat_dim, n_boxes=sm.n_boxes,
-        text_len=sm.max_text_length, vocab_size=sm.vocab_size,
-        answer_vocab=8).batches(8, seed=1)]
-    stx = make_transform(small.train)
-    s_cpu = TrainState.create(sp, stx, spro, seed=0, warmup_iters=1.0,
-                              t_total=40.0)
-    s_gpu = TrainState.create(to_device(sp, "cuda"), stx, spro.to("cuda"),
-                              seed=0, warmup_iters=1.0, t_total=40.0)
-    step_cpu = make_train_step(small, dtype=torch.float32, device="cpu")
-    step_gpu = make_train_step(small, dtype=torch.float32, device="cuda")
-    small_loss_err = 0.0
-    for b in sbatches:
-        s_cpu, mc = step_cpu(s_cpu, b)
-        s_gpu, mg = step_gpu(s_gpu, b)
-        small_loss_err = max(small_loss_err, abs(float(mg["loss"])
-                                                 - float(mc["loss"]))
-                             / abs(float(mc["loss"])))
-    pc, pg = tree_leaves(s_cpu.params), tree_leaves(s_gpu.params)
-    small_param_err = max(float((a - b.cpu()).abs().max())
-                          for a, b in zip(pc, pg))
-    log(f"small f32 train reference: 3 steps card vs CPU plain path: loss "
-        f"rel err {small_loss_err:.3e} (tol 1e-5), param max abs err "
-        f"{small_param_err:.3e} (tol {SMALL_PARAM_TOL:g})")
-    if not (small_loss_err <= 1e-5 and small_param_err <= SMALL_PARAM_TOL):
-        fail("f32 train steps on the card differ from the CPU plain path")
+    # ---- 4c. remat: block recompute --------------------------------------
+    remat = {}
+    base_params = state.params
+    for mode in (False, "full", "dots"):
+        rstate = TrainState.create(base_params, tx, tproto0, seed=7,
+                                   warmup_iters=1.0, t_total=1000.0)
+        rstep = make_train_step(fcfg, dtype=torch.bfloat16, device="cuda",
+                                remat=mode)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        zero_counts()
+        rstate, met = rstep(rstate, tbatch)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        step_peak = torch.cuda.max_memory_allocated() - before
+        upd = tree_leaves(rstate.params)
+        step_gen_state = rstate.generator.get_state()
+        del rstate, rstep
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        peak = {}
+        loss_g, flat = _grads(vlt5, tree_leaves, tree_map, base_params, fm,
+                              gb, tproto0, torch.bfloat16, generator=gen,
+                              remat=mode, peak=peak)
+        r = {"loss": float(met["loss"]), "grad_norm": float(met["grad_norm"]),
+             "gen_state": step_gen_state, "grad_loss": loss_g,
+             "grad_gen_state": gen.get_state(), "launches": counts,
+             "step_peak_above_state_bytes": step_peak,
+             "fwd_bwd_peak_bytes": peak["bytes"]}
+        log(f"remat={mode}: loss {r['loss']:.6f} grad_norm "
+            f"{r['grad_norm']:.6f} launches K1={counts[0]} K1'={counts[1]} "
+            f"K2={counts[2]}; max_memory_allocated above the start: forward"
+            f"+backward {peak['bytes'] / 2 ** 30:.3f} GiB, whole step "
+            f"(optimizer included) {step_peak / 2 ** 30:.3f} GiB")
+        if mode is False:
+            r0, flat0, upd0 = r, flat, upd
+            remat[mode] = r
+            continue
+        grad_err = float((flat - flat0).norm() / flat0.norm())
+        params_equal = all(torch.equal(a, b) for a, b in zip(upd, upd0))
+        same_gen = torch.equal(r["gen_state"], r0["gen_state"]) \
+            and torch.equal(r["grad_gen_state"], r0["grad_gen_state"])
+        r["grad_rel_err"] = grad_err
+        remat[mode] = r
+        log(f"remat={mode} vs none: loss equal {r['loss'] == r0['loss']}, "
+            f"|g - g0| / |g0| = {grad_err:.3e} (tol {REMAT_GRAD_RTOL:g}), "
+            f"updated parameters equal {params_equal}, generator state "
+            f"equal {same_gen}")
+        if not (r["loss"] == r0["loss"] and r["grad_loss"] == r0["grad_loss"]
+                and grad_err <= REMAT_GRAD_RTOL and same_gen):
+            fail(f"remat={mode} changed the step")
+        # every fused block's forward replays once in the backward pass
+        if r["launches"] != (0, 2 * fd_per_step, fd_per_step):
+            fail(f"remat={mode}: expected K1'={2 * fd_per_step} and "
+                 f"K2={fd_per_step} per step, got {r['launches']}")
+        del flat, upd
+    if r0["launches"] != (0, fd_per_step, fd_per_step):
+        fail(f"remat=False: launches {r0['launches']}")
+    remat_summary = {str(k): {
+        key: v.get(key, 0.0) for key in (
+            "loss", "launches", "fwd_bwd_peak_bytes",
+            "step_peak_above_state_bytes", "grad_rel_err")}
+        for k, v in remat.items()}
+    del state, remat, base_params, tparams, flat0, upd0
+    torch.cuda.empty_cache()
 
     # ---- 5. serving -------------------------------------------------------
     store = MemoryFeatureStore()
@@ -736,6 +991,20 @@ def main() -> int:
         fail(f"serving launched the kernel {serve_launches} times over "
              f"{batches} batches")
 
+    # ---- 6. the mm_bench probe (K5) -------------------------------------
+    torch.cuda.synchronize()
+    dw.dw_splitk.launches = 0
+    mm_rows = mm_bench.run("cuda", MM_BENCH_SHAPES, reps=MM_BENCH_REPS)
+    dw_launches = dw.dw_splitk.launches
+    log(f"mm_bench ({MM_BENCH_REPS} timed calls per case, CUDA events; peak "
+        f"{mm_bench.PEAK_FLOPS / 1e12:g} TFLOP/s bf16; {card}):")
+    log(mm_bench.table(mm_rows))
+    log(f"mm_bench: dw_splitk launches={dw_launches}")
+    if dw_launches == 0:
+        fail("mm_bench did not launch dw_splitk")
+    if not all(np.isfinite(r["us"]) and r["us"] > 0 for r in mm_rows):
+        fail("mm_bench gave a time that is not a positive number")
+
     def row(name, source, replaces, launches, r):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
@@ -743,15 +1012,31 @@ def main() -> int:
                                      "bound_ms", "bound_by", "library_ms")}}
 
     fwd_src = "vqacl_tpu_torch/csrc/fused_attention_fwd.cu"
+    # launches over the main paths' runs: K1 in the eval steps and the
+    # fused-decoder loss-eval step, K1′/K2 in the train steps with the
+    # plain and with the fused decoder, K5 in the probe
     kernels = [
         row("fused_attention_fwd", fwd_src,
-            "vqacl_tpu/ops/fused_attention.py:159", eval_launches, k1),
+            "vqacl_tpu/ops/fused_attention.py:159",
+            eval_launches + loss_eval_k1, k1),
         row("fused_attention_fwd_train", fwd_src,
-            "vqacl_tpu/ops/fused_attention.py:199", train_k1p, k1p),
+            "vqacl_tpu/ops/fused_attention.py:199", train_k1p + fd_k1p, k1p),
         row("fused_attention_bwd",
             "vqacl_tpu_torch/csrc/fused_attention_bwd.cu",
-            "vqacl_tpu/ops/fused_attention.py:272", train_k2, k2),
+            "vqacl_tpu/ops/fused_attention.py:272", train_k2 + fd_k2, k2),
+        row("dw_splitk", "vqacl_tpu_torch/csrc/dw_splitk.cu",
+            "scripts/mm_bench.py:121", dw_launches, k5),
     ]
+    def pick(r):
+        return {k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                  "library_ms", "bound_ms", "bound_by")}
+
+    dec_times = {"self": {"K1p": pick(dec_rows["self"][0]),
+                          "K2": pick(dec_rows["self"][1])},
+                 "cross": {"K1p": pick(dec_rows["cross"][0]),
+                           "K2": pick(dec_rows["cross"][1])},
+                 "self_eval": {"K1": pick(dec_rows["self_eval"])},
+                 "cross_eval": {"K1": pick(dec_rows["cross_eval"])}}
     log("summary " + json.dumps({
         "eval_step_ms": eval_step_ms, "eval_batch": EVAL_BATCH,
         "launches_per_eval_step": per_step, "encoder_rel_err": enc_rel,
@@ -764,7 +1049,20 @@ def main() -> int:
         "grad_rel_err": grad_rel, "small_train_loss_rel_err": small_loss_err,
         "small_train_param_err": small_param_err,
         "kernel_bytes_flops": {"K1p": [k1p["bytes"], k1p["flops"]],
-                               "K2": [k2["bytes"], k2["flops"]]},
+                               "K2": [k2["bytes"], k2["flops"]],
+                               "K5": [k5["bytes"], k5["flops"]]},
+        "fused_decoder": {
+            "train_step_ms": fd_train["train_step_ms"],
+            "train_step_ms_all": fd_train["train_step_ms_all"],
+            "train_losses": fd_train["losses"],
+            "launches_per_train_step": {
+                "K1": fd_k1 / TRAIN_STEPS, "K1p": fd_k1p / TRAIN_STEPS,
+                "K2": fd_k2 / TRAIN_STEPS},
+            "grad_rel_err": fd_grad_rel,
+            "small_train_loss_rel_err": fd_small[0],
+            "small_train_param_err": fd_small[1],
+            "loss_eval": fd_eval, "kernel_times": dec_times},
+        "remat": remat_summary, "mm_bench": mm_rows,
         "serve": st, "serve_wall_s": wall, "card": card}))
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -4,12 +4,14 @@ chip_smoke.py needs a CUDA device and nvcc, so the tests here cannot
 run it as it is. This rehearsal runs its ``main()`` in a subprocess with
 CUDA devices mapped to the CPU (a ``TorchFunctionMode`` that rewrites
 ``device="cuda"``), CUDA events timed on the host clock, the build step
-skipped, each kernel wrapper (K1, K1′, K2) replaced by its plain version
-plus the launch counter, and tiny widths (t5-base's data shapes, d_model
-32, 2 layers). It checks every phase's bookkeeping — launch counts per
-eval step, per train step and per served batch, the kernels JSON line
-with all its keys, the card line and the final verdict line — and that
-without CUDA the real script prints no result and exits non-zero.
+skipped, each kernel wrapper (K1, K1′, K2, K5) replaced by its plain
+version plus the launch counter, and tiny widths (t5-base's data shapes,
+d_model 32, 2 layers; small K5 and mm_bench shapes). It checks every
+phase's bookkeeping — launch counts per eval step, per train step with
+the plain and with the fused decoder, per loss-eval step, per remat
+mode, per served batch and in the probe, the kernels JSON line with all
+its keys, the card line and the final verdict line — and that without
+CUDA the real script prints no result and exits non-zero.
 """
 
 import json
@@ -55,14 +57,22 @@ torch.cuda.synchronize = lambda *a: None
 torch.cuda.Event = HostEvent
 torch.cuda.get_device_name = lambda i=0: "rehearsal"
 torch.cuda.device_count = lambda: 1
+torch.cuda.reset_peak_memory_stats = lambda *a: None
+torch.cuda.memory_allocated = lambda *a: 0
+torch.cuda.max_memory_allocated = lambda *a: 0
 _Generator = torch.Generator
-torch.Generator = lambda device=None: _Generator()
+class CpuGenerator(_Generator):   # a type, as annotations in torch need
+    def __new__(cls, device=None):
+        return _Generator()
+torch.Generator = CpuGenerator
 
 from vqacl_tpu_torch.utils import device as D
 cpu = lambda d: torch.device("cpu")
 import vqacl_tpu_torch.models.vlt5 as V, vqacl_tpu_torch.serve as SV
 import vqacl_tpu_torch.train.step as ST
+import vqacl_tpu_torch.mm_bench as MB
 D.resolve_device = V.resolve_device = SV.resolve_device = ST.resolve_device = cpu
+MB.resolve_device = cpu
 from vqacl_tpu_torch.ops import _build, fused_attention as fa
 _build.build = lambda names=(): []
 dispatch = fa.fused_attention
@@ -84,6 +94,12 @@ fa.fused_attention = counted
 fa.fused_attention_fwd_train = counted_fwd_train
 fa.fused_attention_bwd = counted_bwd
 fa.fused_attention_keep_mask = fa.philox_keep_mask
+from vqacl_tpu_torch.ops import dw
+def counted_dw(x, g):
+    counted_dw.launches += 1
+    return dw.dw_splitk_reference(x, g)
+counted_dw.launches = 0
+dw.dw_splitk = counted_dw
 from vqacl_tpu_torch.utils import config as C
 _Config = C.Config
 def tiny():
@@ -98,6 +114,9 @@ chip_smoke.card_line = lambda: "rehearsal card, 0 W"
 chip_smoke.EVAL_BATCH = 4
 chip_smoke.TRAIN_BATCH = 8
 chip_smoke.TRAIN_STEPS = 4
+chip_smoke.DW_PROBE = (64, 16, 24)
+chip_smoke.MM_BENCH_SHAPES = dict(B=2, S=6, D=16, F=24, H=2, dk=8)
+chip_smoke.MM_BENCH_REPS = 2
 with CudaOnCpu():
     sys.exit(chip_smoke.main())
 """
@@ -114,21 +133,48 @@ def test_chip_smoke_rehearsal_on_cpu():
     kernels = json.loads(lines[-3])["kernels"]
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
-    assert [set(k) for k in kernels] == [keys] * 3
+    assert [set(k) for k in kernels] == [keys] * 4
     assert [k["name"] for k in kernels] == [
         "fused_attention_fwd", "fused_attention_fwd_train",
-        "fused_attention_bwd"]
+        "fused_attention_bwd", "dw_splitk"]
     for k in kernels:
         assert k["route"] == "cuda" and k["bound_by"] in ("bytes",
                                                           "operations")
         assert os.path.exists(os.path.join(REPO, k["source"]))
+    for k in kernels[:3]:
         assert k["replaces"].startswith("vqacl_tpu/ops/fused_attention.py:")
-    k1, k1p, k2 = kernels
-    assert k1["launches"] == 2 * 3          # 2 layers x 3 timed eval steps
+    k1, k1p, k2, k5 = kernels
+    assert k5["replaces"] == "scripts/mm_bench.py:121"
+    assert k5["source"] == "vqacl_tpu_torch/csrc/dw_splitk.cu"
+    # K1: 2 layers x 3 timed eval steps, plus one fused-decoder loss-eval
+    # step (2 encoder + 2 x 2 decoder attentions)
+    assert k1["launches"] == 2 * 3 + 6
     assert "fused_attention launches=6 (2/step)" in r.stdout
-    assert k1p["launches"] == k2["launches"] == 2 * 4   # x 4 train steps
+    # K1'/K2: 4 train steps x 2 encoder layers, and 4 fused-decoder
+    # steps x (2 encoder + 2 x 2 decoder) attentions
+    assert k1p["launches"] == k2["launches"] == 2 * 4 + 6 * 4
+    assert "train_step: bs 8 bf16" in r.stdout
     assert "launches over 4 steps: K1=0 K1'=8 K2=8" in r.stdout
+    assert "launches over 4 steps: K1=0 K1'=24 K2=24" in r.stdout
     assert "rate=0.1 kept=0.9" in r.stdout
+    for dname in ("bfloat16", "float32"):
+        assert f"loss_eval fused decoder {dname}" in r.stdout
+    assert r.stdout.count("launches K1=6 K1'=0 K2=0") == 2
+    # remat: every fused block's forward replays once
+    assert "remat=False: " in r.stdout
+    for mode in ("full", "dots"):
+        assert f"remat={mode}: " in r.stdout
+        assert f"remat={mode} vs none: loss equal True" in r.stdout
+    assert r.stdout.count("launches K1=0 K1'=12 K2=6") == 2
+    # K5: checked at the probe and odd shapes, launched by mm_bench
+    # (3 input sets warmed up + 2 timed calls)
+    assert r.stdout.count("kernel_check dw_") == 6
+    assert "mlp_wi dW dw_splitk (CUDA, K5)" in r.stdout
+    assert k5["launches"] == 5
+    summary = json.loads(next(l for l in lines if l.startswith("summary "))
+                         [len("summary "):])
+    assert set(summary["remat"]) == {"False", "full", "dots"}
+    assert len(summary["mm_bench"]) == 12
 
 
 def test_chip_smoke_without_cuda_prints_no_result():

@@ -298,7 +298,7 @@ print("imported", len(mods))
     assert int(r.stdout.split()[-1]) >= 18
     imported = set(r.stdout.split())
     for m in ("train.optim", "train.state", "train.step", "profile_train",
-              "ops.fused_attention", "ops._build"):
+              "ops.fused_attention", "ops._build", "ops.dw", "mm_bench"):
         assert f"vqacl_tpu_torch.{m}" in imported, m
 
 

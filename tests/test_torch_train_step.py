@@ -9,7 +9,9 @@ dropout 0: per step, the loss, the grad norm, the lr and the retrieval /
 memory metrics within 1e-5 relative, and the parameters and prototype
 state within the tolerance stated below — with and without the memory
 loss, and with ``grad_accum=2``. A checkpoint the port writes after
-training loads in JAX and decodes to the same f32 tokens there.
+training loads in JAX and decodes to the same f32 tokens there. The
+same holds with the fused decoder (``fused_decoder``) and with block
+recompute (``remat`` True and "dots", against JAX's ``remat``).
 """
 
 import dataclasses
@@ -52,10 +54,11 @@ METRICS = ("loss", "grad_norm", "lr", "loss_memory_Q", "loss_memory_V",
            "retrieval_acc_Q", "retrieval_acc_V")
 
 
-def _configs(accum=1):
+def _configs(accum=1, fused_decoder=False):
     jcfg, params = jax_tiny_params(0, dropout_rate=0.0)
     jcfg.fused_attention = True
     jcfg.fused_interpret = True
+    jcfg.fused_decoder = fused_decoder
     jc = JConfig()
     jc.model = jcfg
     jc.train.lr = 1e-3
@@ -119,19 +122,32 @@ def _assert_state_close(js, ts, step):
         int(js.opt_state[1].count)
 
 
-@pytest.mark.parametrize("variant", ["plain", "memory_loss", "grad_accum2"])
+# variant → (grad_accum, memory loss, fused_decoder, remat)
+VARIANTS = {
+    "plain": (1, False, False, False),
+    "memory_loss": (1, True, False, False),
+    "grad_accum2": (2, False, False, False),
+    "fused_decoder": (1, False, True, False),
+    "remat_full": (1, False, False, True),
+    "remat_dots": (1, False, False, "dots"),
+    "fused_decoder_remat": (1, False, True, True),
+}
+
+
+@pytest.mark.parametrize("variant", list(VARIANTS))
 def test_train_steps_follow_jax(variant):
-    jc, tc, params = _configs(accum=2 if variant == "grad_accum2" else 1)
-    mem = variant == "memory_loss"
+    accum, mem, fused_decoder, remat = VARIANTS[variant]
+    jc, tc, params = _configs(accum=accum, fused_decoder=fused_decoder)
+    assert tc.model.fused_decoder == fused_decoder
     jb, tb = _batches(jc.model, STEPS)
     for a, b in zip(jb, tb):
         for k in a:
             np.testing.assert_array_equal(b[k], a[k], err_msg=k)
     jstate, tstate = _states(jc, tc, params)
     jstep = jax_train_step(jc, jax_transform(jc.train), dtype=jnp.float32,
-                           use_memory_loss=mem, donate=False)
+                           use_memory_loss=mem, remat=remat, donate=False)
     tstep = make_train_step(tc, dtype=torch.float32, device="cpu",
-                            use_memory_loss=mem)
+                            use_memory_loss=mem, remat=remat)
     for s in range(STEPS):
         jstate, jm = jstep(jstate, {k: jnp.asarray(v)
                                     for k, v in jb[s].items()})

@@ -14,7 +14,10 @@ attention runs in ``csrc/fused_attention_fwd.cu``) → prototype retrieval
 → ``models.generate.greedy_decode``; and the training step,
 ``train.step.make_train_step`` → ``models.vlt5.forward_train`` (the
 encoder attention's forward and backward in ``csrc/fused_attention_fwd.cu``
-and ``csrc/fused_attention_bwd.cu``) → backward → ``train.optim``.
+and ``csrc/fused_attention_bwd.cu``) → backward → ``train.optim``, with
+the decoder's attention in the same kernels (``fused_decoder``) and block
+recompute (``remat``); and the ``mm_bench`` probe with its weight-gradient
+kernel ``csrc/dw_splitk.cu`` (``ops.dw``).
 """
 
 __version__ = "0.1.0"

@@ -155,6 +155,70 @@ def mlp_apply(p: Params, x: torch.Tensor, activation: str,
     return h @ p["wo"].to(dt)
 
 
+# the matrix products whose outputs remat="dots" keeps (as
+# jax.checkpoint_policies.dots_saveable keeps dot_general outputs);
+# ``x @ W`` and einsum reach the dispatcher as these
+_DOT_OPS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                      torch.ops.aten.addmm.default,
+                      torch.ops.aten.baddbmm.default})
+
+
+def _dots_contexts():
+    """Selective checkpointing that saves the outputs of ``_DOT_OPS`` and
+    recomputes every other op."""
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+
+    return create_selective_checkpoint_contexts(list(_DOT_OPS))
+
+
+def maybe_checkpoint(fn, remat, generator: Optional[torch.Generator]):
+    """Counterpart of JAX ``t5._maybe_checkpoint``. ``remat``: False runs
+    ``fn`` as it is; True or "full" recomputes the whole block in the
+    backward pass (``torch.utils.checkpoint``, non-reentrant); "dots"
+    keeps the matrix products' outputs and recomputes the rest (the
+    layer norms, the softmax, dropout, the residuals, and the fused
+    attention's forward kernel, which is not a matrix product to the
+    dispatcher).
+
+    The recompute replays the block's dropout: ``torch.utils.checkpoint``
+    restores only the default generators, so the wrapper rewinds
+    ``generator`` to its state at the block's forward before the
+    recompute and puts it back afterwards. The run leaves the generator
+    where a run without remat leaves it. The fused attention's Philox
+    seeds are tensor inputs of the block and replay as they are."""
+    if not remat:
+        return fn
+    if remat not in (True, "full", "dots"):
+        raise ValueError(f"remat must be False, True, 'full' or 'dots', "
+                         f"got {remat!r}")
+    from torch.utils.checkpoint import checkpoint, noop_context_fn
+
+    context_fn = _dots_contexts if remat == "dots" else noop_context_fn
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        body = fn
+        if generator is not None:
+            start = generator.get_state()
+            calls = [0]
+
+            def body(*a):
+                calls[0] += 1
+                if calls[0] == 1:
+                    return fn(*a)
+                after = generator.get_state()
+                generator.set_state(start)
+                try:
+                    return fn(*a)
+                finally:   # also when the recompute stops early
+                    generator.set_state(after)
+        return checkpoint(body, *args, use_reentrant=False,
+                          preserve_rng_state=False, context_fn=context_fn)
+
+    return run
+
+
 def encoder_block(p: Params, cfg, x: torch.Tensor,
                   bias: Optional[torch.Tensor],
                   mask_add: Optional[torch.Tensor] = None,
@@ -199,35 +263,45 @@ def encoder_block_fused(p: Params, cfg, x: torch.Tensor,
     return x + dropout(m, rate, generator)
 
 
+def _layer_seeds(n: int, generator: Optional[torch.Generator]
+                 ) -> Optional[torch.Tensor]:
+    """n int32 dropout seeds for the fused attention, drawn from
+    ``generator`` on its device (no host round trip); None without a
+    generator."""
+    if generator is None:
+        return None
+    return torch.randint(0, 2 ** 31 - 1, (n,), generator=generator,
+                         dtype=torch.int32, device=generator.device)
+
+
 def encoder_stack(p: Params, cfg, inputs_embeds: torch.Tensor,
                   position_bias: Optional[torch.Tensor],
                   fused: Optional[Dict[str, Any]] = None,
                   mask_add: Optional[torch.Tensor] = None,
-                  generator: Optional[torch.Generator] = None
-                  ) -> torch.Tensor:
+                  generator: Optional[torch.Generator] = None,
+                  remat=False) -> torch.Tensor:
     """Encoder over precomputed embeddings.
 
     Unfused: ``position_bias`` [1,H,S,S] and the padding mask
     ``mask_add`` [B,1,1,S] are additive terms. Fused (``fused`` dict with
     ``pos_bias`` [H,L,L] and ``mask`` [B,S]): attention runs in
     ``ops.fused_attention``, each layer with its own dropout seed drawn
-    from ``generator`` on its device (no host round trip)."""
+    from ``generator`` on its device (no host round trip). ``remat``:
+    see ``maybe_checkpoint``."""
     rate = cfg.dropout_rate
     x = dropout(inputs_embeds, rate, generator)
     if fused is not None:
-        seeds = [None] * cfg.num_layers
-        if generator is not None:
-            seeds = torch.randint(0, 2 ** 31 - 1, (cfg.num_layers,),
-                                  generator=generator, dtype=torch.int32,
-                                  device=generator.device)
+        seeds = _layer_seeds(cfg.num_layers, generator)
+        block_fn = maybe_checkpoint(encoder_block_fused, remat, generator)
         for i in range(cfg.num_layers):
-            x = encoder_block_fused(
+            x = block_fn(
                 p[f"block_{i}"], cfg, x, fused["pos_bias"], fused["mask"],
-                None if generator is None else seeds[i:i + 1], generator)
+                None if seeds is None else seeds[i:i + 1], generator)
     else:
+        block_fn = maybe_checkpoint(encoder_block, remat, generator)
         for i in range(cfg.num_layers):
-            x = encoder_block(p[f"block_{i}"], cfg, x, position_bias,
-                              mask_add, generator)
+            x = block_fn(p[f"block_{i}"], cfg, x, position_bias, mask_add,
+                         generator)
     x = layer_norm(p["final_ln"], x, cfg.layer_norm_epsilon)
     return dropout(x, rate, generator)
 
@@ -256,26 +330,92 @@ def decoder_block(p: Params, cfg, x: torch.Tensor,
     return x + dropout(m, rate, generator)
 
 
+def decoder_block_fused(p: Params, cfg, x: torch.Tensor,
+                        self_bias: torch.Tensor, enc_states: torch.Tensor,
+                        enc_mask: torch.Tensor,
+                        seeds: Optional[torch.Tensor] = None,
+                        generator: Optional[torch.Generator] = None
+                        ) -> torch.Tensor:
+    """``decoder_block`` with both attention cores in
+    ``ops.fused_attention`` (the CUDA kernels on CUDA tensors).
+    ``self_bias`` [H,T,T] f32 is the whole causal + relative bias (one
+    for every batch row: the train path has no decoder padding mask);
+    the cross-attention is bias-free, masked by ``enc_mask`` [B,S].
+    ``seeds`` int32 [2]: the self- and cross-attention dropout streams."""
+    from vqacl_tpu_torch.ops.fused_attention import (fused_cross_attention,
+                                                     fused_encoder_attention)
+
+    rate = cfg.dropout_rate
+    attn_rate = 0.0 if generator is None else rate
+    H, dkv = cfg.num_heads, cfg.d_kv
+    B, T, _ = x.shape
+    dt = x.dtype
+
+    h = layer_norm(p["ln1"], x, cfg.layer_norm_epsilon)
+    a = p["attn"]
+    q = (h @ a["wq"].to(dt)).reshape(B, T, H, dkv)
+    k = (h @ a["wk"].to(dt)).reshape(B, T, H, dkv)
+    v = (h @ a["wv"].to(dt)).reshape(B, T, H, dkv)
+    ones = torch.ones((B, T), dtype=torch.float32, device=x.device)
+    o = fused_encoder_attention(
+        q, k, v, self_bias, ones, dropout_rate=attn_rate,
+        seed=None if seeds is None else seeds[0:1])
+    x = x + dropout(o @ a["wo"].to(dt), rate, generator)
+
+    h = layer_norm(p["ln2"], x, cfg.layer_norm_epsilon)
+    c = p["cross_attn"]
+    S = enc_states.shape[1]
+    qc = (h @ c["wq"].to(dt)).reshape(B, T, H, dkv)
+    kc = (enc_states @ c["wk"].to(dt)).reshape(B, S, H, dkv)
+    vc = (enc_states @ c["wv"].to(dt)).reshape(B, S, H, dkv)
+    oc = fused_cross_attention(
+        qc, kc, vc, enc_mask, dropout_rate=attn_rate,
+        seed=None if seeds is None else seeds[1:2])
+    x = x + dropout(oc @ c["wo"].to(dt), rate, generator)
+
+    h = layer_norm(p["ln3"], x, cfg.layer_norm_epsilon)
+    m = mlp_apply(p["mlp"], h, cfg.feed_forward_proj, rate, generator)
+    return x + dropout(m, rate, generator)
+
+
 def decoder_stack(p: Params, cfg, inputs_embeds: torch.Tensor,
                   enc_states: torch.Tensor,
                   enc_mask: Optional[torch.Tensor],
-                  generator: Optional[torch.Generator] = None
-                  ) -> torch.Tensor:
-    """Teacher-forced decoder (unfused, with no decoder padding mask, as
-    the train path runs it). inputs_embeds [B,T,D]; enc_mask [B,S]."""
+                  generator: Optional[torch.Generator] = None,
+                  fused: bool = False, remat=False) -> torch.Tensor:
+    """Teacher-forced decoder with no decoder padding mask, as the train
+    path runs it. inputs_embeds [B,T,D]; enc_mask [B,S].
+
+    ``fused`` (taken when there is an ``enc_mask``, as in JAX): both
+    attention cores run in ``ops.fused_attention``, the self-attention
+    with the causal + relative bias [H,T,T] as a bias block covering
+    every position, the cross-attention bias-free; each layer draws two
+    dropout seeds. ``remat``: see ``maybe_checkpoint``."""
     T = inputs_embeds.shape[1]
     dev = inputs_embeds.device
     pb = compute_position_bias(p["rel_bias"], T, T, bidirectional=False,
                                num_buckets=cfg.relative_attention_num_buckets,
                                max_distance=cfg.relative_attention_max_distance)
-    self_bias = attention_scores_bias(causal_mask(T, dev), pb)
-    cross_mask = None if enc_mask is None else enc_mask[:, None, None, :]
-    cross_bias = attention_scores_bias(cross_mask, None)
     rate = cfg.dropout_rate
     x = dropout(inputs_embeds, rate, generator)
-    for i in range(cfg.num_decoder_layers):
-        x = decoder_block(p[f"block_{i}"], cfg, x, self_bias, enc_states,
-                          cross_bias, generator)
+    n = cfg.num_decoder_layers
+    if fused and enc_mask is not None:
+        causal_add = (1.0 - causal_mask(T, dev)[0, 0]) * NEG_INF
+        self_bias_full = (pb[0].float() + causal_add[None]).contiguous()
+        seeds = _layer_seeds(2 * n, generator)
+        block_fn = maybe_checkpoint(decoder_block_fused, remat, generator)
+        for i in range(n):
+            x = block_fn(p[f"block_{i}"], cfg, x, self_bias_full, enc_states,
+                         enc_mask, None if seeds is None
+                         else seeds[2 * i:2 * i + 2], generator)
+    else:
+        self_bias = attention_scores_bias(causal_mask(T, dev), pb)
+        cross_mask = None if enc_mask is None else enc_mask[:, None, None, :]
+        cross_bias = attention_scores_bias(cross_mask, None)
+        block_fn = maybe_checkpoint(decoder_block, remat, generator)
+        for i in range(n):
+            x = block_fn(p[f"block_{i}"], cfg, x, self_bias, enc_states,
+                         cross_bias, generator)
     x = layer_norm(p["final_ln"], x, cfg.layer_norm_epsilon)
     return dropout(x, rate, generator)
 

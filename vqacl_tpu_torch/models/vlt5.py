@@ -8,7 +8,8 @@ training paths:
   ``joint_pos_bias``            text-text-only relative bias
   ``encode``                    text‖visual joint encoding
   ``augment``                   prototype EMA update + retrieval + concat
-  ``decode_hidden``/``decode_train``  teacher-forced decoder (+ LM head)
+  ``decode_hidden``/``decode_train``  teacher-forced decoder (+ LM head),
+                                fused with ``cfg.fused_decoder``
   ``fused_head_loss``           tied LM head + weighted CE as one
                                 ``autograd.Function``
   ``forward_train``             the train-time forward → loss, new
@@ -144,14 +145,15 @@ def encode(params: Params, cfg,
            boxes: torch.Tensor,                # [B, N, 4]
            dtype=torch.float32,
            generator: Optional[torch.Generator] = None,
-           ) -> Tuple[torch.Tensor, torch.Tensor]:
+           remat=False) -> Tuple[torch.Tensor, torch.Tensor]:
     """Joint encoder → (hidden [B, L+N, D], enc_mask [B, L+N] f32).
 
     With ``cfg.fused_attention`` the attention runs in
     ``ops.fused_attention`` with the relative bias of the text-text block
     only (the rest of the joint bias is zero, so it never moves);
     otherwise the full [1,H,S,S] bias and a [B,1,1,S] mask are added.
-    A ``generator`` turns dropout on (training)."""
+    A ``generator`` turns dropout on (training); ``remat`` recomputes
+    the blocks in the backward pass (``t5.maybe_checkpoint``)."""
     B, L = input_ids.shape
     N = vis_feats.shape[1]
     # text keys attend unless pad; region keys always attend
@@ -172,12 +174,14 @@ def encode(params: Params, cfg,
             max_distance=cfg.relative_attention_max_distance)[0]  # [H,L,L]
         fused = {"pos_bias": text_bias.contiguous(), "mask": enc_mask}
         hidden = t5.encoder_stack(params["encoder"], cfg, inputs, None,
-                                  fused=fused, generator=generator)
+                                  fused=fused, generator=generator,
+                                  remat=remat)
     else:
         pos_bias = joint_pos_bias(params, cfg, L, N)
         mask_add = t5.attention_scores_bias(enc_mask[:, None, None, :], None)
         hidden = t5.encoder_stack(params["encoder"], cfg, inputs, pos_bias,
-                                  mask_add=mask_add, generator=generator)
+                                  mask_add=mask_add, generator=generator,
+                                  remat=remat)
     return hidden, enc_mask
 
 
@@ -251,24 +255,26 @@ def augment(cfg, hidden: torch.Tensor, enc_mask: torch.Tensor,
 def decode_hidden(params: Params, cfg, hidden: torch.Tensor,
                   enc_mask: torch.Tensor, labels: torch.Tensor,
                   generator: Optional[torch.Generator] = None,
-                  dtype=torch.float32) -> torch.Tensor:
+                  dtype=torch.float32, remat=False) -> torch.Tensor:
     """Teacher-forced decoder states [B, T, D] (before the LM head).
     ``labels`` uses -100 for padding and is shifted right here, as HF
-    does."""
+    does. Both attention cores run in ``ops.fused_attention`` when
+    ``cfg.fused_attention`` and ``cfg.fused_decoder`` are both set."""
     dec_ids = t5.shift_right(labels, cfg.decoder_start_token_id,
                              cfg.pad_token_id)
     dec_emb = t5.embed_tokens(params["shared"], dec_ids, dtype)
+    fused = bool(cfg.fused_attention) and bool(cfg.fused_decoder)
     return t5.decoder_stack(params["decoder"], cfg, dec_emb, hidden, enc_mask,
-                            generator=generator)
+                            generator=generator, fused=fused, remat=remat)
 
 
 def decode_train(params: Params, cfg, hidden: torch.Tensor,
                  enc_mask: torch.Tensor, labels: torch.Tensor,
                  generator: Optional[torch.Generator] = None,
-                 dtype=torch.float32) -> torch.Tensor:
+                 dtype=torch.float32, remat=False) -> torch.Tensor:
     """Teacher-forced decode → f32 logits [B, T, vocab]."""
     seq = decode_hidden(params, cfg, hidden, enc_mask, labels,
-                        generator=generator, dtype=dtype)
+                        generator=generator, dtype=dtype, remat=remat)
     return t5.lm_logits(params["shared"], seq, cfg.d_model,
                         cfg.tie_word_embeddings)
 
@@ -383,14 +389,16 @@ def forward_train(params: Params, cfg, batch: Dict[str, torch.Tensor],
                   use_memory_loss: bool = False,
                   lambda_q: float = 0.0, lambda_v: float = 0.0,
                   generator: Optional[torch.Generator] = None,
-                  dtype=torch.bfloat16) -> ForwardOut:
+                  dtype=torch.bfloat16, remat=False) -> ForwardOut:
     """The full training forward. batch: input_ids [B,L], vis_feats
     [B,N,feat_dim], boxes [B,N,4], target_ids [B,T] (-100 padded),
     scores [B], ques_labels [B,NQ], cate_labels [B,NV], all on the
-    parameters' device. ``generator`` drives dropout (None: off)."""
+    parameters' device. ``generator`` drives dropout (None: off);
+    ``remat`` recomputes the encoder and decoder blocks in the backward
+    pass."""
     hidden, enc_mask = encode(params, cfg, batch["input_ids"],
                               batch["vis_feats"], batch["boxes"],
-                              dtype=dtype, generator=generator)
+                              dtype=dtype, generator=generator, remat=remat)
     if use_prototype:
         hidden, enc_mask, proto_state, aux = augment(
             cfg, hidden, enc_mask, proto_state,
@@ -401,7 +409,7 @@ def forward_train(params: Params, cfg, batch: Dict[str, torch.Tensor],
     else:
         aux = ProtoAux.empty(hidden.device)
     seq = decode_hidden(params, cfg, hidden, enc_mask, batch["target_ids"],
-                        generator=generator, dtype=dtype)
+                        generator=generator, dtype=dtype, remat=remat)
     rescale = cfg.d_model ** -0.5 if cfg.tie_word_embeddings else 1.0
     loss = fused_head_loss(seq, params["shared"], batch["target_ids"],
                            batch["scores"], rescale)

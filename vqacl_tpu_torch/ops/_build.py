@@ -49,6 +49,11 @@ SIGNATURES = {
         "fused_attention_keep_mask": ([_P] * 2 + [_I] * 3 + [_U, _P], _I),
         "fused_attention_bwd_error_string": ([_I], ctypes.c_char_p),
     },
+    "dw_splitk": {
+        # x, g, out, K, D, F, dtype, stream
+        "dw_splitk": ([_P] * 3 + [_I] * 4 + [_P], _I),
+        "dw_splitk_error_string": ([_I], ctypes.c_char_p),
+    },
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -1,4 +1,5 @@
-"""Fused multi-head attention for the VL-T5 joint encoder.
+"""Fused multi-head attention for the VL-T5 joint encoder and, with
+``fused_decoder``, the decoder's causal self- and cross-attention.
 
 Counterpart of ``vqacl_tpu/ops/fused_attention.py``. Three hand-written
 CUDA kernels replace its Pallas kernels (the note at the top of each

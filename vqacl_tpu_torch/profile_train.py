@@ -1,6 +1,7 @@
 """Where the training step's time goes on the card.
 
     python -m vqacl_tpu_torch.profile_train [--batch 80] [--steps 10] [--seed 0]
+        [--fused_decoder] [--remat {none,full,dots}]
 
 Random-init t5-base (seeded), f32 master weights, bf16 compute, dropout
 0.1, the port's train step on one synthetic batch. Prints, as one JSON
@@ -10,7 +11,13 @@ backward (forward+backward minus forward) and the rest (clip, AdamW,
 schedule: the step minus forward+backward); and from a
 ``torch.profiler`` window over a few steps the device time by kernel,
 launches per step, the device's busy share of the window and the
-fused-attention kernels' share. Needs a CUDA device.
+fused-attention kernels' share; and the peak device memory
+(``torch.cuda.max_memory_allocated``) of one step and of one forward
+and backward alone, each above the memory held before it.
+``--fused_decoder`` runs the decoder's attention through the kernels
+too, ``--remat`` recomputes the encoder and decoder blocks in the
+backward pass (the JAX CLI's ``--fused_decoder`` and ``--remat``).
+Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -38,7 +45,11 @@ def main(argv=None) -> dict:
     ap.add_argument("--batch", type=int, default=80)
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--fused_decoder", action="store_true")
+    ap.add_argument("--remat", choices=("none", "full", "dots"),
+                    default="none")
     args = ap.parse_args(argv)
+    remat = False if args.remat == "none" else args.remat
     if not torch.cuda.is_available():
         raise SystemExit("profile_train needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -46,6 +57,7 @@ def main(argv=None) -> dict:
     dev = "cuda"
     cfg = Config()
     m, t = cfg.model, cfg.train
+    m.fused_decoder = args.fused_decoder
     params = vlt5.init_vlt5_params(args.seed, m, device=dev)
     tx = make_transform(t)
     proto = ProtoState.create(m.n_ques_types, m.n_categories, m.d_model,
@@ -54,10 +66,16 @@ def main(argv=None) -> dict:
                               warmup_iters=1.0, t_total=1000.0)
     batch = next(SyntheticVQA(args.batch, seed=args.seed).batches(
         args.batch, seed=args.seed))["tensors"]
-    step = make_train_step(cfg, dtype=torch.bfloat16, device=dev)
+    step = make_train_step(cfg, dtype=torch.bfloat16, device=dev,
+                           remat=remat)
     for _ in range(2):
         state, _ = step(state, batch)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state_bytes = torch.cuda.memory_allocated()
+    state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    peak_bytes = torch.cuda.max_memory_allocated()
 
     steps = []
     for _ in range(args.steps):
@@ -68,15 +86,30 @@ def main(argv=None) -> dict:
 
     # the same work split at the forward / backward boundary
     dbatch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+    def forward(live):
+        return vlt5.forward_train(
+            live, m, dbatch, state.proto, t.proto_alpha, t.proto_beta,
+            generator=state.generator, dtype=torch.bfloat16, remat=remat)
+
+    # the activation peak: one forward and backward alone (what remat
+    # acts on; the whole step's peak above includes the optimizer's)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    live = tree_map(lambda p: p.detach().requires_grad_(), state.params)
+    grads = torch.autograd.grad(forward(live).loss, tree_leaves(live),
+                                allow_unused=True)
+    torch.cuda.synchronize()
+    fwd_bwd_peak = torch.cuda.max_memory_allocated() - start
+    del live, grads
     fwd_ms, fwd_bwd_ms = [], []
     for _ in range(args.steps):
         for timed in (fwd_ms, fwd_bwd_ms):
             live = tree_map(lambda p: p.detach().requires_grad_(),
                             state.params)
             t0 = time.perf_counter()
-            out = vlt5.forward_train(
-                live, m, dbatch, state.proto, t.proto_alpha, t.proto_beta,
-                generator=state.generator, dtype=torch.bfloat16)
+            out = forward(live)
             if timed is fwd_bwd_ms:
                 torch.autograd.grad(out.loss, tree_leaves(live),
                                     allow_unused=True)
@@ -115,6 +148,10 @@ def main(argv=None) -> dict:
     fwd, fwd_bwd = _pct(fwd_ms, 0.5), _pct(fwd_bwd_ms, 0.5)
     out = {
         "card": smi, "batch": args.batch, "steps": args.steps,
+        "fused_decoder": args.fused_decoder, "remat": args.remat,
+        "peak_bytes": peak_bytes,
+        "peak_above_state_bytes": peak_bytes - state_bytes,
+        "fwd_bwd_peak_bytes": fwd_bwd_peak,
         "train_step_ms_p50": p50,
         "train_step_ms_p90": _pct(steps, 0.9),
         "forward_ms_p50": fwd,

@@ -8,7 +8,8 @@ device, so a step never waits for the card unless its caller reads one.
 
 ``make_eval_step``: encode once (K1) → prototype retrieval without
 update → greedy decode. ``make_loss_eval_step``: the teacher-forced
-validation loss with retrieval-only prototypes.
+validation loss with retrieval-only prototypes (with
+``cfg.model.fused_decoder`` its decoder attention runs in K1 too).
 """
 
 from __future__ import annotations
@@ -45,7 +46,8 @@ def _to_device(batch: Dict, keys, dev: torch.device) -> Dict:
 
 def make_train_step(cfg, dtype=torch.bfloat16, device="cuda",
                     use_prototype: Optional[bool] = None,
-                    use_memory_loss: bool = False) -> Callable:
+                    use_memory_loss: bool = False,
+                    remat=False) -> Callable:
     """Returns ``(state, batch) -> (state, metrics)``.
 
     ``state`` is a ``TrainState`` on ``device`` (made with the transform
@@ -56,7 +58,10 @@ def make_train_step(cfg, dtype=torch.bfloat16, device="cuda",
     grad_norm (before clipping), lr, loss_memory_Q/V, retrieval_acc_Q/V.
     With ``cfg.train.grad_accum`` > 1 the batch runs as that many equal
     microbatches in order, the prototype state threaded through them,
-    and the grads are averaged."""
+    and the grads are averaged. ``remat`` (False, True/"full", "dots")
+    recomputes the encoder and decoder blocks in the backward pass
+    (``t5.maybe_checkpoint``): the same loss, gradients and generator
+    state, less activation memory."""
     dev = resolve_device(device)
     mcfg, tcfg = cfg.model, cfg.train
     if use_prototype is None:
@@ -71,7 +76,7 @@ def make_train_step(cfg, dtype=torch.bfloat16, device="cuda",
             proto_alpha=tcfg.proto_alpha, proto_beta=tcfg.proto_beta,
             use_prototype=use_prototype, use_memory_loss=use_memory_loss,
             lambda_q=tcfg.lambda_Q, lambda_v=tcfg.lambda_V,
-            generator=generator, dtype=dtype)
+            generator=generator, dtype=dtype, remat=remat)
         leaves = tree_leaves(live)
         grads = torch.autograd.grad(out.loss, leaves, allow_unused=True)
         grads = tree_unflatten(params, [

@@ -4,7 +4,8 @@ Counterpart of ``vqacl_tpu/utils/config.py``, cut to the fields the
 ported paths read. The defaults are the JAX package's: the same t5-base
 geometry and the same optimisation hyperparameters. There is no yaml
 round-trip here, so the module needs nothing beyond the standard
-library, and no TPU mesh knobs.
+library, and no TPU mesh knobs. Block recompute (the JAX
+``MeshConfig.remat``) is the ``remat`` argument of ``make_train_step``.
 """
 
 from __future__ import annotations
@@ -57,6 +58,10 @@ class ModelConfig:
     # unfused path with the full [1,H,S,S] bias, kept as the reference
     # the kernel path is compared with.
     fused_attention: bool = True
+    # The teacher-forced decoder's causal self-attention and its cross-
+    # attention through the same kernels. It takes effect only together
+    # with fused_attention; off by default, as in the JAX package.
+    fused_decoder: bool = False
 
     @property
     def encoder_len(self) -> int:
