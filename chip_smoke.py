@@ -3,21 +3,30 @@
 (an H100) and check them.
 
     python3 chip_smoke.py        # from the root of a checkout
+    python3 chip_smoke.py --base DIR   # phases 1-2, timed against DIR
 
 Phases, each of which exits non-zero on failure:
 
 1. Build every CUDA kernel of the paths from ``vqacl_tpu_torch/csrc``,
    one nvcc per source, all started together.
 2. Kernel check: each kernel against its plain PyTorch version on the
-   same inputs, with the tolerance printed beside the error. K1 (the
+   same inputs, with the tolerance printed beside the error, and a
+   second launch on the same inputs equal bit for bit. K1 (the
    inference forward) at the eval shape and at rectangular and odd
    shapes; K1′ (training forward) and K2 (backward) at the train shape,
    rectangular and odd f32 shapes and the decoder shapes, at dropout 0
    and 0.1 (the plain version draws the kernels' own Philox mask, which
    is also compared bit for bit), timed also at the fused decoder's
-   shapes; K5 (``dw_splitk``, xᵀ·g) at the probe's shape and at odd
-   shapes. CUDA-event times of each kernel, its plain version and one
-   library call (a yardstick only).
+   shapes; K1 and K1′ at the edges of the bf16 tensor-core route (Tq not
+   a multiple of 16 with odd Sk, Sk = 128, Sk = 300, dk = 128), and a
+   bf16 call at dk = 8 refused with ValueError before any launch; each
+   K1/K1′ check names its route (``mma.sync bf16`` or ``scalar f32``);
+   K5 (``dw_splitk``, xᵀ·g) at the probe's shape and at odd shapes.
+   CUDA-event times of each kernel, its plain version and one library
+   call (a yardstick only), queued behind a spin kernel so that they
+   time the card's work and not the host's launch rate; K1 and K1′ also
+   with the host's enqueue included (``call_ms``). A bf16 training call
+   that K2 cannot take (Sk = 300) is refused before K1′ launches.
 3. The eval slice: random-init t5-base (seeded), cast for inference,
    bf16, ``make_eval_step`` at batch 100 on a synthetic batch; the
    launch counts over the timed steps; the encoder through the kernel
@@ -49,10 +58,20 @@ The second-to-last lines are a JSON object of per-kernel numbers and the
 card's name and power limit; the last line is the run's verdict as JSON.
 Without a CUDA device, or outside a checkout, it prints no result and
 exits non-zero.
+
+``--base DIR`` compares this checkout's kernels with another's on the
+same card in one run: DIR holds that checkout (for example ``git archive
+<commit> | tar -x -C build/base``), whose ``vqacl_tpu_torch/csrc`` is
+built beside this one's. Phases 1 and 2 run; every timed K1, K1′ and K2
+is timed through the same wrappers and inputs with DIR's libraries too,
+in the order base, this, this, base, on both measures (device and
+``call_ms``). The C signatures must be the same in both. The run then
+prints an ``ab`` JSON line and stops.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import subprocess
@@ -66,6 +85,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and FLOP/s by type
 HBM_BYTES_PER_S = 3.35e12
+# cycles per second a spin kernel is sized with: above the H100's boost
+# clock (1.98 GHz), so a spin lasts at least as long as asked
+SPIN_HZ = 2.0e9
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 # max |kernel - plain| <= ATOL + RTOL * |plain|, per dtype: bf16 output
 # rounding (2^-8 relative) and a p rounded to bf16 on either side of a
@@ -100,6 +122,17 @@ DW_ODD = ((100, 40, 72), (97, 131, 257))
 DW_RTOL = 1e-5
 MM_BENCH_SHAPES = None       # None: the probe's own
 MM_BENCH_REPS = 5
+# (name, B, Tq, Sk, H, dk, L, with K2): the edges of the bf16 tensor-core
+# route of K1/K1′ -- Tq not a multiple of 16 with odd Sk, one full 128-key
+# tile, three key tiles (the two-sweep softmax), the widest head it takes.
+# K2 keeps f32 panels of every key in one block's shared memory, which 300
+# keys of width 64 exceed, so that case checks K1′ alone.
+BF16_EDGES = (("ragged_bf16", 16, 33, 29, 12, 64, 5, True),
+              ("keys128_bf16", 8, 56, 128, 12, 64, 20, True),
+              ("keys300_bf16", 4, 40, 300, 12, 64, 20, False),
+              ("dk128_bf16", 16, 56, 56, 6, 128, 20, True))
+# set by --base: another checkout's kernel sources, timed beside these
+BASE_CSRC = None
 
 
 def log(*a):
@@ -120,21 +153,65 @@ def card_line() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
-def time_ms(fns, iters=50, warmup=5) -> float:
+def time_ms(fns, iters=50, warmup=5, spin=True) -> float:
     """Mean CUDA-event time of one call, cycling through ``fns`` (one per
     input set, so each call finds its inputs out of L2 as the encoder's
-    layer-to-layer traffic would)."""
+    layer-to-layer traffic would). With ``spin`` the timed calls are
+    queued behind a spin kernel that outlasts their enqueue on the host,
+    so the events time the card's work back to back (the device time);
+    without it, calls issued back to back from the host, whichever of
+    host and card is slower (the time a caller sees per call)."""
     for i in range(warmup):
         fns[i % len(fns)]()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(iters):
+        fns[i % len(fns)]()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if spin:
+        torch.cuda._sleep(int(min(2.0 * host_s, 1.0) * SPIN_HZ))
     start.record()
     for i in range(iters):
         fns[i % len(fns)]()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def time_ab(fns, spin=True):
+    """``time_ms(fns)`` → (ms, base_ms). With ``--base`` the same calls
+    also run on the base checkout's libraries (the wrappers load them by
+    name at each call), in the order base, this, this, base; each side's
+    time is the mean of its two. Without it base_ms is None."""
+    if BASE_CSRC is None:
+        return time_ms(fns, spin=spin), None
+    from vqacl_tpu_torch.ops import _build
+
+    load = _build.load
+
+    def on_base():
+        _build.load = lambda name: load(name, BASE_CSRC)
+        try:
+            return time_ms(fns, spin=spin)
+        finally:
+            _build.load = load
+
+    b1 = on_base()
+    t1, t2 = time_ms(fns, spin=spin), time_ms(fns, spin=spin)
+    b2 = on_base()
+    log(f"  ab {'device' if spin else 'call'}: base {b1:.5f} this {t1:.5f} "
+        f"this {t2:.5f} base {b2:.5f} ms")
+    return (t1 + t2) / 2, (b1 + b2) / 2
+
+
+def put_ab(row, key, times):
+    """row[key] = this checkout's time; row["base_" + key] = the base's."""
+    row[key], base = times
+    if base is not None:
+        row["base_" + key] = base
 
 
 def attention_inputs(B, Tq, Sk, H, dk, L, dtype, text_len, seed):
@@ -159,7 +236,9 @@ def check_attention(fa, name, B, Tq, Sk, H, dk, L, dtype,
     dt = getattr(torch, dtype)
     q, k, v, bias, mask = attention_inputs(
         B, Tq, Sk, H, dk, L, dt, text_len or Sk, seed=B + Tq + Sk)
+    route = fa.ROUTE_NAMES[fa.fwd_route(dt, dk, Tq, Sk)]
     out = fa.fused_attention(q, k, v, bias, mask, H)
+    again = fa.fused_attention(q, k, v, bias, mask, H)
     ref = fa.fused_attention_reference(q, k, v, bias, mask, H)
     torch.cuda.synchronize()
     if out.dtype != dt or out.shape != (B, Tq, H * dk):
@@ -169,11 +248,13 @@ def check_attention(fa, name, B, Tq, Sk, H, dk, L, dtype,
     err = float(diff.max())
     ok = bool((diff <= atol + rtol * ref.float().abs()).all()) \
         and bool(torch.isfinite(out.float()).all())
-    log(f"kernel_check {name}: B={B} Tq={Tq} Sk={Sk} H={H} dk={dk} L={L} "
-        f"{dtype} max_abs_err={err:.3e} tol=atol {atol:g} + rtol {rtol:g}"
-        f" -> {'ok' if ok else 'MISMATCH'}")
-    if not ok:
-        fail(f"{name}: kernel disagrees with its plain version")
+    same = torch.equal(out, again)
+    log(f"kernel_check {name}: route={route} B={B} Tq={Tq} Sk={Sk} H={H} "
+        f"dk={dk} L={L} {dtype} max_abs_err={err:.3e} tol=atol {atol:g} + "
+        f"rtol {rtol:g}; second launch equal: {same} -> "
+        f"{'ok' if ok and same else 'MISMATCH'}")
+    if not (ok and same):
+        fail(f"{name}: kernel disagrees with its plain version or itself")
     row = {"max_abs_err": err}
     if not timed:
         return row
@@ -191,8 +272,9 @@ def check_attention(fa, name, B, Tq, Sk, H, dk, L, dtype,
         return heads(q), heads(k), heads(v), add.to(dt)
 
     lib_sets = [sdpa_args(*s) for s in sets]
-    row["ms"] = time_ms([lambda s=s: fa.fused_attention(*s, H)
-                                for s in sets])
+    k1_calls = [lambda s=s: fa.fused_attention(*s, H) for s in sets]
+    put_ab(row, "ms", time_ab(k1_calls))
+    put_ab(row, "call_ms", time_ab(k1_calls, spin=False))
     row["plain_ms"] = time_ms([
         lambda s=s: fa.fused_attention_reference(*s, H) for s in sets])
     row["library_ms"] = time_ms([
@@ -210,7 +292,8 @@ def check_attention(fa, name, B, Tq, Sk, H, dk, L, dtype,
     log(f"kernel_time {name}: kernel_ms={row['ms']:.5f} "
         f"plain_ms={row['plain_ms']:.5f} library_ms={row['library_ms']:.5f} "
         f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']}: {nbytes} B, "
-        f"{flops} FLOP)")
+        f"{flops} FLOP); call_ms={row['call_ms']:.5f} (host enqueue "
+        f"included)")
     return row
 
 
@@ -239,39 +322,45 @@ def _close(out, ref, dtype):
 
 
 def check_train_attention(fa, name, B, Tq, Sk, H, dk, L, dtype, rate,
-                          text_len=None, causal=False, timed=False):
-    """K1′ and K2 vs their plain versions (the plain version draws the
-    kernels' Philox mask; that mask is checked against the kernels' own
-    bit for bit). With ``timed``: times, bounds and library yardsticks.
-    → (K1′ row, K2 row)."""
+                          text_len=None, causal=False, timed=False,
+                          backward=True):
+    """K1′ and (with ``backward``) K2 vs their plain versions (the plain
+    version draws the kernels' Philox mask; that mask is checked against
+    the kernels' own bit for bit). With ``timed``: times, bounds and
+    library yardsticks. → (K1′ row, K2 row)."""
     dt = getattr(torch, dtype)
     q, k, v, do, bias, mask = train_attention_inputs(
         B, Tq, Sk, H, dk, L, dt, text_len or Sk, seed=B + Tq + Sk,
         causal=causal)
     seed = torch.tensor([20260 + Tq], dtype=torch.int32, device="cuda")
+    route = fa.ROUTE_NAMES[fa.fwd_route(dt, dk, Tq, Sk)]
     o, p = fa.fused_attention_fwd_train(q, k, v, bias, mask, seed, H, rate)
+    o2, p2 = fa.fused_attention_fwd_train(q, k, v, bias, mask, seed, H,
+                                          rate)
     ro, rp = fa.fused_attention_fwd_train_reference(q, k, v, bias, mask,
                                                     seed, H, rate)
-    grads = fa.fused_attention_bwd(q, k, v, p, seed, do, H, L, rate)
-    rgrads = fa.fused_attention_bwd_reference(q, k, v, rp, seed, do, H, L,
-                                              rate)
+    if backward:
+        grads = fa.fused_attention_bwd(q, k, v, p, seed, do, H, L, rate)
+        rgrads = fa.fused_attention_bwd_reference(q, k, v, rp, seed, do, H,
+                                                  L, rate)
     torch.cuda.synchronize()
     if o.dtype != dt or o.shape != (B, Tq, H * dk) \
             or p.shape != (B, H * Tq, Sk):
         fail(f"{name}: K1' output {o.dtype} {tuple(o.shape)} p "
              f"{tuple(p.shape)}")
     errs, oks = {}, []
-    for key, a, b, tol_dt in (("o", o, ro, dtype), ("p", p, rp, "float32"),
-                              ("dq", grads[0], rgrads[0], dtype),
-                              ("dk", grads[1], rgrads[1], dtype),
-                              ("dv", grads[2], rgrads[2], dtype)):
+    pairs = [("o", o, ro, dtype), ("p", p, rp, "float32")]
+    if backward:
+        pairs += [("dq", grads[0], rgrads[0], dtype),
+                  ("dk", grads[1], rgrads[1], dtype),
+                  ("dv", grads[2], rgrads[2], dtype)]
+        if L:
+            pairs.append(("dbias", grads[3], rgrads[3], "float32"))
+        elif grads[3] is not None:
+            fail(f"{name}: K2 wrote dbias with L = 0")
+    for key, a, b, tol_dt in pairs:
         errs[key], ok = _close(a, b, tol_dt)
         oks.append(ok)
-    if L:
-        errs["dbias"], ok = _close(grads[3], rgrads[3], "float32")
-        oks.append(ok)
-    elif grads[3] is not None:
-        fail(f"{name}: K2 wrote dbias with L = 0")
     kept = 1.0
     if rate:
         mine = fa.fused_attention_keep_mask(seed, B, H, Tq, Sk, rate)
@@ -282,17 +371,21 @@ def check_train_attention(fa, name, B, Tq, Sk, H, dk, L, dtype, rate,
                  f"kernels'")
         if abs(kept - (1 - rate)) > 0.02:
             fail(f"{name}: kept share {kept:.4f} for rate {rate}")
+    same = torch.equal(o, o2) and torch.equal(p, p2)
+    oks.append(same)
     atol, rtol = TOL[dtype]
-    log(f"kernel_check {name}: B={B} Tq={Tq} Sk={Sk} H={H} dk={dk} L={L} "
-        f"{dtype} rate={rate} kept={kept:.4f} max_abs_err "
+    log(f"kernel_check {name}: route={route} B={B} Tq={Tq} Sk={Sk} H={H} "
+        f"dk={dk} L={L} {dtype} rate={rate} kept={kept:.4f} max_abs_err "
         + " ".join(f"{k}={e:.3e}" for k, e in errs.items())
-        + f" tol=atol {atol:g} + rtol {rtol:g} (p, dbias: f32 tol)"
-        f" -> {'ok' if all(oks) else 'MISMATCH'}")
+        + f" tol=atol {atol:g} + rtol {rtol:g} (p, dbias: f32 tol); K1' "
+        f"second launch equal: {same}{'' if backward else ' (K2 not run)'} -> "
+        f"{'ok' if all(oks) else 'MISMATCH'}")
     if not all(oks):
-        fail(f"{name}: K1'/K2 disagree with their plain versions")
+        fail(f"{name}: K1'/K2 disagree with their plain versions or K1' "
+             f"with itself")
     fwd_row = {"max_abs_err": max(errs["o"], errs["p"])}
-    bwd_row = {"max_abs_err": max(v for k, v in errs.items()
-                                  if k not in ("o", "p"))}
+    bwd_row = {"max_abs_err": max((v for k, v in errs.items()
+                                   if k not in ("o", "p")), default=None)}
     if not timed:
         return fwd_row, bwd_row
 
@@ -301,17 +394,17 @@ def check_train_attention(fa, name, B, Tq, Sk, H, dk, L, dtype, rate,
                                seed=200 + i) for i in range(3)]
     ps = [fa.fused_attention_fwd_train(s[0], s[1], s[2], s[4], s[5], seed,
                                        H, rate)[1] for s in sets]
-    fwd_row["ms"] = time_ms([
-        lambda s=s: fa.fused_attention_fwd_train(s[0], s[1], s[2], s[4],
-                                                 s[5], seed, H, rate)
-        for s in sets])
+    k1p_calls = [lambda s=s: fa.fused_attention_fwd_train(
+        s[0], s[1], s[2], s[4], s[5], seed, H, rate) for s in sets]
+    put_ab(fwd_row, "ms", time_ab(k1p_calls))
+    put_ab(fwd_row, "call_ms", time_ab(k1p_calls, spin=False))
     fwd_row["plain_ms"] = time_ms([
         lambda s=s: fa.fused_attention_fwd_train_reference(
             s[0], s[1], s[2], s[4], s[5], seed, H, rate) for s in sets])
-    bwd_row["ms"] = time_ms([
+    put_ab(bwd_row, "ms", time_ab([
         lambda s=s, p=p: fa.fused_attention_bwd(s[0], s[1], s[2], p, seed,
                                                 s[3], H, L, rate)
-        for s, p in zip(sets, ps)])
+        for s, p in zip(sets, ps)]))
     bwd_row["plain_ms"] = time_ms([
         lambda s=s, p=p: fa.fused_attention_bwd_reference(
             s[0], s[1], s[2], p, seed, s[3], H, L, rate)
@@ -347,7 +440,8 @@ def check_train_attention(fa, name, B, Tq, Sk, H, dk, L, dtype, rate,
         f"plain_ms={fwd_row['plain_ms']:.5f} "
         f"library_ms={fwd_row['library_ms']:.5f} ({lib['backend']} fwd) "
         f"bound_ms={fwd_row['bound_ms']:.5f} ({fwd_row['bound_by']}: "
-        f"{fwd_bytes} B, {2 * prod} FLOP)")
+        f"{fwd_bytes} B, {2 * prod} FLOP); call_ms={fwd_row['call_ms']:.5f} "
+        f"(host enqueue included)")
     log(f"kernel_time {name} K2: kernel_ms={bwd_row['ms']:.5f} "
         f"plain_ms={bwd_row['plain_ms']:.5f} "
         f"library_ms={bwd_row['library_ms']:.5f} ({lib['backend']} "
@@ -397,6 +491,50 @@ def sdpa_times(sets, B, Tq, Sk, H, dk, L, dt, rate):
         return {"backend": backend.name, "fwd": t_fwd, "fwd_bwd": t_all,
                 "bwd": t_all - t_fwd}
     fail("no SDPA backend takes the attention inputs")
+
+
+def check_refused(fa):
+    """A bf16 call at dk = 8 (the tiny config's head width) is refused by
+    K1's and K1′'s wrappers with ValueError, before any launch; so is a
+    differentiable call at 300 keys, which K1′ takes and K2 does not."""
+    q, k, v, bias, mask = attention_inputs(2, 8, 8, 4, 8, 0, torch.bfloat16,
+                                           8, seed=1)
+    seed = torch.zeros((1,), dtype=torch.int32, device="cuda")
+    counts = lambda: (fa.fused_attention.launches,
+                      fa.fused_attention_fwd_train.launches)
+    before = counts()
+    msgs = []
+    for call in (lambda: fa.fused_attention(q, k, v, bias, mask, 4),
+                 lambda: fa.fused_attention_fwd_train(q, k, v, bias, mask,
+                                                      seed, 4, DROPOUT)):
+        try:
+            call()
+        except ValueError as e:
+            msgs.append(str(e))
+            continue
+        fail("a bf16 call at dk = 8 was not refused")
+    if counts() != before:
+        fail(f"a refused bf16 call launched a kernel: {before} -> {counts()}")
+    log(f"kernel_check refused_bf16_dk8: K1 and K1' raise ValueError before "
+        f"any launch ({msgs[0]})")
+    name, B, Tq, Sk, H, dk, L, _ = BF16_EDGES[2]
+    q, k, v, bias, mask = attention_inputs(B, Tq, Sk, H, dk, L,
+                                           torch.bfloat16, L, seed=2)
+    counts = lambda: (fa.fused_attention_fwd_train.launches,
+                      fa.fused_attention_bwd.launches)
+    before = counts()
+    try:
+        fa.fused_attention(q.requires_grad_(), k, v, bias, mask, H, DROPOUT,
+                           seed)
+    except ValueError as e:
+        msg = str(e)
+    else:
+        fail(f"a differentiable call at {name}'s shape was not refused")
+    if counts() != before:
+        fail(f"a refused training call launched K1'/K2: {before} -> "
+             f"{counts()}")
+    log(f"kernel_check refused_bwd_{name}: a training call raises "
+        f"ValueError before K1' launches ({msg})")
 
 
 def dw_inputs(K, D, F, dtype, seed):
@@ -479,7 +617,13 @@ def _grads(vlt5, tree_leaves, tree_map, params, mcfg, batch, proto, dtype,
     return float(out.loss.detach()), flat
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    global BASE_CSRC
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--base", metavar="DIR",
+                    help="another checkout: time its kernels beside these "
+                         "(phases 1-2 only)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
@@ -487,6 +631,13 @@ def main() -> int:
         print("chip_smoke: run from a checkout (vqacl_tpu_torch/ missing)",
               file=sys.stderr)
         return 2
+    if args.base:
+        BASE_CSRC = os.path.join(os.path.abspath(args.base),
+                                 "vqacl_tpu_torch", "csrc")
+        if not os.path.isdir(BASE_CSRC):
+            print(f"chip_smoke: --base {args.base}: no vqacl_tpu_torch/csrc",
+                  file=sys.stderr)
+            return 2
     sys.path.insert(0, HERE)
     import numpy as np
 
@@ -531,6 +682,9 @@ def main() -> int:
     # ---- 1. build -------------------------------------------------------
     t0 = time.time()
     libs = _build.build()
+    if BASE_CSRC is not None:
+        base_libs = _build.build(csrc=BASE_CSRC)
+        log(f"base: {BASE_CSRC}, {len(base_libs)} kernel libraries")
     log(f"build: {len(libs)} kernel libraries in {time.time() - t0:.1f} s")
 
     # ---- 2. kernel check ------------------------------------------------
@@ -566,6 +720,12 @@ def main() -> int:
                               H, dk, 10, "bfloat16", rate, causal=True)
         check_train_attention(fa, "decoder_cross_bf16_L0", 16, 10, S + 2, H,
                               dk, 0, "bfloat16", rate, text_len=L)
+        for (name, *shape, L_, with_k2) in BF16_EDGES:
+            check_train_attention(fa, name, *shape, L_, "bfloat16", rate,
+                                  text_len=L_, backward=with_k2)
+    for (name, *shape, L_, _) in BF16_EDGES:
+        check_attention(fa, name, *shape, L_, "bfloat16", text_len=L_)
+    check_refused(fa)
     # the fused decoder's shapes at the train batch (K4): K1′/K2 with
     # dropout in training, K1 in the loss-eval step
     T = m.target_max_length
@@ -588,6 +748,20 @@ def main() -> int:
     for shape in DW_ODD:
         for dname in ("bfloat16", "float32"):
             check_dw(dw, "dw_odd", *shape, dname)
+    if BASE_CSRC is not None:
+        keys = ("ms", "base_ms", "call_ms", "base_call_ms", "bound_ms")
+        pick_ab = lambda r: {k: r[k] for k in keys if k in r}
+        log("ab " + json.dumps({
+            "base": BASE_CSRC, "card": card,
+            "K1 eval": pick_ab(k1), "K1' train": pick_ab(k1p),
+            "K2 train": pick_ab(k2),
+            "K1' decoder self": pick_ab(dec_rows["self"][0]),
+            "K1' decoder cross": pick_ab(dec_rows["cross"][0]),
+            "K2 decoder self": pick_ab(dec_rows["self"][1]),
+            "K2 decoder cross": pick_ab(dec_rows["cross"][1]),
+            "K1 decoder self": pick_ab(dec_rows["self_eval"]),
+            "K1 decoder cross": pick_ab(dec_rows["cross_eval"])}))
+        return 0
 
     # ---- 3. the slice at t5-base -----------------------------------------
     t0 = time.time()
@@ -1028,8 +1202,9 @@ def main() -> int:
             "scripts/mm_bench.py:121", dw_launches, k5),
     ]
     def pick(r):
-        return {k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                  "library_ms", "bound_ms", "bound_by")}
+        return {k: r[k] for k in ("max_abs_err", "ms", "call_ms", "plain_ms",
+                                  "library_ms", "bound_ms", "bound_by")
+                if k in r}
 
     dec_times = {"self": {"K1p": pick(dec_rows["self"][0]),
                           "K2": pick(dec_rows["self"][1])},
@@ -1048,6 +1223,7 @@ def main() -> int:
             "K2": train_k2 / TRAIN_STEPS},
         "grad_rel_err": grad_rel, "small_train_loss_rel_err": small_loss_err,
         "small_train_param_err": small_param_err,
+        "kernel_call_ms": {"K1": k1["call_ms"], "K1p": k1p["call_ms"]},
         "kernel_bytes_flops": {"K1p": [k1p["bytes"], k1p["flops"]],
                                "K2": [k2["bytes"], k2["flops"]],
                                "K5": [k5["bytes"], k5["flops"]]},

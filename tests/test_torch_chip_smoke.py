@@ -5,8 +5,9 @@ run it as it is. This rehearsal runs its ``main()`` in a subprocess with
 CUDA devices mapped to the CPU (a ``TorchFunctionMode`` that rewrites
 ``device="cuda"``), CUDA events timed on the host clock, the build step
 skipped, each kernel wrapper (K1, K1′, K2, K5) replaced by its plain
-version plus the launch counter, and tiny widths (t5-base's data shapes,
-d_model 32, 2 layers; small K5 and mm_bench shapes). It checks every
+version plus the launch counter (K1 and K1′ keep the wrapper's route and
+limit check), and tiny widths (t5-base's data shapes, d_model 32 as 2
+heads of 16, 2 layers; small K5 and mm_bench shapes). It checks every
 phase's bookkeeping — launch counts per eval step, per train step with
 the plain and with the fused decoder, per loss-eval step, per remat
 mode, per served batch and in the probe, the kernels JSON line with all
@@ -54,6 +55,7 @@ class HostEvent:
 
 torch.cuda.is_available = lambda: True
 torch.cuda.synchronize = lambda *a: None
+torch.cuda._sleep = lambda cycles: None
 torch.cuda.Event = HostEvent
 torch.cuda.get_device_name = lambda i=0: "rehearsal"
 torch.cuda.device_count = lambda: 1
@@ -74,15 +76,20 @@ import vqacl_tpu_torch.mm_bench as MB
 D.resolve_device = V.resolve_device = SV.resolve_device = ST.resolve_device = cpu
 MB.resolve_device = cpu
 from vqacl_tpu_torch.ops import _build, fused_attention as fa
-_build.build = lambda names=(): []
+_build.build = lambda names=(), csrc=None: []
 dispatch = fa.fused_attention
+def route(q, k, H):      # the wrappers' validation, before any launch
+    fa.fwd_route(q.dtype, q.shape[-1] // H, q.shape[1], k.shape[1])
 def counted(q, k, v, bias, mask, H, dropout_rate=0.0, seed=None):
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
+        fa.bwd_limit(q.shape[-1] // H, q.shape[1], k.shape[1], dropout_rate)
         return dispatch(q, k, v, bias, mask, H, dropout_rate, seed)
+    route(q, k, H)
     counted.launches += 1
     return fa.fused_attention_reference(q, k, v, bias, mask, H)
 def counted_fwd_train(*a):
+    route(a[0], a[1], a[6])
     counted_fwd_train.launches += 1
     return fa.fused_attention_fwd_train_reference(*a)
 def counted_bwd(*a):
@@ -105,7 +112,8 @@ _Config = C.Config
 def tiny():
     c = _Config()
     c.model = C.tiny_model_config(vocab_size=32200, feat_dim=2048, n_boxes=36,
-                                  max_text_length=20, gen_max_length=8)
+                                  max_text_length=20, gen_max_length=8,
+                                  num_heads=2, d_kv=16)
     c.train.lr = 1e-2
     return c
 C.Config = tiny
@@ -120,6 +128,26 @@ chip_smoke.MM_BENCH_REPS = 2
 with CudaOnCpu():
     sys.exit(chip_smoke.main())
 """
+
+
+def test_chip_smoke_base_rehearsal_on_cpu():
+    # --base: phases 1-2, every timed attention kernel also timed on the
+    # base checkout's libraries (here the same checkout), then an "ab"
+    # line and no verdict
+    r = subprocess.run([sys.executable, "-c", REHEARSAL, "--base", REPO],
+                       cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
+    lines = r.stdout.strip().splitlines()
+    ab = json.loads(lines[-1][len("ab "):])
+    assert ab["base"] == os.path.join(REPO, "vqacl_tpu_torch", "csrc")
+    rows = [k for k in ab if k not in ("base", "card")]
+    assert len(rows) == 9
+    for k in rows:
+        assert {"ms", "base_ms", "bound_ms"} <= set(ab[k]), k
+        assert ("call_ms" in ab[k]) == ("base_call_ms" in ab[k]) \
+            == k.startswith("K1"), k
+    assert sum(l.startswith("  ab device: base ") for l in lines) == 9
+    assert '"ok"' not in r.stdout and "eval_step:" not in r.stdout
 
 
 def test_chip_smoke_rehearsal_on_cpu():
@@ -157,6 +185,23 @@ def test_chip_smoke_rehearsal_on_cpu():
     assert "launches over 4 steps: K1=0 K1'=8 K2=8" in r.stdout
     assert "launches over 4 steps: K1=0 K1'=24 K2=24" in r.stdout
     assert "rate=0.1 kept=0.9" in r.stdout
+    # K1/K1′ name their route; every check launches twice with equal bits
+    checks = [l for l in lines if l.startswith("kernel_check ")
+              and not l.startswith("kernel_check dw_")
+              and not l.startswith("kernel_check refused")]
+    assert all("second launch equal: True" in l for l in checks)
+    assert all(("route=mma.sync bf16" in l) == ("bfloat16" in l)
+               and ("route=scalar f32" in l) == ("float32" in l)
+               for l in checks)
+    # the bf16 route's edges: K1 once, K1′ at rates 0 and 0.1
+    for name in ("ragged_bf16", "keys128_bf16", "keys300_bf16",
+                 "dk128_bf16"):
+        assert sum(l.startswith(f"kernel_check {name}:") for l in checks) \
+            == 3, name
+    assert "kernel_check refused_bf16_dk8: K1 and K1' raise ValueError" \
+        in r.stdout
+    assert "kernel_check refused_bwd_keys300_bf16: a training call raises " \
+        "ValueError before K1' launches" in r.stdout
     for dname in ("bfloat16", "float32"):
         assert f"loss_eval fused decoder {dname}" in r.stdout
     assert r.stdout.count("launches K1=6 K1'=0 K2=0") == 2

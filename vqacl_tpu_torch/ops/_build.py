@@ -6,8 +6,9 @@ use with ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared`` into
 ``.gitignore``), then loaded with ``ctypes``. The library file name
 carries a hash of the source, of every shared header ``csrc/*.cuh`` and
 of the flags, so an edited source or header is rebuilt and never
-mistaken for an old build. Nothing here runs when the module is
-imported.
+mistaken for an old build. ``load(name, csrc=...)`` builds the same
+library from another checkout's sources (``chip_smoke.py --base``).
+Nothing here runs when the module is imported.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Dict, Iterable, List
+from typing import Dict, Iterable, List, Optional, Tuple
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -56,7 +57,7 @@ SIGNATURES = {
     },
 }
 
-_libs: Dict[str, ctypes.CDLL] = {}
+_libs: Dict[Tuple[str, str], ctypes.CDLL] = {}
 _lock = threading.Lock()
 
 
@@ -71,27 +72,29 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
-def _lib_path(name: str) -> str:
-    """Library path for ``csrc/<name>.cu``, named by a hash of the source,
-    every ``csrc/*.cuh`` (name and bytes) and the flags."""
+def _lib_path(name: str, csrc: Optional[str] = None) -> str:
+    """Library path for ``<csrc>/<name>.cu`` (default ``CSRC``), named by
+    a hash of the source, every ``<csrc>/*.cuh`` (name and bytes) and the
+    flags."""
+    csrc = csrc or CSRC
     digest = hashlib.sha256()
     sources = [f"{name}.cu"] + sorted(
-        f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+        f for f in os.listdir(csrc) if f.endswith(".cuh"))
     for fname in sources:
-        with open(os.path.join(CSRC, fname), "rb") as f:
+        with open(os.path.join(csrc, fname), "rb") as f:
             digest.update(fname.encode() + b"\0" + f.read() + b"\0")
     digest.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 
-def _start(name: str):
+def _start(name: str, csrc: str):
     """Start nvcc for ``name`` unless its library exists; → (path, proc)."""
-    out = _lib_path(name)
+    out = _lib_path(name, csrc)
     if os.path.exists(out):
         return out, None
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(csrc, f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return out, (proc, tmp, cmd)
@@ -108,26 +111,30 @@ def _finish(out: str, started) -> None:
     os.replace(tmp, out)   # atomic: a concurrent build sees all or none
 
 
-def build(names: Iterable[str] = tuple(SIGNATURES)) -> List[str]:
-    """Compile the named kernels, all nvcc processes started together;
-    returns the library paths."""
+def build(names: Iterable[str] = tuple(SIGNATURES),
+          csrc: Optional[str] = None) -> List[str]:
+    """Compile the named kernels from ``csrc`` (default ``CSRC``), all nvcc
+    processes started together; returns the library paths."""
     names = list(names)
-    started = [_start(n) for n in names]
+    csrc = csrc or CSRC
+    started = [_start(n, csrc) for n in names]
     for out, s in started:
         _finish(out, s)
     return [out for out, _ in started]
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built on first use, with
-    ``argtypes``/``restype`` set for every entry point."""
+def load(name: str, csrc: Optional[str] = None) -> ctypes.CDLL:
+    """The loaded library for ``<csrc>/<name>.cu`` (default ``CSRC``),
+    built on first use, with ``argtypes``/``restype`` set for every entry
+    point."""
+    csrc = csrc or CSRC
     with _lock:
-        lib = _libs.get(name)
+        lib = _libs.get((csrc, name))
         if lib is None:
-            path, = build([name])
+            path, = build([name], csrc)
             lib = ctypes.CDLL(path)
             for fn, (argtypes, restype) in SIGNATURES[name].items():
                 getattr(lib, fn).argtypes = argtypes
                 getattr(lib, fn).restype = restype
-            _libs[name] = lib
+            _libs[(csrc, name)] = lib
         return lib

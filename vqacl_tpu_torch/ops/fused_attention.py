@@ -13,6 +13,13 @@ source says what it computes, what bounds it and how):
   K2   ``fused_attention_bwd``        backward from the saved p
        (``csrc/fused_attention_bwd.cu``)
 
+The forward kernels take bf16 on the tensor cores (``mma.sync``; dk a
+multiple of 16 up to 128) and f32 as scalar FMAs; ``fwd_route`` picks
+the route and raises ValueError, before anything is built, for a call
+neither takes. ``bwd_limit`` does the same for K2, whose block holds the
+whole [Tq, Sk] score tile, and ``_FusedAttention`` checks it before K1′
+runs, so a training call K2 cannot take fails before its forward.
+
 They consume q/k/v in the projection GEMMs' ``[B, S, H·dk]`` layout, add
 the relative bias on the top-left ``L×L`` block only and the −1e9 key
 mask, run an f32 softmax, cast the (dropped) probabilities to v's dtype
@@ -114,8 +121,10 @@ def _probs(q, k, bias, mask, H) -> torch.Tensor:
 
 
 def _keep_div(rate: float, device) -> torch.Tensor:
-    """1 − rate as an f32 tensor: a true division, as in the kernels
-    (a Python scalar divisor becomes a reciprocal multiply on CUDA)."""
+    """1 − rate as an f32 tensor: a true division, as in the kernels (a
+    Python scalar divisor becomes a reciprocal multiply on CUDA; the bf16
+    forward kernel's reciprocal multiply carries a correction step that
+    gives the division's rounded quotient)."""
     return torch.tensor(1.0 - rate, dtype=torch.float32, device=device)
 
 
@@ -212,6 +221,19 @@ def _validate_qkv(q, k, v, num_heads, extra=()):
     return B, Tq, Sk, HD // H
 
 
+def _validate_fwd(q, k, v, num_heads, extra=()):
+    """``_validate_qkv`` plus the forward's route and limits; the bf16
+    route stages 16-byte chunks, so q, k and v must be 16-byte aligned
+    → (B, Tq, Sk, dk)."""
+    B, Tq, Sk, dk = _validate_qkv(q, k, v, num_heads, extra)
+    if fwd_route(q.dtype, dk, Tq, Sk) == "mma":
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"fused_attention: the bf16 kernel needs "
+                                 f"{name} 16-byte aligned")
+    return B, Tq, Sk, dk
+
+
 def _validate_bias_mask(q, bias, mask, num_heads, Sk):
     """Check the forward kernels' bias [H,L,L] (or None) and mask [B,Sk]
     → (L, mask as contiguous f32)."""
@@ -230,6 +252,75 @@ def _validate_bias_mask(q, bias, mask, num_heads, Sk):
     return L, mask
 
 
+# The forward's two routes (csrc/fused_attention_fwd.cu): bf16 on the
+# tensor cores for dk a multiple of 16 up to MMA_MAX_DK, f32 as scalar
+# FMAs; both keep a head's K and V panels in one block's shared memory.
+MMA_MAX_DK = 128
+SMEM_PER_BLOCK = 232448
+ROUTE_NAMES = {"mma": "mma.sync bf16", "scalar": "scalar f32"}
+
+
+def _mma_smem(Tq: int, Sk: int, dk: int, heads: int = 1) -> int:
+    """Shared memory of one stage of ``heads`` heads in the bf16 route, the
+    bias left in device memory (the C side's ``mma_stage_bytes``): K and V
+    [Skp][dk+8] and Q [Tqp][dk+8] bf16 per head and the mask [Skp] f32,
+    with Skp and Tqp the lengths rounded up to 16, in all rounded up to 16
+    bytes."""
+    skp = -(-Sk // 16) * 16
+    tqp = -(-Tq // 16) * 16
+    return -(-(2 * heads * (2 * skp + tqp) * (dk + 8) + 4 * skp) // 16) * 16
+
+
+def _scalar_smem(Sk: int, dk: int) -> int:
+    """Shared memory of the f32 route's block (the C side's ``launch``)."""
+    return 4 * (Sk * (dk + 1) + Sk * dk + Sk + 4 * dk + 4 * Sk)
+
+
+def fwd_route(dtype: torch.dtype, dk: int, Tq: int, Sk: int) -> str:
+    """The forward kernel (K1, K1′) that takes a call: "mma" for bf16,
+    "scalar" for f32. Raises ValueError, naming the limit, for a call
+    neither takes. Pure Python: nothing is built or launched."""
+    if dtype == torch.bfloat16:
+        if dk % 16 or not 16 <= dk <= MMA_MAX_DK:
+            raise ValueError(
+                f"fused_attention: the bf16 kernel takes a head width dk "
+                f"that is a multiple of 16 up to {MMA_MAX_DK}, got {dk} "
+                f"(f32 takes any dk)")
+        route, smem = "mma", _mma_smem(Tq, Sk, dk)
+    elif dtype == torch.float32:
+        route, smem = "scalar", _scalar_smem(Sk, dk)
+    else:
+        raise ValueError(f"fused_attention: dtype {dtype} not supported")
+    if smem > SMEM_PER_BLOCK:
+        raise ValueError(
+            f"fused_attention: {Sk} keys of width {dk} need {smem} bytes of "
+            f"shared memory per block in the {ROUTE_NAMES[route]} kernel, "
+            f"more than the {SMEM_PER_BLOCK} a block can use")
+    return route
+
+
+def _bwd_smem(Tq: int, Sk: int, dk: int, dropout: bool) -> int:
+    """Shared memory of K2's block (the C side's ``launch`` in
+    ``csrc/fused_attention_bwd.cu``): q, do [Tq][dk+1], k, v [Sk][dk+1],
+    p (then ds) and the dropped p [Tq][Sk] and a dp row for each of 8
+    warps, f32, and with dropout the keep mask [Tq][Sk] as bytes."""
+    return 4 * (2 * Tq * (dk + 1) + 2 * Sk * (dk + 1) + 2 * Tq * Sk
+                + 8 * Sk) + (Tq * Sk if dropout else 0)
+
+
+def bwd_limit(dk: int, Tq: int, Sk: int, dropout_rate: float) -> None:
+    """Raise ValueError, naming the limit, for a call that K2 (the
+    backward kernel) cannot take: its block holds the head's panels and
+    the whole [Tq, Sk] score tile in shared memory. Pure Python: nothing
+    is built or launched."""
+    smem = _bwd_smem(Tq, Sk, dk, dropout_rate > 0.0)
+    if smem > SMEM_PER_BLOCK:
+        raise ValueError(
+            f"fused_attention: the backward kernel needs {smem} bytes of "
+            f"shared memory per block for Tq {Tq} x Sk {Sk} keys of width "
+            f"{dk}, more than the {SMEM_PER_BLOCK} a block can use")
+
+
 def _stream(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
@@ -243,7 +334,7 @@ def _raise_on(err: int, lib, what: str, error_string: str) -> None:
 def _launch_k1(q, k, v, bias, mask, num_heads) -> torch.Tensor:
     from vqacl_tpu_torch.ops import _build
 
-    B, Tq, Sk, dk = _validate_qkv(q, k, v, num_heads)
+    B, Tq, Sk, dk = _validate_fwd(q, k, v, num_heads)
     L, mask = _validate_bias_mask(q, bias, mask, num_heads, Sk)
     lib = _build.load("fused_attention_fwd")
     o = torch.empty_like(q)
@@ -296,7 +387,7 @@ def fused_attention_fwd_train(q: torch.Tensor, k: torch.Tensor,
             q, k, v, bias, mask, seed, num_heads, dropout_rate)
     from vqacl_tpu_torch.ops import _build
 
-    B, Tq, Sk, dk = _validate_qkv(q, k, v, num_heads, (seed,))
+    B, Tq, Sk, dk = _validate_fwd(q, k, v, num_heads, (seed,))
     L, mask = _validate_bias_mask(q, bias, mask, num_heads, Sk)
     _check("seed", seed, torch.int32, (1,))
     lib = _build.load("fused_attention_fwd")
@@ -341,6 +432,7 @@ def fused_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if L > min(Tq, Sk):
         raise ValueError(f"fused_attention_bwd: bias block {L} exceeds "
                          f"(Tq, Sk) = ({Tq}, {Sk})")
+    bwd_limit(dk, Tq, Sk, dropout_rate)
     lib = _build.load("fused_attention_bwd")
     dq = torch.empty_like(q)
     dk_ = torch.empty_like(k)
@@ -395,6 +487,9 @@ class _FusedAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, bias, mask, seed, num_heads, dropout_rate):
+        if q.device.type == "cuda":    # refuse before K1′ launches
+            bwd_limit(q.shape[-1] // num_heads, q.shape[1], k.shape[1],
+                      dropout_rate)
         o, p = fused_attention_fwd_train(q, k, v, bias, mask, seed,
                                          num_heads, dropout_rate)
         ctx.save_for_backward(q, k, v, p, seed)
