@@ -17,16 +17,16 @@ Phases, each of which exits non-zero on failure:
    rectangular and odd f32 shapes and the decoder shapes, at dropout 0
    and 0.1 (the plain version draws the kernels' own Philox mask, which
    is also compared bit for bit), timed also at the fused decoder's
-   shapes; K1 and K1′ at the edges of the bf16 tensor-core route (Tq not
-   a multiple of 16 with odd Sk, Sk = 128, Sk = 300, dk = 128), and a
-   bf16 call at dk = 8 refused with ValueError before any launch; each
-   K1/K1′ check names its route (``mma.sync bf16`` or ``scalar f32``);
-   K5 (``dw_splitk``, xᵀ·g) at the probe's shape and at odd shapes.
-   CUDA-event times of each kernel, its plain version and one library
-   call (a yardstick only), queued behind a spin kernel so that they
-   time the card's work and not the host's launch rate; K1 and K1′ also
-   with the host's enqueue included (``call_ms``). A bf16 training call
-   that K2 cannot take (Sk = 300) is refused before K1′ launches.
+   shapes; K1, K1′ and K2 at the edges of the bf16 tensor-core routes
+   (Tq not a multiple of 16 with odd Sk, Sk = 128, Sk = 300, dk = 128),
+   and a bf16 call at dk = 8 refused with ValueError before any launch;
+   each K1/K1′/K2 check names its route (``mma.sync bf16`` or ``scalar
+   f32``); K5 (``dw_splitk``, xᵀ·g) at the probe's shape and at odd
+   shapes. CUDA-event times of each kernel, its plain version and one
+   library call (a yardstick only), queued behind a spin kernel so that
+   they time the card's work and not the host's launch rate; K1 and K1′
+   also with the host's enqueue included (``call_ms``). A bf16 training
+   call that K2 cannot take (Sk = 512) is refused before K1′ launches.
 3. The eval slice: random-init t5-base (seeded), cast for inference,
    bf16, ``make_eval_step`` at batch 100 on a synthetic batch; the
    launch counts over the timed steps; the encoder through the kernel
@@ -122,15 +122,17 @@ DW_ODD = ((100, 40, 72), (97, 131, 257))
 DW_RTOL = 1e-5
 MM_BENCH_SHAPES = None       # None: the probe's own
 MM_BENCH_REPS = 5
-# (name, B, Tq, Sk, H, dk, L, with K2): the edges of the bf16 tensor-core
-# route of K1/K1′ -- Tq not a multiple of 16 with odd Sk, one full 128-key
-# tile, three key tiles (the two-sweep softmax), the widest head it takes.
-# K2 keeps f32 panels of every key in one block's shared memory, which 300
-# keys of width 64 exceed, so that case checks K1′ alone.
-BF16_EDGES = (("ragged_bf16", 16, 33, 29, 12, 64, 5, True),
-              ("keys128_bf16", 8, 56, 128, 12, 64, 20, True),
-              ("keys300_bf16", 4, 40, 300, 12, 64, 20, False),
-              ("dk128_bf16", 16, 56, 56, 6, 128, 20, True))
+# (name, B, Tq, Sk, H, dk, L): the edges of the bf16 tensor-core routes
+# of K1/K1′ and K2 -- Tq not a multiple of 16 with odd Sk, one full
+# 128-key tile (two 64-key tiles in K2), 300 keys (the two-sweep softmax;
+# five key tiles, two sweeps, in K2), the widest head they take.
+BF16_EDGES = (("ragged_bf16", 16, 33, 29, 12, 64, 5),
+              ("keys128_bf16", 8, 56, 128, 12, 64, 20),
+              ("keys300_bf16", 4, 40, 300, 12, 64, 20),
+              ("dk128_bf16", 16, 56, 56, 6, 128, 20))
+# a bf16 shape K1′ takes and K2 does not: its bf16 block holds the panels
+# and the whole [Tq, Sk] ds and pd tiles, which 512 keys exceed
+K2_REFUSED = ("keys512_bf16", 4, 40, 512, 12, 64, 20)
 # set by --base: another checkout's kernel sources, timed beside these
 BASE_CSRC = None
 
@@ -322,42 +324,42 @@ def _close(out, ref, dtype):
 
 
 def check_train_attention(fa, name, B, Tq, Sk, H, dk, L, dtype, rate,
-                          text_len=None, causal=False, timed=False,
-                          backward=True):
-    """K1′ and (with ``backward``) K2 vs their plain versions (the plain
-    version draws the kernels' Philox mask; that mask is checked against
-    the kernels' own bit for bit). With ``timed``: times, bounds and
-    library yardsticks. → (K1′ row, K2 row)."""
+                          text_len=None, causal=False, timed=False):
+    """K1′ and K2 vs their plain versions (the plain version draws the
+    kernels' Philox mask; that mask is checked against the kernels' own
+    bit for bit), and each kernel's second launch against its first. With
+    ``timed``: times, bounds and library yardsticks. → (K1′ row, K2
+    row)."""
     dt = getattr(torch, dtype)
     q, k, v, do, bias, mask = train_attention_inputs(
         B, Tq, Sk, H, dk, L, dt, text_len or Sk, seed=B + Tq + Sk,
         causal=causal)
     seed = torch.tensor([20260 + Tq], dtype=torch.int32, device="cuda")
     route = fa.ROUTE_NAMES[fa.fwd_route(dt, dk, Tq, Sk)]
+    bwd_route = fa.bwd_route(dt, dk, Tq, Sk, rate)
     o, p = fa.fused_attention_fwd_train(q, k, v, bias, mask, seed, H, rate)
     o2, p2 = fa.fused_attention_fwd_train(q, k, v, bias, mask, seed, H,
                                           rate)
     ro, rp = fa.fused_attention_fwd_train_reference(q, k, v, bias, mask,
                                                     seed, H, rate)
-    if backward:
-        grads = fa.fused_attention_bwd(q, k, v, p, seed, do, H, L, rate)
-        rgrads = fa.fused_attention_bwd_reference(q, k, v, rp, seed, do, H,
-                                                  L, rate)
+    grads = fa.fused_attention_bwd(q, k, v, p, seed, do, H, L, rate)
+    grads2 = fa.fused_attention_bwd(q, k, v, p, seed, do, H, L, rate)
+    rgrads = fa.fused_attention_bwd_reference(q, k, v, rp, seed, do, H, L,
+                                              rate)
     torch.cuda.synchronize()
     if o.dtype != dt or o.shape != (B, Tq, H * dk) \
             or p.shape != (B, H * Tq, Sk):
         fail(f"{name}: K1' output {o.dtype} {tuple(o.shape)} p "
              f"{tuple(p.shape)}")
     errs, oks = {}, []
-    pairs = [("o", o, ro, dtype), ("p", p, rp, "float32")]
-    if backward:
-        pairs += [("dq", grads[0], rgrads[0], dtype),
-                  ("dk", grads[1], rgrads[1], dtype),
-                  ("dv", grads[2], rgrads[2], dtype)]
-        if L:
-            pairs.append(("dbias", grads[3], rgrads[3], "float32"))
-        elif grads[3] is not None:
-            fail(f"{name}: K2 wrote dbias with L = 0")
+    pairs = [("o", o, ro, dtype), ("p", p, rp, "float32"),
+             ("dq", grads[0], rgrads[0], dtype),
+             ("dk", grads[1], rgrads[1], dtype),
+             ("dv", grads[2], rgrads[2], dtype)]
+    if L:
+        pairs.append(("dbias", grads[3], rgrads[3], "float32"))
+    elif grads[3] is not None:
+        fail(f"{name}: K2 wrote dbias with L = 0")
     for key, a, b, tol_dt in pairs:
         errs[key], ok = _close(a, b, tol_dt)
         oks.append(ok)
@@ -372,20 +374,23 @@ def check_train_attention(fa, name, B, Tq, Sk, H, dk, L, dtype, rate,
         if abs(kept - (1 - rate)) > 0.02:
             fail(f"{name}: kept share {kept:.4f} for rate {rate}")
     same = torch.equal(o, o2) and torch.equal(p, p2)
-    oks.append(same)
+    same_bwd = all(a is None and b is None or torch.equal(a, b)
+                   for a, b in zip(grads, grads2))
+    oks += [same, same_bwd]
     atol, rtol = TOL[dtype]
-    log(f"kernel_check {name}: route={route} B={B} Tq={Tq} Sk={Sk} H={H} "
+    log(f"kernel_check {name}: route={route} K2 route="
+        f"{fa.ROUTE_NAMES[bwd_route]} B={B} Tq={Tq} Sk={Sk} H={H} "
         f"dk={dk} L={L} {dtype} rate={rate} kept={kept:.4f} max_abs_err "
         + " ".join(f"{k}={e:.3e}" for k, e in errs.items())
-        + f" tol=atol {atol:g} + rtol {rtol:g} (p, dbias: f32 tol); K1' "
-        f"second launch equal: {same}{'' if backward else ' (K2 not run)'} -> "
+        + f" tol=atol {atol:g} + rtol {rtol:g} (p, dbias: f32 tol); second "
+        f"launch equal: K1' {same}, K2 {same_bwd} -> "
         f"{'ok' if all(oks) else 'MISMATCH'}")
     if not all(oks):
-        fail(f"{name}: K1'/K2 disagree with their plain versions or K1' "
-             f"with itself")
+        fail(f"{name}: K1'/K2 disagree with their plain versions or with "
+             f"themselves")
     fwd_row = {"max_abs_err": max(errs["o"], errs["p"])}
-    bwd_row = {"max_abs_err": max((v for k, v in errs.items()
-                                   if k not in ("o", "p")), default=None)}
+    bwd_row = {"max_abs_err": max(v for k, v in errs.items()
+                                  if k not in ("o", "p"))}
     if not timed:
         return fwd_row, bwd_row
 
@@ -422,11 +427,13 @@ def check_train_attention(fa, name, B, Tq, Sk, H, dk, L, dtype, rate,
     # K1': q,k,v in, o and p out; q·k and p·v on the inputs' type
     fwd_bytes = (2 * B * Tq + 2 * B * Sk) * panel + p_bytes + small
     fwd_ops_s = 2 * prod / peak
-    # K2: q,k,v,do,p in, dq,dk,dv out; do·vᵀ on the inputs' type, the
-    # three products with the f32 p or ds on f32
+    # K2: q,k,v,do,p in, dq,dk,dv out; on the tensor-core route all four
+    # products on the bf16 tensor cores, on the scalar route do·vᵀ on the
+    # inputs' type and the three with the f32 p or ds on f32
     bwd_bytes = ((2 * B * Tq + 2 * B * Sk) * panel + p_bytes
                  + (B * Tq + 2 * B * Sk) * panel + H * L * L * 4 + 4)
-    bwd_ops_s = prod / peak + 3 * prod / f32
+    bwd_ops_s = (4 * prod / peak if bwd_route == "mma"
+                 else prod / peak + 3 * prod / f32)
     for row, nbytes, ops_s, flops in ((fwd_row, fwd_bytes, fwd_ops_s,
                                        2 * prod),
                                       (bwd_row, bwd_bytes, bwd_ops_s,
@@ -442,7 +449,8 @@ def check_train_attention(fa, name, B, Tq, Sk, H, dk, L, dtype, rate,
         f"bound_ms={fwd_row['bound_ms']:.5f} ({fwd_row['bound_by']}: "
         f"{fwd_bytes} B, {2 * prod} FLOP); call_ms={fwd_row['call_ms']:.5f} "
         f"(host enqueue included)")
-    log(f"kernel_time {name} K2: kernel_ms={bwd_row['ms']:.5f} "
+    log(f"kernel_time {name} K2 ({fa.ROUTE_NAMES[bwd_route]}): "
+        f"kernel_ms={bwd_row['ms']:.5f} "
         f"plain_ms={bwd_row['plain_ms']:.5f} "
         f"library_ms={bwd_row['library_ms']:.5f} ({lib['backend']} "
         f"fwd+bwd {lib['fwd_bwd']:.5f} - fwd) "
@@ -496,7 +504,7 @@ def sdpa_times(sets, B, Tq, Sk, H, dk, L, dt, rate):
 def check_refused(fa):
     """A bf16 call at dk = 8 (the tiny config's head width) is refused by
     K1's and K1′'s wrappers with ValueError, before any launch; so is a
-    differentiable call at 300 keys, which K1′ takes and K2 does not."""
+    differentiable call at 512 keys, which K1′ takes and K2 does not."""
     q, k, v, bias, mask = attention_inputs(2, 8, 8, 4, 8, 0, torch.bfloat16,
                                            8, seed=1)
     seed = torch.zeros((1,), dtype=torch.int32, device="cuda")
@@ -517,7 +525,7 @@ def check_refused(fa):
         fail(f"a refused bf16 call launched a kernel: {before} -> {counts()}")
     log(f"kernel_check refused_bf16_dk8: K1 and K1' raise ValueError before "
         f"any launch ({msgs[0]})")
-    name, B, Tq, Sk, H, dk, L, _ = BF16_EDGES[2]
+    name, B, Tq, Sk, H, dk, L = K2_REFUSED
     q, k, v, bias, mask = attention_inputs(B, Tq, Sk, H, dk, L,
                                            torch.bfloat16, L, seed=2)
     counts = lambda: (fa.fused_attention_fwd_train.launches,
@@ -720,10 +728,10 @@ def main(argv=None) -> int:
                               H, dk, 10, "bfloat16", rate, causal=True)
         check_train_attention(fa, "decoder_cross_bf16_L0", 16, 10, S + 2, H,
                               dk, 0, "bfloat16", rate, text_len=L)
-        for (name, *shape, L_, with_k2) in BF16_EDGES:
+        for (name, *shape, L_) in BF16_EDGES:
             check_train_attention(fa, name, *shape, L_, "bfloat16", rate,
-                                  text_len=L_, backward=with_k2)
-    for (name, *shape, L_, _) in BF16_EDGES:
+                                  text_len=L_)
+    for (name, *shape, L_) in BF16_EDGES:
         check_attention(fa, name, *shape, L_, "bfloat16", text_len=L_)
     check_refused(fa)
     # the fused decoder's shapes at the train batch (K4): K1′/K2 with

@@ -83,7 +83,8 @@ def route(q, k, H):      # the wrappers' validation, before any launch
 def counted(q, k, v, bias, mask, H, dropout_rate=0.0, seed=None):
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        fa.bwd_limit(q.shape[-1] // H, q.shape[1], k.shape[1], dropout_rate)
+        fa.bwd_route(q.dtype, q.shape[-1] // H, q.shape[1], k.shape[1],
+                     dropout_rate)
         return dispatch(q, k, v, bias, mask, H, dropout_rate, seed)
     route(q, k, H)
     counted.launches += 1
@@ -185,22 +186,30 @@ def test_chip_smoke_rehearsal_on_cpu():
     assert "launches over 4 steps: K1=0 K1'=8 K2=8" in r.stdout
     assert "launches over 4 steps: K1=0 K1'=24 K2=24" in r.stdout
     assert "rate=0.1 kept=0.9" in r.stdout
-    # K1/K1′ name their route; every check launches twice with equal bits
+    # K1/K1′/K2 name their route; every check launches twice with equal
+    # bits
     checks = [l for l in lines if l.startswith("kernel_check ")
               and not l.startswith("kernel_check dw_")
               and not l.startswith("kernel_check refused")]
-    assert all("second launch equal: True" in l for l in checks)
+    assert all("second launch equal: True" in l for l in checks
+               if "rate=" not in l)
     assert all(("route=mma.sync bf16" in l) == ("bfloat16" in l)
                and ("route=scalar f32" in l) == ("float32" in l)
                for l in checks)
-    # the bf16 route's edges: K1 once, K1′ at rates 0 and 0.1
+    assert all("K2 route=mma.sync bf16" in l or "K2 route=scalar f32" in l
+               for l in checks if "rate=" in l)
+    assert all("second launch equal: K1' True, K2 True" in l
+               for l in checks if "rate=" in l)
+    # the bf16 routes' edges: K1 once, K1′ and K2 at rates 0 and 0.1
     for name in ("ragged_bf16", "keys128_bf16", "keys300_bf16",
                  "dk128_bf16"):
         assert sum(l.startswith(f"kernel_check {name}:") for l in checks) \
             == 3, name
+        assert sum(l.startswith(f"kernel_check {name}:") and "dv=" in l
+                   for l in checks) == 2, name
     assert "kernel_check refused_bf16_dk8: K1 and K1' raise ValueError" \
         in r.stdout
-    assert "kernel_check refused_bwd_keys300_bf16: a training call raises " \
+    assert "kernel_check refused_bwd_keys512_bf16: a training call raises " \
         "ValueError before K1' launches" in r.stdout
     for dname in ("bfloat16", "float32"):
         assert f"loss_eval fused decoder {dname}" in r.stdout

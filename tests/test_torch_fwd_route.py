@@ -102,32 +102,40 @@ def test_stage_bytes_match_the_source_note():
 
 @pytest.mark.parametrize("dk,Tq,Sk", [
     (64, 56, 56), (64, 10, 10), (64, 10, 58), (64, 33, 29), (64, 56, 128),
-    (128, 56, 56), (64, 56, 192)])
+    (128, 56, 56), (64, 56, 192), (64, 40, 300)])
 def test_bwd_takes_the_checked_shapes(dk, Tq, Sk):
-    fa.bwd_limit(dk, Tq, Sk, 0.1)
+    assert fa.bwd_route(torch.bfloat16, dk, Tq, Sk, 0.1) == "mma"
 
 
-@pytest.mark.parametrize("dk,Tq,Sk,rate", [(64, 40, 300, 0.1),
-                                           (64, 40, 300, 0.0),
-                                           (64, 56, 193, 0.1),
-                                           (64, 112, 112, 0.1),
-                                           (64, 117, 117, 0.0)])
-def test_bwd_refuses_keys_past_its_block(dk, Tq, Sk, rate):
-    # K2 holds the f32 panels and the whole [Tq, Sk] tile in one block
+@pytest.mark.parametrize("dtype,dk,Tq,Sk,rate", [
+    (torch.float32, 64, 40, 300, 0.1),
+    (torch.float32, 64, 40, 300, 0.0),
+    (torch.float32, 64, 56, 193, 0.1),
+    (torch.float32, 64, 112, 112, 0.1),
+    (torch.float32, 64, 117, 117, 0.0),
+    (torch.bfloat16, 64, 40, 512, 0.1),
+    (torch.bfloat16, 64, 192, 192, 0.0),
+    (torch.bfloat16, 128, 144, 144, 0.1)])
+def test_bwd_refuses_keys_past_its_block(dtype, dk, Tq, Sk, rate):
+    # K2 holds the panels and the whole [Tq, Sk] tile in one block: f32
+    # panels and f32 tiles in the scalar route, bf16 in the tensor-core one
     with pytest.raises(ValueError, match="backward kernel needs"):
-        fa.bwd_limit(dk, Tq, Sk, rate)
+        fa.bwd_route(dtype, dk, Tq, Sk, rate)
 
 
 def test_training_call_refused_before_k1p(monkeypatch):
-    # a CUDA-shaped training call at 300 keys: K1′ could take it, K2 not,
-    # so _FusedAttention raises before K1′ runs
+    # a CUDA-shaped bf16 training call at 512 keys: K1′ could take it, K2
+    # not, so _FusedAttention raises before K1′ runs
     def k1p(*a, **k):
         raise AssertionError("K1' ran before the backward's limit check")
 
     monkeypatch.setattr(fa, "fused_attention_fwd_train", k1p)
     cuda = SimpleNamespace(type="cuda")
-    q = SimpleNamespace(device=cuda, shape=(4, 40, 12 * 64))
-    k = SimpleNamespace(device=cuda, shape=(4, 300, 12 * 64))
+    q = SimpleNamespace(device=cuda, shape=(4, 40, 12 * 64),
+                        dtype=torch.bfloat16)
+    k = SimpleNamespace(device=cuda, shape=(4, 512, 12 * 64),
+                        dtype=torch.bfloat16)
+    assert fa.fwd_route(torch.bfloat16, 64, 40, 512) == "mma"
     with pytest.raises(ValueError, match="backward kernel needs"):
         fa._FusedAttention.forward(None, q, k, k, None, None, None, 12, 0.1)
 

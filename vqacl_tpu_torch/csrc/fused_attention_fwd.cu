@@ -349,30 +349,10 @@ int mma_heads(int Tq, int Sk, int H, int dk) {
   return 1;
 }
 
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<unsigned*>(&t);
-}
-
-// x / d with r = 1 / d rounded: q = x r, then Markstein's correction q +
-// (x - q d) r, the residual exact in an fma. For every x from 2^-101 to
-// 1 this is the rounded quotient of x / d (tests/test_torch_fwd_route.py
-// holds it against exact rational arithmetic); below, the residual
-// underflows and the quotient may be one ulp off.
-__device__ __forceinline__ float div_keep(float x, float d, float r) {
-  const float q = x * r;
-  return fmaf(fmaf(-q, d, x), r, q);
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
+using philox::div_keep;
+using sm90::pack_bf16;
+using sm90::quad_max;
+using sm90::quad_sum;
 
 // Store p[j], p[j+1] of one row (j even): one float2 when Sk is even.
 __device__ __forceinline__ void store_p_pair(float* __restrict__ row, int j,
@@ -385,27 +365,9 @@ __device__ __forceinline__ void store_p_pair(float* __restrict__ row, int j,
   }
 }
 
-// K1' dropout draw for the four accumulator elements of n-tile nt (key
-// columns j, j + 1 = n0 + 8 nt + c2 + {0, 1}; rows r0 + g, r0 + g + 8) of
-// head bh: bit e set when element e is kept. The lanes of a pair (c2,
-// c2 + 2) share Philox counter j / 4 of both rows: the even lane draws row
-// g's four words, the odd lane row g + 8's, and each passes the other the
-// two words it needs (element j takes word j % 4).
-__device__ __forceinline__ uint32_t keep_nibble(uint32_t s0, uint32_t thresh,
-                                                int bh, int r0, int j) {
-  const int lane = threadIdx.x & 31;
-  const bool odd = lane & 1;
-  const uint4 w = philox::philox4x32_10(
-      make_uint4((uint32_t)(j >> 2), (uint32_t)(r0 + (lane >> 2) + (odd ? 8 : 0)),
-                 (uint32_t)bh, 0u),
-      s0, 0u);
-  const uint32_t x0 = __shfl_xor_sync(0xffffffffu, odd ? w.x : w.z, 1);
-  const uint32_t x1 = __shfl_xor_sync(0xffffffffu, odd ? w.y : w.w, 1);
-  return (uint32_t)((odd ? x0 : w.x) < thresh) |
-         (uint32_t)((odd ? x1 : w.y) < thresh) << 1 |
-         (uint32_t)((odd ? w.z : x0) < thresh) << 2 |
-         (uint32_t)((odd ? w.w : x1) < thresh) << 3;
-}
+// K1' dropout draw for the four accumulator elements of an n-tile
+// (philox.cuh).
+using philox::keep_nibble;
 
 // Copy unit u into stage `stage` with cp.async: K, V and Q rows in 16-byte
 // chunks, thread (row rr, chunk cc) of each pass, key rows from Sk and

@@ -1,7 +1,9 @@
 // Warp-level tensor-core and asynchronous-copy helpers shared by the bf16
-// routes of the attention forward (fused_attention_fwd.cu) and the weight
-// gradient (dw_splitk.cu): 16-byte cp.async staging, ldmatrix fragment
-// loads and mma.sync m16n8k16 (bf16 operands, f32 accumulators).
+// routes of the attention forward and backward (fused_attention_fwd.cu,
+// fused_attention_bwd.cu) and the weight gradient (dw_splitk.cu): 16-byte
+// cp.async staging, ldmatrix fragment loads, mma.sync m16n8k16 (bf16
+// operands, f32 accumulators), bf16 packing of accumulators and sums
+// across the quad of lanes that shares an accumulator row.
 //
 // Fragment layouts of mma.m16n8k16.row.col, with g = lane / 4 and
 // c = lane % 4 (PTX ISA, "Matrix Fragments for mma.m16n8k16"):
@@ -14,6 +16,7 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace sm90 {
@@ -73,6 +76,24 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two f32 values rounded to bf16 and packed as one operand register (lo in
+// the low half): the A fragment of a product from two accumulator pairs.
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<unsigned*>(&t);
+}
+
+// Max and sum over the four lanes (lane % 4) that hold one accumulator row.
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
 }  // namespace sm90

@@ -13,12 +13,12 @@ source says what it computes, what bounds it and how):
   K2   ``fused_attention_bwd``        backward from the saved p
        (``csrc/fused_attention_bwd.cu``)
 
-The forward kernels take bf16 on the tensor cores (``mma.sync``; dk a
-multiple of 16 up to 128) and f32 as scalar FMAs; ``fwd_route`` picks
-the route and raises ValueError, before anything is built, for a call
-neither takes. ``bwd_limit`` does the same for K2, whose block holds the
-whole [Tq, Sk] score tile, and ``_FusedAttention`` checks it before K1′
-runs, so a training call K2 cannot take fails before its forward.
+Every kernel takes bf16 on the tensor cores (``mma.sync``; dk a multiple
+of 16 up to 128) and f32 as scalar FMAs; ``fwd_route`` picks the
+forward's route and raises ValueError, before anything is built, for a
+call neither takes. ``bwd_route`` does the same for K2, whose block holds
+the whole [Tq, Sk] score tile, and ``_FusedAttention`` checks it before
+K1′ runs, so a training call K2 cannot take fails before its forward.
 
 They consume q/k/v in the projection GEMMs' ``[B, S, H·dk]`` layout, add
 the relative bias on the top-left ``L×L`` block only and the −1e9 key
@@ -300,25 +300,49 @@ def fwd_route(dtype: torch.dtype, dk: int, Tq: int, Sk: int) -> str:
 
 
 def _bwd_smem(Tq: int, Sk: int, dk: int, dropout: bool) -> int:
-    """Shared memory of K2's block (the C side's ``launch`` in
-    ``csrc/fused_attention_bwd.cu``): q, do [Tq][dk+1], k, v [Sk][dk+1],
+    """Shared memory of the f32 route's K2 block (the C side's ``launch``
+    in ``csrc/fused_attention_bwd.cu``): q, do [Tq][dk+1], k, v [Sk][dk+1],
     p (then ds) and the dropped p [Tq][Sk] and a dp row for each of 8
     warps, f32, and with dropout the keep mask [Tq][Sk] as bytes."""
     return 4 * (2 * Tq * (dk + 1) + 2 * Sk * (dk + 1) + 2 * Tq * Sk
                 + 8 * Sk) + (Tq * Sk if dropout else 0)
 
 
-def bwd_limit(dk: int, Tq: int, Sk: int, dropout_rate: float) -> None:
-    """Raise ValueError, naming the limit, for a call that K2 (the
-    backward kernel) cannot take: its block holds the head's panels and
-    the whole [Tq, Sk] score tile in shared memory. Pure Python: nothing
-    is built or launched."""
-    smem = _bwd_smem(Tq, Sk, dk, dropout_rate > 0.0)
+def _bwd_mma_smem(Tq: int, Sk: int, dk: int, heads: int = 1) -> int:
+    """Shared memory of one unit of ``heads`` heads in K2's bf16 route (the
+    C side's ``bwd_stage_bytes``): q and do [Tqp][dk+8], k and v
+    [Skp][dk+8] and the hi and lo tiles of ds and pd [Tqp][Skp+8] per
+    head, all bf16, with Tqp and Skp the lengths rounded up to 16."""
+    skp = -(-Sk // 16) * 16
+    tqp = -(-Tq // 16) * 16
+    return 2 * heads * ((2 * tqp + 2 * skp) * (dk + 8) + 4 * tqp * (skp + 8))
+
+
+def bwd_route(dtype: torch.dtype, dk: int, Tq: int, Sk: int,
+              dropout_rate: float) -> str:
+    """The backward kernel route (K2) that takes a call: "mma" for bf16,
+    "scalar" for f32. Raises ValueError, naming the limit, for a call
+    neither takes: each holds a head's panels and its whole [Tq, Sk] score
+    tile in one block's shared memory. Pure Python: nothing is built or
+    launched."""
+    if dtype == torch.bfloat16:
+        if dk % 16 or not 16 <= dk <= MMA_MAX_DK:
+            raise ValueError(
+                f"fused_attention: the bf16 backward kernel takes a head "
+                f"width dk that is a multiple of 16 up to {MMA_MAX_DK}, got "
+                f"{dk} (f32 takes any dk)")
+        route, smem = "mma", _bwd_mma_smem(Tq, Sk, dk)
+    elif dtype == torch.float32:
+        route, smem = "scalar", _bwd_smem(Tq, Sk, dk, dropout_rate > 0.0)
+    else:
+        raise ValueError(f"fused_attention: dtype {dtype} not supported")
     if smem > SMEM_PER_BLOCK:
         raise ValueError(
             f"fused_attention: the backward kernel needs {smem} bytes of "
             f"shared memory per block for Tq {Tq} x Sk {Sk} keys of width "
-            f"{dk}, more than the {SMEM_PER_BLOCK} a block can use")
+            f"{dk} in its {ROUTE_NAMES[route]} route, more than the "
+            f"{SMEM_PER_BLOCK} a block can use")
+    return route
 
 
 def _stream(t: torch.Tensor) -> ctypes.c_void_p:
@@ -432,7 +456,11 @@ def fused_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if L > min(Tq, Sk):
         raise ValueError(f"fused_attention_bwd: bias block {L} exceeds "
                          f"(Tq, Sk) = ({Tq}, {Sk})")
-    bwd_limit(dk, Tq, Sk, dropout_rate)
+    if bwd_route(q.dtype, dk, Tq, Sk, dropout_rate) == "mma":
+        for name, t in (("q", q), ("k", k), ("v", v), ("do", do)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"fused_attention_bwd: the bf16 kernel "
+                                 f"needs {name} 16-byte aligned")
     lib = _build.load("fused_attention_bwd")
     dq = torch.empty_like(q)
     dk_ = torch.empty_like(k)
@@ -488,8 +516,8 @@ class _FusedAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, bias, mask, seed, num_heads, dropout_rate):
         if q.device.type == "cuda":    # refuse before K1′ launches
-            bwd_limit(q.shape[-1] // num_heads, q.shape[1], k.shape[1],
-                      dropout_rate)
+            bwd_route(q.dtype, q.shape[-1] // num_heads, q.shape[1],
+                      k.shape[1], dropout_rate)
         o, p = fused_attention_fwd_train(q, k, v, bias, mask, seed,
                                          num_heads, dropout_rate)
         ctx.save_for_backward(q, k, v, p, seed)
