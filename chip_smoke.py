@@ -53,6 +53,22 @@ Phases, each of which exits non-zero on failure:
    ``submit()`` calls with no errors.
 6. ``vqacl_tpu_torch.mm_bench``: the probe's matrix products and the K5
    weight-gradient kernel ``dw_splitk`` at the probe's shapes.
+7. The continual-learning loop: ``VQACLTrainer`` on the random-init
+   t5-base of phase 3 (bf16 compute, f32 master weights, dropout 0.1,
+   train batch 80, eval batch 100) over two tasks of
+   ``SyntheticDataModule`` data (feat_dim 2048, 36 boxes, a pool of 256
+   images; 400 train, 100 val and 100 test items per task), one epoch,
+   replay memory of 200; then the same with ``cl_reg`` "ewc" (two
+   importance batches per task) and "derpp" at 160 train items per task.
+   Each run is the loop as a user calls it and prints, from the
+   trainer's own records, its wall time per task, the median train step
+   and predict batch (CUDA events recorded around each call, no sync per
+   call), the checkpoint save time, the host-time shares and K1/K1′/K2
+   launches, which must equal what its steps and batches imply (K1 also
+   at the DER capture's train batch, checked in phase 2); then a tiny f32
+   ``CompVQACLTrainer`` run (comp_cate G5) on the card against the same
+   run on the CPU: equal result matrices and answers, per-step losses
+   within ``CL_LOSS_RTOL``.
 
 The second-to-last lines are a JSON object of per-kernel numbers and the
 card's name and power limit; the last line is the run's verdict as JSON.
@@ -76,6 +92,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -135,6 +152,20 @@ BF16_EDGES = (("ragged_bf16", 16, 33, 29, 12, 64, 5),
 K2_REFUSED = ("keys512_bf16", 4, 40, 512, 12, 64, 20)
 # set by --base: another checkout's kernel sources, timed beside these
 BASE_CSRC = None
+# phase 7, the continual-learning loop: two tasks of SyntheticDataModule
+# data over a pool of CL_IMAGES images (t5-base: feat_dim 2048, 36 boxes),
+# items per task (train, val, test); the EWC and DER++ runs train on
+# CL_REG_TRAIN items per task; the tiny f32 run card vs CPU on CL_TINY
+CL_TASKS = ("q_recognition", "q_location")
+CL_ITEMS = (400, 100, 100)
+CL_REG_TRAIN = 160
+CL_IMAGES = 256
+CL_M_SIZE = 200
+CL_FISHER_BATCHES = 2
+CL_TINY = (48, 16, 16)
+CL_TINY_BATCH = 16
+# per-step losses of the tiny f32 CL run, card vs CPU, relative
+CL_LOSS_RTOL = 1e-5
 
 
 def log(*a):
@@ -625,6 +656,89 @@ def _grads(vlt5, tree_leaves, tree_map, params, mcfg, batch, proto, dtype,
     return float(out.loss.detach()), flat
 
 
+def drive_cl(trainer, label, counters=None):
+    """Run ``trainer.train()`` as a user calls it, then read the
+    trainer's own records: ``wall_s`` and ``task_wall_s`` (host clock),
+    ``times_ms`` (each step and batch between CUDA events recorded around
+    it without a sync; each save's host copy) and ``step_losses``. With
+    ``counters`` (zero_counts, read_counts, encoder layers) the kernel
+    counts are read around the run and checked against its steps and
+    batches: K1′ and K2 once per encoder layer in every train, replay and
+    importance step, K1 once per layer in every predict and DER capture
+    batch, each above zero. Checks finite losses and a finite result
+    matrix → record."""
+    import numpy as np
+
+    zero_counts, read_counts, num_layers = counters or (
+        lambda: None, lambda: (0, 0, 0), 0)
+    zero_counts()
+    t0 = time.perf_counter()
+    metrics = trainer.train()
+    wall = time.perf_counter() - t0
+    k1, k1p, k2 = read_counts()
+    c, times = trainer.counts, trainer.times_ms
+    losses = trainer.step_losses["train"] + trainer.step_losses["replay"]
+    steps = c["train_steps"] + c["replay_steps"]
+    want_k1p = num_layers * (steps + c["importance_batches"])
+    want_k1 = num_layers * (c["predict_batches"] + c["capture_batches"])
+    med = lambda xs: sorted(xs)[len(xs) // 2] if xs else None
+    ms = lambda x: "-" if x is None else f"{x:.3f}"
+    train_ms = times["train_steps"] + times["replay_steps"]
+    clock = "between CUDA events, no sync per call" \
+        if trainer.device.type == "cuda" else "on the host clock"
+    w = trainer.wall_s
+    matrix = trainer.result_matrix.matrix().tolist()
+    rec = {"wall_s": wall, "task_wall_s": dict(trainer.task_wall_s),
+           "counts": dict(c), "launches": [k1, k1p, k2],
+           "expected_launches": [want_k1, want_k1p, want_k1p],
+           "train_step_ms_median": med(train_ms),
+           "replay_step_ms_median": med(times["replay_steps"]),
+           "predict_batch_ms_median": med(times["predict_batches"]),
+           "steps_per_s": steps / max(w["train"], 1e-9),
+           "wall_share": {k: w[k] / wall for k in
+                          ("train", "predict", "loader", "checkpoint")},
+           "checkpoint_s": w["checkpoint"],
+           "checkpoint_save_ms": times["saves"],
+           "importance_batch_ms": times["importance_batches"],
+           "capture_batch_ms": times["capture_batches"],
+           "checkpoint_write_s": trainer._ckpt_writer.write_s,
+           "losses": losses, "result_matrix": matrix,
+           "Avg_acc": metrics.get("Avg_acc",
+                                  metrics.get("standard", {}).get("Avg_acc")),
+           "metrics": metrics}
+    log(f"{label}: wall {wall:.3f} s, per task "
+        + ", ".join(f"{t} {s:.3f} s" for t, s in trainer.task_wall_s.items())
+        + f"; {steps} train+replay steps ({c['train_steps']} + "
+        f"{c['replay_steps']}), median {ms(rec['train_step_ms_median'])} ms "
+        f"(replay steps alone {ms(rec['replay_step_ms_median'])} ms), "
+        f"{rec['steps_per_s']:.3f} steps/s of train time; "
+        f"{c['predict_batches']} predict batches, median "
+        f"{ms(rec['predict_batch_ms_median'])} ms (steps and batches "
+        f"{clock}); importance batches "
+        f"{c['importance_batches']} ("
+        f"{', '.join(f'{t:.3f}' for t in times['importance_batches']) or '-'}"
+        f" ms), DER capture batches {c['capture_batches']} ("
+        f"{', '.join(f'{t:.3f}' for t in times['capture_batches']) or '-'}"
+        f" ms)")
+    log(f"{label}: wall shares " + json.dumps(rec["wall_share"])
+        + f"; checkpoint {w['checkpoint']:.3f} s (saves, each the host copy: "
+        f"{', '.join(f'{t:.3f}' for t in times['saves'])} ms; the rest the "
+        f"final drain), background writes {rec['checkpoint_write_s']:.3f} s; "
+        f"launches K1={k1} "
+        f"K1'={k1p} K2={k2} (expected {want_k1}/{want_k1p}/{want_k1p})")
+    log(f"{label}: result matrix {matrix} Avg_acc {rec['Avg_acc']}")
+    if counters and ((k1, k1p, k2) != (want_k1, want_k1p, want_k1p)
+                     or min(k1, k1p, k2) <= 0):
+        fail(f"{label}: launches K1/K1'/K2 {k1}/{k1p}/{k2}, expected "
+             f"{want_k1}/{want_k1p}/{want_k1p}, each above zero")
+    if not losses or not all(np.isfinite(losses)):
+        fail(f"{label}: a loss is not finite: {losses}")
+    if not np.isfinite(np.asarray(matrix)).all() \
+            or not np.isfinite(rec["Avg_acc"]):
+        fail(f"{label}: the result matrix is not finite: {matrix}")
+    return rec
+
+
 def main(argv=None) -> int:
     global BASE_CSRC
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -649,9 +763,12 @@ def main(argv=None) -> int:
     sys.path.insert(0, HERE)
     import numpy as np
 
+    from vqacl_tpu_torch.cl.comp_trainer import CompVQACLTrainer
+    from vqacl_tpu_torch.cl.trainer import VQACLTrainer
     from vqacl_tpu_torch.data.collate import collate
     from vqacl_tpu_torch.data.features import MemoryFeatureStore
     from vqacl_tpu_torch.data.synthetic import SyntheticVQA
+    from vqacl_tpu_torch.data.synthetic_module import SyntheticDataModule
     from vqacl_tpu_torch.data.tokenizer import VLT5Tokenizer
     from vqacl_tpu_torch.models import vlt5
     from vqacl_tpu_torch.models.convert import to_device
@@ -702,6 +819,9 @@ def main(argv=None) -> int:
     S = m.encoder_len
     k1 = check_attention(fa, "eval_shape", EVAL_BATCH, S, S, H, dk, L,
                          "bfloat16", text_len=L, timed=True)
+    # the CL loop's DER capture runs K1 at the train batch
+    check_attention(fa, "capture_shape", TRAIN_BATCH, S, S, H, dk, L,
+                    "bfloat16", text_len=L)
     check_attention(fa, "rect_f32", 8, 10, 58, H, dk, 0, "float32")
     check_attention(fa, "rect_bf16_bias", 16, 19, 37, H, dk, 7,
                     "bfloat16")
@@ -1187,6 +1307,94 @@ def main(argv=None) -> int:
     if not all(np.isfinite(r["us"]) and r["us"] > 0 for r in mm_rows):
         fail("mm_bench gave a time that is not a positive number")
 
+    # ---- 7. the continual-learning loop -----------------------------------
+    cl = {}
+    cl_k = [0, 0, 0]
+    n_tr, n_va, n_te = CL_ITEMS
+    cl_tok = VLT5Tokenizer()
+    for name, reg in (("er", "none"), ("ewc", "ewc"), ("derpp", "derpp")):
+        ccfg = Config()
+        ccfg.train.batch_size = TRAIN_BATCH
+        ccfg.train.valid_batch_size = EVAL_BATCH
+        ccfg.train.epochs = 1
+        ccfg.train.memory = True
+        ccfg.train.m_size = CL_M_SIZE
+        ccfg.train.cl_reg = reg
+        ccfg.train.fisher_batches = CL_FISHER_BATCHES
+        cm = ccfg.model
+        t0 = time.time()
+        cdata = SyntheticDataModule(
+            cl_tok, tasks=CL_TASKS,
+            n_train_per_task=n_tr if reg == "none" else CL_REG_TRAIN,
+            n_val_per_task=n_va, n_test_per_task=n_te, feat_dim=cm.feat_dim,
+            n_boxes=cm.n_boxes, n_images=CL_IMAGES, seed=0)
+        with tempfile.TemporaryDirectory() as out:
+            ccfg.output = out
+            trainer = VQACLTrainer(ccfg, cdata, cl_tok, verbose=False,
+                                   device="cuda", init_params=params,
+                                   dtype=torch.bfloat16)
+            log(f"cl_{name}: t5-base bf16 compute, f32 master weights, "
+                f"dropout {cm.dropout_rate}, batch {TRAIN_BATCH}, eval batch "
+                f"{EVAL_BATCH}, tasks {list(CL_TASKS)}, "
+                f"{len(cdata.train_items(CL_TASKS[0]))} "
+                f"train items per task, m_size {CL_M_SIZE}, cl_reg {reg}; "
+                f"set-up {time.time() - t0:.1f} s")
+            cl[name] = drive_cl(trainer, f"cl_{name}",
+                                (zero_counts, read_counts, cm.num_layers))
+        cl_k = [a + b for a, b in zip(cl_k, cl[name]["launches"])]
+        del trainer
+        torch.cuda.empty_cache()
+
+    # a tiny f32 run on the card == the same run on the CPU
+    tcl = Config()
+    tcl.model = tiny_model_config(vocab_size=32200, dropout_rate=0.0)
+    tcl.train.lr = 1e-3
+    tcl.train.batch_size = tcl.train.valid_batch_size = CL_TINY_BATCH
+    tcl.train.epochs = 1
+    tcl.train.m_size = 16
+    tcl.train.comp_cate = "G5"
+    tcm = tcl.model
+    tinit = vlt5.init_vlt5_params(4, tcm, device="cpu")
+    tiny_runs = {}
+    for dev in ("cuda", "cpu"):
+        tdata = SyntheticDataModule(
+            cl_tok, tasks=CL_TASKS, n_train_per_task=CL_TINY[0],
+            n_val_per_task=CL_TINY[1], n_test_per_task=CL_TINY[2],
+            feat_dim=tcm.feat_dim, n_boxes=tcm.n_boxes, answer_vocab=4,
+            seed=0)
+        with tempfile.TemporaryDirectory() as out:
+            tcl.output = out
+            trainer = CompVQACLTrainer(tcl, tdata, cl_tok, verbose=False,
+                                       device=dev, init_params=tinit,
+                                       dtype=torch.float32)
+            answers = []
+
+            def predict(loader, predict=trainer.predict):
+                answers.append(predict(loader))
+                return answers[-1]
+
+            trainer.predict = predict
+            rec = drive_cl(trainer, f"cl_tiny_f32_{dev}",
+                           (zero_counts, read_counts, tcm.num_layers)
+                           if dev == "cuda" else None)
+            rec["answers"] = answers
+            rec["comp"] = trainer.result_matrix_comp.to_dict()
+            rec["noncomp"] = trainer.result_matrix_noncomp.to_dict()
+            tiny_runs[dev] = rec
+    card_run, cpu_run = tiny_runs["cuda"], tiny_runs["cpu"]
+    tiny_err = max(abs(a - b) / abs(b) for a, b in zip(card_run["losses"],
+                                                        cpu_run["losses"]))
+    same = {k: card_run[k] == cpu_run[k] for k in ("result_matrix", "comp",
+                                                   "noncomp", "answers")}
+    log(f"cl tiny f32 CompVQACLTrainer (comp_cate G5), card vs CPU: "
+        f"{len(card_run['losses'])} / {len(cpu_run['losses'])} steps, loss "
+        f"max rel err {tiny_err:.3e} (tol {CL_LOSS_RTOL:g}); equal: "
+        f"{json.dumps(same)}; Avg_acc {card_run['Avg_acc']}")
+    if len(card_run["losses"]) != len(cpu_run["losses"]) \
+            or not tiny_err <= CL_LOSS_RTOL or not all(same.values()):
+        fail("the tiny f32 CL run on the card differs from the CPU run")
+    cl_k = [a + b for a, b in zip(cl_k, card_run["launches"])]
+
     def row(name, source, replaces, launches, r):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
@@ -1194,18 +1402,22 @@ def main(argv=None) -> int:
                                      "bound_ms", "bound_by", "library_ms")}}
 
     fwd_src = "vqacl_tpu_torch/csrc/fused_attention_fwd.cu"
-    # launches over the main paths' runs: K1 in the eval steps and the
-    # fused-decoder loss-eval step, K1′/K2 in the train steps with the
-    # plain and with the fused decoder, K5 in the probe
+    # launches over the main paths' runs: K1 in the eval steps, the
+    # fused-decoder loss-eval step and the CL loops' predict and DER
+    # capture batches; K1′/K2 in the train steps with the plain and with
+    # the fused decoder and in the CL loops' train, replay and importance
+    # steps; K5 in the probe
     kernels = [
         row("fused_attention_fwd", fwd_src,
             "vqacl_tpu/ops/fused_attention.py:159",
-            eval_launches + loss_eval_k1, k1),
+            eval_launches + loss_eval_k1 + cl_k[0], k1),
         row("fused_attention_fwd_train", fwd_src,
-            "vqacl_tpu/ops/fused_attention.py:199", train_k1p + fd_k1p, k1p),
+            "vqacl_tpu/ops/fused_attention.py:199",
+            train_k1p + fd_k1p + cl_k[1], k1p),
         row("fused_attention_bwd",
             "vqacl_tpu_torch/csrc/fused_attention_bwd.cu",
-            "vqacl_tpu/ops/fused_attention.py:272", train_k2 + fd_k2, k2),
+            "vqacl_tpu/ops/fused_attention.py:272",
+            train_k2 + fd_k2 + cl_k[2], k2),
         row("dw_splitk", "vqacl_tpu_torch/csrc/dw_splitk.cu",
             "scripts/mm_bench.py:121", dw_launches, k5),
     ]
@@ -1247,6 +1459,10 @@ def main(argv=None) -> int:
             "small_train_param_err": fd_small[1],
             "loss_eval": fd_eval, "kernel_times": dec_times},
         "remat": remat_summary, "mm_bench": mm_rows,
+        "cl": {k: {key: v for key, v in r.items() if key != "metrics"}
+               for k, r in cl.items()},
+        "cl_tiny": {"loss_rel_err": tiny_err, "equal": same,
+                    "launches": card_run["launches"]},
         "serve": st, "serve_wall_s": wall, "card": card}))
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -11,8 +11,10 @@ heads of 16, 2 layers; small K5 and mm_bench shapes). It checks every
 phase's bookkeeping — launch counts per eval step, per train step with
 the plain and with the fused decoder, per loss-eval step, per remat
 mode, per served batch and in the probe, the kernels JSON line with all
-its keys, the card line and the final verdict line — and that without
-CUDA the real script prints no result and exits non-zero.
+its keys, the card line and the final verdict line; in phase 7 the CL
+runs it makes (ER, EWC, DER++ and the tiny card-vs-CPU run) and each
+one's K1/K1′/K2 launches against its steps and batches — and that
+without CUDA the real script prints no result and exits non-zero.
 """
 
 import json
@@ -73,8 +75,9 @@ cpu = lambda d: torch.device("cpu")
 import vqacl_tpu_torch.models.vlt5 as V, vqacl_tpu_torch.serve as SV
 import vqacl_tpu_torch.train.step as ST
 import vqacl_tpu_torch.mm_bench as MB
+import vqacl_tpu_torch.cl.trainer as CT, vqacl_tpu_torch.cl.regularizers as RG
 D.resolve_device = V.resolve_device = SV.resolve_device = ST.resolve_device = cpu
-MB.resolve_device = cpu
+MB.resolve_device = CT.resolve_device = RG.resolve_device = cpu
 from vqacl_tpu_torch.ops import _build, fused_attention as fa
 _build.build = lambda names=(), csrc=None: []
 dispatch = fa.fused_attention
@@ -126,6 +129,12 @@ chip_smoke.TRAIN_STEPS = 4
 chip_smoke.DW_PROBE = (64, 16, 24)
 chip_smoke.MM_BENCH_SHAPES = dict(B=2, S=6, D=16, F=24, H=2, dk=8)
 chip_smoke.MM_BENCH_REPS = 2
+chip_smoke.CL_ITEMS = (24, 8, 8)
+chip_smoke.CL_REG_TRAIN = 16
+chip_smoke.CL_IMAGES = 16
+chip_smoke.CL_M_SIZE = 10
+chip_smoke.CL_TINY = (24, 8, 8)
+chip_smoke.CL_TINY_BATCH = 8
 with CudaOnCpu():
     sys.exit(chip_smoke.main())
 """
@@ -175,13 +184,51 @@ def test_chip_smoke_rehearsal_on_cpu():
     k1, k1p, k2, k5 = kernels
     assert k5["replaces"] == "scripts/mm_bench.py:121"
     assert k5["source"] == "vqacl_tpu_torch/csrc/dw_splitk.cu"
+    summary = json.loads(next(l for l in lines if l.startswith("summary "))
+                         [len("summary "):])
+    # phase 7: the ER, EWC and DER++ runs and the tiny run on the card,
+    # each with its launches checked against its steps and batches
+    cl = summary["cl"]
+    assert set(cl) == {"er", "ewc", "derpp"}
+    cl_k = [sum(r["launches"][i] for r in cl.values())
+            + summary["cl_tiny"]["launches"][i] for i in range(3)]
+    for name, run in cl.items():
+        c = run["counts"]
+        steps = c["train_steps"] + c.get("replay_steps", 0)
+        assert run["launches"] == run["expected_launches"] == [
+            2 * (c["predict_batches"] + c.get("capture_batches", 0)),
+            2 * (steps + c.get("importance_batches", 0)),
+            2 * (steps + c.get("importance_batches", 0))], name
+        assert c.get("replay_steps", 0) > 0 and min(run["launches"]) > 0
+        line = next(l for l in lines
+                    if l.startswith(f"cl_{name}: wall shares"))
+        k1_, k1p_, _ = run["launches"]
+        assert f"launches K1={k1_} K1'={k1p_} K2={k1p_} (expected " \
+            f"{k1_}/{k1p_}/{k1p_})" in line
+        assert set(run["wall_share"]) == {"train", "predict", "loader",
+                                          "checkpoint"}
+        assert len(run["task_wall_s"]) == 2
+        assert run["train_step_ms_median"] > 0
+        assert len(run["checkpoint_save_ms"]) == 2
+        assert len(run["losses"]) == steps
+    assert cl["ewc"]["counts"]["importance_batches"] == 2 * 2
+    assert len(cl["ewc"]["importance_batch_ms"]) == 2 * 2
+    assert cl["derpp"]["counts"]["capture_batches"] > 0
+    assert len(cl["derpp"]["capture_batch_ms"]) == \
+        cl["derpp"]["counts"]["capture_batches"]
+    tiny = next(l for l in lines if l.startswith("cl tiny f32 "))
+    assert '"result_matrix": true, "comp": true, "noncomp": true, ' \
+        '"answers": true' in tiny
+    assert summary["cl_tiny"]["loss_rel_err"] <= 1e-5
+    assert min(summary["cl_tiny"]["launches"]) > 0
     # K1: 2 layers x 3 timed eval steps, plus one fused-decoder loss-eval
-    # step (2 encoder + 2 x 2 decoder attentions)
-    assert k1["launches"] == 2 * 3 + 6
+    # step (2 encoder + 2 x 2 decoder attentions), plus the CL loops
+    assert k1["launches"] == 2 * 3 + 6 + cl_k[0]
     assert "fused_attention launches=6 (2/step)" in r.stdout
     # K1'/K2: 4 train steps x 2 encoder layers, and 4 fused-decoder
-    # steps x (2 encoder + 2 x 2 decoder) attentions
-    assert k1p["launches"] == k2["launches"] == 2 * 4 + 6 * 4
+    # steps x (2 encoder + 2 x 2 decoder) attentions, plus the CL loops
+    assert k1p["launches"] == k2["launches"] == 2 * 4 + 6 * 4 + cl_k[1]
+    assert cl_k[1] == cl_k[2]
     assert "train_step: bs 8 bf16" in r.stdout
     assert "launches over 4 steps: K1=0 K1'=8 K2=8" in r.stdout
     assert "launches over 4 steps: K1=0 K1'=24 K2=24" in r.stdout
@@ -200,6 +247,9 @@ def test_chip_smoke_rehearsal_on_cpu():
                for l in checks if "rate=" in l)
     assert all("second launch equal: K1' True, K2 True" in l
                for l in checks if "rate=" in l)
+    # K1 at the DER capture's shape (the train batch), bf16
+    assert sum(l.startswith("kernel_check capture_shape:") and "bfloat16" in l
+               for l in checks) == 1
     # the bf16 routes' edges: K1 once, K1′ and K2 at rates 0 and 0.1
     for name in ("ragged_bf16", "keys128_bf16", "keys300_bf16",
                  "dk128_bf16"):
@@ -225,8 +275,6 @@ def test_chip_smoke_rehearsal_on_cpu():
     assert r.stdout.count("kernel_check dw_") == 6
     assert "mlp_wi dW dw_splitk (CUDA, K5)" in r.stdout
     assert k5["launches"] == 5
-    summary = json.loads(next(l for l in lines if l.startswith("summary "))
-                         [len("summary "):])
     assert set(summary["remat"]) == {"False", "full", "dots"}
     assert len(summary["mm_bench"]) == 12
 

@@ -298,7 +298,10 @@ print("imported", len(mods))
     assert int(r.stdout.split()[-1]) >= 18
     imported = set(r.stdout.split())
     for m in ("train.optim", "train.state", "train.step", "profile_train",
-              "ops.fused_attention", "ops._build", "ops.dw", "mm_bench"):
+              "ops.fused_attention", "ops._build", "ops.dw", "mm_bench",
+              "cl.tasks", "cl.metrics", "cl.exemplar", "cl.regularizers",
+              "cl.trainer", "cl.comp_trainer", "evaluation.vqa_acc",
+              "data.partition", "data.synthetic_module"):
         assert f"vqacl_tpu_torch.{m}" in imported, m
 
 
@@ -319,3 +322,13 @@ def test_entry_points_need_a_device_without_cuda(slice_setup):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         VQAPredictor(s["tc"], from_jax_params(s["params"]), s["tproto"],
                      VLT5Tokenizer(), None)
+    from vqacl_tpu_torch.cl.trainer import VQACLTrainer
+    from vqacl_tpu_torch.data.synthetic_module import SyntheticDataModule
+
+    tok = VLT5Tokenizer()
+    data = SyntheticDataModule(tok, tasks=["q_recognition"],
+                               n_train_per_task=4, n_val_per_task=2,
+                               n_test_per_task=2, feat_dim=16, n_boxes=4)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        VQACLTrainer(s["tc"], data, tok,
+                     init_params=from_jax_params(s["params"]))

@@ -16,8 +16,11 @@ attention runs in ``csrc/fused_attention_fwd.cu``) → prototype retrieval
 encoder attention's forward and backward in ``csrc/fused_attention_fwd.cu``
 and ``csrc/fused_attention_bwd.cu``) → backward → ``train.optim``, with
 the decoder's attention in the same kernels (``fused_decoder``) and block
-recompute (``remat``); and the ``mm_bench`` probe with its weight-gradient
-kernel ``csrc/dw_splitk.cu`` (``ops.dw``).
+recompute (``remat``); the ``mm_bench`` probe with its weight-gradient
+kernel ``csrc/dw_splitk.cu`` (``ops.dw``); and the continual-learning
+loop, ``cl.trainer.VQACLTrainer``/``cl.comp_trainer.CompVQACLTrainer``
+over ``data.partition``'s group loaders and ``data.synthetic_module``,
+with the EWC/MAS (``cl.regularizers``) and DER/DER++ step options.
 """
 
 __version__ = "0.1.0"

@@ -1,0 +1,129 @@
+"""Parameter-importance CL regularizers: EWC and MAS (counterpart of
+``vqacl_tpu/cl/regularizers.py``).
+
+The paper's Table 1 compares VQACL against EWC (Kirkpatrick et al.,
+2017) and MAS (Aljundi et al., 2018); the reference repo implements
+neither, the JAX package supplies both and the port follows it:
+
+- **EWC**: importance = diagonal empirical Fisher, the squared gradient
+  of the task NLL at the task's end, accumulated online across tasks
+  with the latest parameters as anchor ("online EWC"); penalty
+  ``λ/2 Σ_i F_i (θ_i − θ*_i)²``.
+- **MAS**: importance = ``E |∂/∂θ ‖f(x;θ)‖₂²|``, the gradient magnitude
+  of the squared L2 norm of the model's output logits (label-free),
+  with the same online accumulation and penalty form.
+
+``RegState`` holds f32 trees shaped like the parameters, on their
+device. The importance pass differentiates the retrieval-only forward
+at dropout 0, so the encoder attention runs through the training
+kernels (K1′ at rate 0, then K2); the accumulator adds in place. The
+penalty is differentiated inside the train step
+(``train/step.py::make_train_step(reg_lambda=…)``).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, NamedTuple
+
+import torch
+
+from vqacl_tpu_torch.models import vlt5
+from vqacl_tpu_torch.models.prototype import ProtoState
+from vqacl_tpu_torch.train.optim import tree_leaves, tree_map
+from vqacl_tpu_torch.utils.device import resolve_device
+
+KINDS = ("ewc", "mas")
+
+
+class RegState(NamedTuple):
+    """Importance weights + anchor parameters (both parameter-shaped f32
+    trees). ``omega`` starts at zeros, so the penalty is exactly 0 until
+    the first consolidation: task 0 trains unregularized."""
+
+    omega: Any
+    anchor: Any
+
+
+def _anchor_copy(params) -> Any:
+    """An f32 COPY of the parameters, never an alias: the train step
+    replaces ``state.params`` each step, and an anchor must keep the
+    values it was taken at."""
+    return tree_map(lambda p: p.detach().to(torch.float32, copy=True), params)
+
+
+def init_reg_state(params) -> RegState:
+    """Zero importance, the current parameters as the (inert) anchor."""
+    f32 = _anchor_copy(params)
+    return RegState(omega=tree_map(torch.zeros_like, f32), anchor=f32)
+
+
+def penalty(params, reg: RegState) -> torch.Tensor:
+    """``Σ_i ω_i (θ_i − θ*_i)²`` in f32 over every leaf (the λ/2 scaling
+    lives in the caller); differentiable in ``params``."""
+    total = torch.zeros((), dtype=torch.float32,
+                        device=tree_leaves(params)[0].device)
+    for p, w, a in zip(tree_leaves(params), tree_leaves(reg.omega),
+                       tree_leaves(reg.anchor)):
+        total = total + torch.sum(w * (p.float() - a) ** 2)
+    return total
+
+
+def make_importance_step(cfg, kind: str, dtype=torch.bfloat16,
+                         device="cuda") -> Callable:
+    """Returns ``(acc, params, proto, batch) -> acc`` adding one batch's
+    importance estimate into ``acc`` (an f32 parameter-shaped tree on the
+    device) in place.
+
+    The forward is the retrieval-only eval graph (the prototype banks
+    are NOT updated: importance estimation must not change the training
+    state), deterministic. EWC differentiates the task's weighted NLL
+    (empirical Fisher); MAS differentiates the squared L2 norm of the
+    valid-token logits. ``batch`` holds input_ids, vis_feats, boxes,
+    target_ids and scores as numpy arrays or tensors."""
+    if kind not in KINDS:
+        raise ValueError(f"unknown regularizer {kind!r}; pick from {KINDS}")
+    from vqacl_tpu_torch.train.step import _TRAIN_KEYS, _to_device
+
+    dev = resolve_device(device)
+    mcfg = cfg.model
+
+    def objective(params, proto: ProtoState, b: Dict) -> torch.Tensor:
+        hidden, enc_mask = vlt5.encode(params, mcfg, b["input_ids"],
+                                       b["vis_feats"], b["boxes"],
+                                       dtype=dtype)
+        if mcfg.use_prototype:
+            hidden, enc_mask, _, _ = vlt5.augment(mcfg, hidden, enc_mask,
+                                                  proto)
+        logits = vlt5.decode_train(params, mcfg, hidden, enc_mask,
+                                   b["target_ids"], dtype=dtype)
+        if kind == "ewc":
+            return vlt5.weighted_lm_loss(logits, b["target_ids"],
+                                         b["scores"])
+        mask = (b["target_ids"] != -100).float()
+        sq = torch.sum(logits.float() ** 2, dim=-1)               # [B,T]
+        return torch.sum(sq * mask) / mask.sum().clamp_min(1.0)
+
+    def step(acc, params, proto: ProtoState, batch: Dict):
+        b = _to_device(batch, _TRAIN_KEYS, dev)
+        live = tree_map(lambda p: p.detach().requires_grad_(), params)
+        leaves = tree_leaves(live)
+        grads = torch.autograd.grad(objective(live, proto, b), leaves,
+                                    allow_unused=True)
+        with torch.no_grad():
+            for a, g in zip(tree_leaves(acc), grads):
+                if g is None:
+                    continue
+                g = g.float()
+                a.add_(g * g if kind == "ewc" else g.abs())
+        return acc
+
+    return step
+
+
+def consolidate(reg: RegState, params, acc, n_batches: int) -> RegState:
+    """End-of-task update: ``ω += mean_batch(importance)``, anchor = the
+    just-trained parameters (online EWC/MAS: one ω/θ* pair covers all
+    past tasks, constant memory in the task count)."""
+    inv = 1.0 / max(int(n_batches), 1)
+    omega = tree_map(lambda w, a: w + a * inv, reg.omega, acc)
+    return RegState(omega=omega, anchor=_anchor_copy(params))

@@ -10,6 +10,7 @@ path sees one set of shapes. Produces numpy arrays:
   scores      [B]      float32
   ques_labels [B, n_ques_types]  float32 one-hot
   cate_labels [B, n_categories]  float32 one-hot
+  der_logits  [B, T, V] float16 (DER replay examples only)
 plus host-side metadata (question_ids, sents, answers, n_real).
 """
 
@@ -31,7 +32,7 @@ def collate(examples: Sequence[Dict[str, Any]],
             with_targets: bool = True) -> Dict[str, Any]:
     """examples: dicts with input_ids (list[int]), vis_feats [N,feat_dim],
     boxes [N,4], ques_label (int), cate_label (int), and optionally
-    target_ids, score, question_id, sent, answers."""
+    target_ids, score, question_id, sent, answers, der_logits [T,V]."""
     B = len(examples)
     Bp = pad_to_batch or B
     L, N, T = max_text_length, n_boxes, target_max_length
@@ -43,6 +44,13 @@ def collate(examples: Sequence[Dict[str, Any]],
     ques_labels = np.zeros((Bp, n_ques_types), np.float32)
     cate_labels = np.zeros((Bp, n_categories), np.float32)
     target_ids = np.full((Bp, T), -100, np.int32) if with_targets else None
+    # DER replay batches carry the logits stored at buffer-insert time
+    # (cl/trainer.py::_der_capture), f16 on the host. Pad rows stay zero:
+    # their targets are all -100, so the loss masks them.
+    der_logits = None
+    if B > 0 and with_targets and "der_logits" in examples[0]:
+        V = int(np.asarray(examples[0]["der_logits"]).shape[-1])
+        der_logits = np.zeros((Bp, T, V), np.float16)
 
     question_ids, sents, answers = [], [], []
     for i, ex in enumerate(examples):
@@ -54,6 +62,9 @@ def collate(examples: Sequence[Dict[str, Any]],
             t = ex["target_ids"][:T]
             target_ids[i, :len(t)] = t
             scores[i] = ex.get("score", 1.0)
+        if der_logits is not None:
+            z = np.asarray(ex["der_logits"], np.float16)
+            der_logits[i, :z.shape[0]] = z[:T]
         ques_labels[i, ex["ques_label"]] = 1.0
         cate_labels[i, ex["cate_label"]] = 1.0
         question_ids.append(ex.get("question_id", i))
@@ -70,6 +81,8 @@ def collate(examples: Sequence[Dict[str, Any]],
     }
     if with_targets:
         batch["target_ids"] = target_ids
+    if der_logits is not None:
+        batch["der_logits"] = der_logits
     meta = {"question_ids": question_ids, "sents": sents,
             "answers": answers, "n_real": B}
     return {"tensors": batch, "meta": meta}

@@ -1,15 +1,20 @@
 """Checkpoint save/load on ``vqacl_tpu``'s ``.npz`` format.
 
 One archive holds the parameters (flattened pytree paths joined with
-``::`` under ``params::``), the prototype state (``proto::<field>``) and
-the step (``meta::step``), so the port serves a checkpoint the JAX
-package wrote and the JAX package loads one the port wrote.
+``::`` under ``params::``), the prototype state (``proto::<field>``), the
+step (``meta::step``) and any ``extra::<name>`` arrays, so the port
+serves a checkpoint the JAX package wrote and the JAX package loads one
+the port wrote. ``AsyncCheckpointer`` writes in a background thread;
+``load_reference_prototypes`` reads the reference run's loose prototype
+banks.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, Tuple
+import threading
+import time
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -45,20 +50,78 @@ def _npz_path(path: str) -> str:
     return path if path.endswith(".npz") else path + ".npz"
 
 
-def save_checkpoint(path: str, params: Any, proto: ProtoState,
-                    step: int = 0) -> None:
-    """Write ``<path>.npz`` through a temp file and ``os.replace``, so a
-    crash mid-write never leaves a truncated archive."""
+def _build_flat(params: Any, proto: ProtoState, step: int,
+                extra: Optional[Dict[str, np.ndarray]]
+                ) -> Dict[str, np.ndarray]:
+    """The archive's arrays, all on the host (device tensors are copied
+    here, on the calling thread)."""
     flat = _flatten({"params": to_jax_params(params)})
     for value, name in zip(proto, proto._fields):
         flat[f"proto{SEP}{name}"] = value.detach().cpu().numpy()
     flat[f"meta{SEP}step"] = np.asarray(step)
+    for k, v in (extra or {}).items():
+        flat[f"extra{SEP}{k}"] = np.asarray(v)
+    return flat
+
+
+def _atomic_savez(path: str, flat: Dict[str, np.ndarray]) -> None:
+    """Write ``<path>.npz`` through a temp file and ``os.replace``, so a
+    crash mid-write never leaves a truncated archive."""
     path = _npz_path(path)
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:
         np.savez(f, **flat)
     os.replace(tmp, path)
+
+
+def save_checkpoint(path: str, params: Any, proto: ProtoState,
+                    step: int = 0,
+                    extra: Optional[Dict[str, np.ndarray]] = None) -> None:
+    _atomic_savez(path, _build_flat(params, proto, step, extra))
+
+
+class AsyncCheckpointer:
+    """Background checkpoint writer: the serialization and disk write
+    overlap whatever the trainer does next (the per-task test matrix).
+
+    ``save()`` copies every tensor to host numpy arrays on the calling
+    thread, then hands them to a writer thread that makes the same atomic
+    write as :func:`save_checkpoint`; the writer never touches a device
+    tensor, and a later train step cannot change what it writes. One
+    write is in flight at a time; ``wait()`` joins it and re-raises the
+    writer's exception. ``write_s`` sums the writer threads' seconds."""
+
+    def __init__(self) -> None:
+        self._thread: Optional[threading.Thread] = None
+        self._err: Optional[BaseException] = None
+        self.write_s = 0.0
+
+    def save(self, path: str, params: Any, proto: ProtoState,
+             step: int = 0,
+             extra: Optional[Dict[str, np.ndarray]] = None) -> None:
+        self.wait()
+        flat = _build_flat(params, proto, step, extra)
+
+        def _write() -> None:
+            t0 = time.perf_counter()
+            try:
+                _atomic_savez(path, flat)
+            except BaseException as e:     # surfaced by the next wait()
+                self._err = e
+            self.write_s += time.perf_counter() - t0
+
+        self._thread = threading.Thread(target=_write, daemon=True,
+                                        name="ckpt-writer")
+        self._thread.start()
+
+    def wait(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._err is not None:
+            err, self._err = self._err, None
+            raise err
 
 
 def load_checkpoint(path: str, device="cpu"
@@ -75,3 +138,21 @@ def load_checkpoint(path: str, device="cpu"
                           .to(device) for name in ProtoState._fields})
     step = int(flat.get(f"meta{SEP}step", np.asarray(0)))
     return from_jax_params(params, device=device), proto, step
+
+
+def load_reference_prototypes(proto: ProtoState, q_path: str,
+                              v_path: str) -> ProtoState:
+    """Reference-trained prototype banks (``Q_prototype.pt`` /
+    ``V_prototype.pt``, plain ``torch.save``-d tensors, vqacl.py:420-426)
+    in place of ``proto``'s, on its device and dtype: the eval-only load
+    of vqacl.py:540-542. The EMA bookkeeping fields are untouched (the
+    reference does not save them; they matter only in training)."""
+    def bank(path, like, name):
+        t = torch.load(path, map_location="cpu").detach()
+        if tuple(t.shape) != tuple(like.shape):
+            raise ValueError(f"{name} bank shape {tuple(t.shape)} != "
+                             f"expected {tuple(like.shape)} ({path})")
+        return t.to(device=like.device, dtype=like.dtype)
+
+    return proto._replace(q_proto=bank(q_path, proto.q_proto, "Q_prototype"),
+                          v_proto=bank(v_path, proto.v_proto, "V_prototype"))

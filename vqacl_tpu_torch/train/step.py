@@ -2,10 +2,13 @@
 
 ``make_train_step``: forward (encode with dropout through the fused
 attention kernels K1′/K2 → prototype EMA update + retrieval → teacher-
-forced decoder → fused head loss) → backward → clip → AdamW direction →
-decoupled decay → warmup schedule, run eagerly. Metrics stay on the
-device, so a step never waits for the card unless its caller reads one.
+forced decoder → fused head loss [+ the EWC/MAS anchor penalty]) →
+backward → clip → AdamW direction → decoupled decay → warmup schedule,
+run eagerly. Metrics stay on the device, so a step never waits for the
+card unless its caller reads one.
 
+``make_der_replay_step``: the same update on the DER/DER++ replay loss.
+``make_logits_step``: teacher-forced logits (the DER capture pass).
 ``make_eval_step``: encode once (K1) → prototype retrieval without
 update → greedy decode. ``make_loss_eval_step``: the teacher-forced
 validation loss with retrieval-only prototypes (with
@@ -19,6 +22,7 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from vqacl_tpu_torch.cl.regularizers import penalty
 from vqacl_tpu_torch.models import vlt5
 from vqacl_tpu_torch.models.generate import greedy_decode
 from vqacl_tpu_torch.models.prototype import ProtoState
@@ -44,11 +48,38 @@ def _to_device(batch: Dict, keys, dev: torch.device) -> Dict:
     return out
 
 
+def _grads_of(loss_fn: Callable, params) -> Tuple[torch.Tensor, object, Dict]:
+    """``loss_fn(live params) -> (loss, aux)`` differentiated in every
+    parameter (zeros where it does not reach) → (loss, aux, grads)."""
+    live = tree_map(lambda p: p.detach().requires_grad_(), params)
+    loss, aux = loss_fn(live)
+    leaves = tree_leaves(live)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = tree_unflatten(params, [
+        torch.zeros_like(p) if g is None else g
+        for p, g in zip(leaves, grads)])
+    return loss.detach(), aux, grads
+
+
+def _apply_update(tx, tcfg, state: TrainState, grads, proto: ProtoState
+                  ) -> Tuple[TrainState, torch.Tensor, torch.Tensor]:
+    """The optimizer half of a step: AdamW direction, lr from the
+    schedule, ``p − lr·u`` → (new state, lr, grad norm)."""
+    with torch.no_grad():
+        updates, opt_state = tx.update(grads, state.opt_state, state.params)
+        lr = dynamic_lr(state.step.float(), state.sched, tcfg.lr,
+                        tcfg.schedule)
+        params = tree_map(lambda p, u: p - lr * u, state.params, updates)
+        gnorm = global_norm(grads)
+    return state._replace(step=state.step + 1, params=params,
+                          opt_state=opt_state, proto=proto), lr, gnorm
+
+
 def make_train_step(cfg, dtype=torch.bfloat16, device="cuda",
                     use_prototype: Optional[bool] = None,
                     use_memory_loss: bool = False,
-                    remat=False) -> Callable:
-    """Returns ``(state, batch) -> (state, metrics)``.
+                    remat=False, reg_lambda: float = 0.0) -> Callable:
+    """Returns ``(state, batch, reg=None) -> (state, metrics)``.
 
     ``state`` is a ``TrainState`` on ``device`` (made with the transform
     ``make_transform(cfg.train)``); batch: input_ids [B,L] int32,
@@ -61,7 +92,10 @@ def make_train_step(cfg, dtype=torch.bfloat16, device="cuda",
     and the grads are averaged. ``remat`` (False, True/"full", "dots")
     recomputes the encoder and decoder blocks in the backward pass
     (``t5.maybe_checkpoint``): the same loss, gradients and generator
-    state, less activation memory."""
+    state, less activation memory. A ``reg``
+    (``cl.regularizers.RegState``) adds the EWC/MAS anchor penalty
+    ``reg_lambda/2 · Σ ω (θ−θ*)²`` to every microbatch's loss (and so to
+    the ``loss`` metric), differentiated with it."""
     dev = resolve_device(device)
     mcfg, tcfg = cfg.model, cfg.train
     if use_prototype is None:
@@ -69,23 +103,24 @@ def make_train_step(cfg, dtype=torch.bfloat16, device="cuda",
     tx = make_transform(tcfg)
     accum = int(tcfg.grad_accum)
 
-    def loss_and_grads(params, proto, batch, generator):
-        live = tree_map(lambda p: p.detach().requires_grad_(), params)
-        out = vlt5.forward_train(
-            live, mcfg, batch, proto,
-            proto_alpha=tcfg.proto_alpha, proto_beta=tcfg.proto_beta,
-            use_prototype=use_prototype, use_memory_loss=use_memory_loss,
-            lambda_q=tcfg.lambda_Q, lambda_v=tcfg.lambda_V,
-            generator=generator, dtype=dtype, remat=remat)
-        leaves = tree_leaves(live)
-        grads = torch.autograd.grad(out.loss, leaves, allow_unused=True)
-        grads = tree_unflatten(params, [
-            torch.zeros_like(p) if g is None else g
-            for p, g in zip(leaves, grads)])
-        aux = tuple(a.detach() for a in out.aux)
-        return out.loss.detach(), out.proto_state, aux, grads
+    def loss_and_grads(params, proto, batch, generator, reg):
+        def loss_fn(live):
+            out = vlt5.forward_train(
+                live, mcfg, batch, proto,
+                proto_alpha=tcfg.proto_alpha, proto_beta=tcfg.proto_beta,
+                use_prototype=use_prototype, use_memory_loss=use_memory_loss,
+                lambda_q=tcfg.lambda_Q, lambda_v=tcfg.lambda_V,
+                generator=generator, dtype=dtype, remat=remat)
+            loss = out.loss
+            if reg is not None:
+                loss = loss + 0.5 * reg_lambda * penalty(live, reg)
+            return loss, out
 
-    def accum_grads(state, batch):
+        loss, out, grads = _grads_of(loss_fn, params)
+        aux = tuple(a.detach() for a in out.aux)
+        return loss, out.proto_state, aux, grads
+
+    def accum_grads(state, batch, reg):
         B = next(iter(batch.values())).shape[0]
         if B % accum:
             raise ValueError(f"batch size {B} not divisible by "
@@ -97,7 +132,7 @@ def make_train_step(cfg, dtype=torch.bfloat16, device="cuda",
         for i in range(accum):
             part = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
             loss, proto, aux, g = loss_and_grads(state.params, proto, part,
-                                                 state.generator)
+                                                 state.generator, reg)
             gsum = tree_map(torch.add, gsum, g)
             losses.append(loss)
             auxes.append(aux)
@@ -105,23 +140,15 @@ def make_train_step(cfg, dtype=torch.bfloat16, device="cuda",
         aux = tuple(torch.stack(a).mean() for a in zip(*auxes))
         return torch.stack(losses).mean(), proto, aux, grads
 
-    def train_step(state: TrainState, batch: Dict
+    def train_step(state: TrainState, batch: Dict, reg=None
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         batch = _to_device(batch, _TRAIN_KEYS, dev)
         if accum > 1:
-            loss, proto, aux, grads = accum_grads(state, batch)
+            loss, proto, aux, grads = accum_grads(state, batch, reg)
         else:
             loss, proto, aux, grads = loss_and_grads(
-                state.params, state.proto, batch, state.generator)
-        with torch.no_grad():
-            updates, opt_state = tx.update(grads, state.opt_state,
-                                           state.params)
-            lr = dynamic_lr(state.step.float(), state.sched, tcfg.lr,
-                            tcfg.schedule)
-            params = tree_map(lambda p, u: p - lr * u, state.params, updates)
-            gnorm = global_norm(grads)
-        new_state = state._replace(step=state.step + 1, params=params,
-                                   opt_state=opt_state, proto=proto)
+                state.params, state.proto, batch, state.generator, reg)
+        new_state, lr, gnorm = _apply_update(tx, tcfg, state, grads, proto)
         metrics = {
             "loss": loss, "grad_norm": gnorm, "lr": lr,
             "loss_memory_Q": aux[0], "loss_memory_V": aux[1],
@@ -130,6 +157,96 @@ def make_train_step(cfg, dtype=torch.bfloat16, device="cuda",
         return new_state, metrics
 
     return train_step
+
+
+def make_der_replay_step(cfg, dtype=torch.bfloat16, device="cuda",
+                         use_prototype: Optional[bool] = None,
+                         remat=False) -> Callable:
+    """Dark-Experience-Replay step (Buzzega et al. 2020) for memory
+    batches, ``(state, batch) -> (state, metrics)``; a Table-1 comparison
+    method the reference repo does not implement (its replay is plain
+    ER, a second CE step, vqacl.py:371-373).
+
+    The batch carries ``der_logits`` [B,T,V] f16: the model's
+    teacher-forced logits captured when each exemplar entered the
+    buffer, with the teacher-forcing targets pinned at capture time
+    (data/partition.py). Loss = α·MSE(current logits, stored logits)
+    over valid target positions (α = ``train.reg_lambda``); DER++
+    (``cl_reg='derpp'``) adds β·CE on the replay ground truth
+    (β = ``train.der_beta``). The optimizer, clip and schedule are
+    ``make_train_step``'s, and the prototype banks update as in a normal
+    replay step. Metrics: loss, der_mse, grad_norm, lr."""
+    dev = resolve_device(device)
+    mcfg, tcfg = cfg.model, cfg.train
+    alpha = float(tcfg.reg_lambda)
+    beta = float(tcfg.der_beta) if tcfg.cl_reg == "derpp" else 0.0
+    if use_prototype is None:
+        use_prototype = mcfg.use_prototype
+    tx = make_transform(tcfg)
+
+    def der_step(state: TrainState, batch: Dict
+                 ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        b = _to_device(batch, _TRAIN_KEYS + ("der_logits",), dev)
+        gen = state.generator
+
+        def loss_fn(live):
+            hidden, enc_mask = vlt5.encode(
+                live, mcfg, b["input_ids"], b["vis_feats"], b["boxes"],
+                dtype=dtype, generator=gen, remat=remat)
+            proto = state.proto
+            if use_prototype:
+                hidden, enc_mask, proto, _ = vlt5.augment(
+                    mcfg, hidden, enc_mask, proto,
+                    ques_labels=b["ques_labels"],
+                    cate_labels=b["cate_labels"], proto_update_flag=True,
+                    proto_alpha=tcfg.proto_alpha, proto_beta=tcfg.proto_beta)
+            logits = vlt5.decode_train(live, mcfg, hidden, enc_mask,
+                                       b["target_ids"], generator=gen,
+                                       dtype=dtype, remat=remat)
+            mask = (b["target_ids"] != -100).float()                # [B,T]
+            se = torch.mean((logits.float() - b["der_logits"].float()) ** 2,
+                            dim=-1)
+            mse = torch.sum(se * mask) / mask.sum().clamp_min(1.0)
+            loss = alpha * mse
+            if beta > 0.0:
+                loss = loss + beta * vlt5.weighted_lm_loss(
+                    logits, b["target_ids"], b["scores"])
+            return loss, (proto, mse.detach())
+
+        loss, (proto, mse), grads = _grads_of(loss_fn, state.params)
+        new_state, lr, gnorm = _apply_update(tx, tcfg, state, grads, proto)
+        return new_state, {"loss": loss, "der_mse": mse, "grad_norm": gnorm,
+                           "lr": lr}
+
+    return der_step
+
+
+def make_logits_step(cfg, dtype=torch.bfloat16, device="cuda",
+                     use_prototype: Optional[bool] = None) -> Callable:
+    """Teacher-forced logits ``(params, proto, batch) -> [B,T,V] f32`` on
+    ``device``, with retrieval-only prototypes, deterministic and without
+    grad (the encoder attention runs K1): the DER capture pass
+    (cl/trainer.py::_der_capture) that snapshots each exemplar's logits
+    as it enters the replay buffer."""
+    dev = resolve_device(device)
+    mcfg = cfg.model
+    if use_prototype is None:
+        use_prototype = mcfg.use_prototype
+
+    @torch.no_grad()
+    def logits_step(params: Dict, proto: ProtoState, batch: Dict
+                    ) -> torch.Tensor:
+        b = _to_device(batch, _BATCH_KEYS + ("target_ids",), dev)
+        hidden, enc_mask = vlt5.encode(params, mcfg, b["input_ids"],
+                                       b["vis_feats"], b["boxes"],
+                                       dtype=dtype)
+        if use_prototype:
+            hidden, enc_mask, _, _ = vlt5.augment(mcfg, hidden, enc_mask,
+                                                  proto)
+        return vlt5.decode_train(params, mcfg, hidden, enc_mask,
+                                 b["target_ids"], dtype=dtype)
+
+    return logits_step
 
 
 def make_eval_step(cfg, dtype=torch.bfloat16, device="cuda") -> Callable:

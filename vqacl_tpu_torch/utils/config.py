@@ -1,11 +1,12 @@
-"""Run configuration for the serving and training paths.
+"""Run configuration for the serving, training and continual-learning
+paths.
 
 Counterpart of ``vqacl_tpu/utils/config.py``, cut to the fields the
 ported paths read. The defaults are the JAX package's: the same t5-base
-geometry and the same optimisation hyperparameters. There is no yaml
+geometry, optimisation hyperparameters and CL protocol. There is no yaml
 round-trip here, so the module needs nothing beyond the standard
-library, and no TPU mesh knobs. Block recompute (the JAX
-``MeshConfig.remat``) is the ``remat`` argument of ``make_train_step``.
+library. Block recompute is the ``remat`` argument of
+``make_train_step``; the CL trainer passes ``MeshConfig.remat``.
 """
 
 from __future__ import annotations
@@ -93,12 +94,52 @@ class TrainConfig:
     lambda_Q: float = 0.01           # memory-loss weights
     lambda_V: float = 0.1
     use_memory_loss: bool = False
+    # --- the continual-learning loop (cl/trainer.py) ---
+    epochs: int = 3
+    seed: int = 66666                # group order, exemplars, dropout
+    memory: bool = True              # experience replay on
+    m_size: int = 5000               # replay buffer size M
+    comp_cate: str = "G-1"           # held-out category group ("G-1" = none)
+    # "none" | "ewc" | "mas" (cl/regularizers.py) | "der" | "derpp"
+    # (train/step.py::make_der_replay_step)
+    cl_reg: str = "none"
+    reg_lambda: float = 1.0          # penalty weight λ (EWC/MAS) / α (DER)
+    fisher_batches: int = 40         # importance-estimation batches/task
+    der_beta: float = 0.5            # DER++ CE weight β (derpp only)
+
+
+@dataclass
+class MeshConfig:
+    """Placement. ``remat`` is the train steps' block recompute (False,
+    True/"full", "dots"). The port runs on one device: ``dp``, ``tp``,
+    ``pp`` and ``param_layout`` are placeholders with the JAX package's
+    defaults, read only by the trainer to refuse any other value, until
+    the parallel slice gives them their behaviour."""
+
+    dp: int = -1                     # -1: all devices (here: one)
+    tp: int = 1
+    pp: int = 1
+    remat: object = False
+    param_layout: str = "replicated"
+
+
+@dataclass
+class DataConfig:
+    """Loader policy. ``device_cache`` (the whole feature table on the
+    device) is a placeholder: the trainer refuses it until the device
+    feature cache is ported."""
+
+    n_workers: int = 4               # loader threads per BatchLoader
+    device_cache: bool = False
 
 
 @dataclass
 class Config:
     model: ModelConfig = field(default_factory=ModelConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+    data: DataConfig = field(default_factory=DataConfig)
+    output: str = "snap/vqacl"
 
 
 def tiny_model_config(**overrides) -> ModelConfig:
