@@ -13,8 +13,10 @@ the plain and with the fused decoder, per loss-eval step, per remat
 mode, per served batch and in the probe, the kernels JSON line with all
 its keys, the card line and the final verdict line; in phase 7 the CL
 runs it makes (ER, EWC, DER++ and the tiny card-vs-CPU run) and each
-one's K1/K1′/K2 launches against its steps and batches — and that
-without CUDA the real script prints no result and exits non-zero.
+one's K1/K1′/K2 launches against its steps and batches; in phase 8 the
+beam, device-cache, cached-CL, HTTP and pack checks and their launches,
+at a cache of a few hundred images — and that without CUDA the real
+script prints no result and exits non-zero.
 """
 
 import json
@@ -76,8 +78,10 @@ import vqacl_tpu_torch.models.vlt5 as V, vqacl_tpu_torch.serve as SV
 import vqacl_tpu_torch.train.step as ST
 import vqacl_tpu_torch.mm_bench as MB
 import vqacl_tpu_torch.cl.trainer as CT, vqacl_tpu_torch.cl.regularizers as RG
+import vqacl_tpu_torch.data.device_cache as DC
 D.resolve_device = V.resolve_device = SV.resolve_device = ST.resolve_device = cpu
 MB.resolve_device = CT.resolve_device = RG.resolve_device = cpu
+DC.resolve_device = cpu
 from vqacl_tpu_torch.ops import _build, fused_attention as fa
 _build.build = lambda names=(), csrc=None: []
 dispatch = fa.fused_attention
@@ -135,6 +139,8 @@ chip_smoke.CL_IMAGES = 16
 chip_smoke.CL_M_SIZE = 10
 chip_smoke.CL_TINY = (24, 8, 8)
 chip_smoke.CL_TINY_BATCH = 8
+chip_smoke.CACHE_IMAGES = 300
+chip_smoke.PACK_IMAGES = 24
 with CudaOnCpu():
     sys.exit(chip_smoke.main())
 """
@@ -221,13 +227,25 @@ def test_chip_smoke_rehearsal_on_cpu():
         '"answers": true' in tiny
     assert summary["cl_tiny"]["loss_rel_err"] <= 1e-5
     assert min(summary["cl_tiny"]["launches"]) > 0
+    # phase 8: the beam, cached, HTTP and pack runs and the cached CL runs
+    p8 = summary["serving_extras"]
+    p8_k = summary["serving_extras_launches"]
+    ext_cl = [p8["cl_er_cached"]["launches"][i]
+              + p8["cl_er_host"]["launches"][i]
+              + p8["cl_tiny_int8_cache"]["launches"][i] for i in range(3)]
+    # K1: 3 beam steps, one cached eval step, the HTTP batches and the
+    # pack predictor's two batches, 2 layers each
+    assert p8_k[0] == 2 * (3 + 1 + p8["http"]["batches"] + 2) + ext_cl[0]
+    # K1'/K2: one cached train step of 2 layers
+    assert p8_k[1] == p8_k[2] == 2 + ext_cl[1]
     # K1: 2 layers x 3 timed eval steps, plus one fused-decoder loss-eval
     # step (2 encoder + 2 x 2 decoder attentions), plus the CL loops
-    assert k1["launches"] == 2 * 3 + 6 + cl_k[0]
+    assert k1["launches"] == 2 * 3 + 6 + cl_k[0] + p8_k[0]
     assert "fused_attention launches=6 (2/step)" in r.stdout
     # K1'/K2: 4 train steps x 2 encoder layers, and 4 fused-decoder
     # steps x (2 encoder + 2 x 2 decoder) attentions, plus the CL loops
-    assert k1p["launches"] == k2["launches"] == 2 * 4 + 6 * 4 + cl_k[1]
+    assert k1p["launches"] == k2["launches"] == 2 * 4 + 6 * 4 + cl_k[1] \
+        + p8_k[1]
     assert cl_k[1] == cl_k[2]
     assert "train_step: bs 8 bf16" in r.stdout
     assert "launches over 4 steps: K1=0 K1'=8 K2=8" in r.stdout
@@ -277,6 +295,44 @@ def test_chip_smoke_rehearsal_on_cpu():
     assert k5["launches"] == 5
     assert set(summary["remat"]) == {"False", "full", "dots"}
     assert len(summary["mm_bench"]) == 12
+    # phase 8
+    assert "beam: bs 4 x 5 beams bf16 eval_step_ms=" in r.stdout
+    assert "launches over 3 steps: K1=6 K1'=0 K2=0" in r.stdout
+    assert len(p8["beam"]["eval_step_ms"]) == 3
+    assert p8["beam"]["min_logp_gap"] >= -1e-3
+    assert all(p8["tiny_card_equals_cpu"].values())
+    assert len(p8["tiny_card_equals_cpu"]) == 5
+    assert "bf16 table == features rounded to bf16, bit for bit: True" \
+        in r.stdout
+    assert "slot -1 and out of range give zeros: True" in r.stdout
+    assert p8["cache"]["eval_tokens_equal"]
+    assert p8["cache"]["train_loss_rel"] <= 1e-6
+    assert p8["cache"]["int8_worst_err_over_scale"] <= 0.5 + 2e-5
+    h2d = p8["cache"]["h2d_bytes"]
+    assert h2d["eval_cached"] == 4 * 20 * 4 + 4 * 4
+    assert h2d["eval_host"] - h2d["eval_cached"] == 4 * 36 * (2048 + 4) * 4 \
+        - 4 * 4
+    assert h2d["train_host"] - h2d["train_cached"] == \
+        8 * 36 * (2048 + 4) * 4 - 8 * 4
+    er = p8["cl_er_cached"]
+    assert er["launches"] == er["expected_launches"] and min(
+        er["launches"]) > 0 and er["counts"]["replay_steps"] > 0
+    assert p8["cl_er_host"]["launches"] == er["launches"]
+    assert "cl_er_cached: phase 7's ER run, data.device_cache=True" \
+        in r.stdout
+    assert "cl_er cached vs host: " in r.stdout
+    assert "objects tracked by gc" in r.stdout
+    tiny8 = p8["cl_tiny_int8_cache"]
+    assert all(tiny8["equal"].values()) and tiny8["loss_rel_err"] <= 1e-5
+    assert min(tiny8["launches"]) > 0
+    http = p8["http"]
+    assert http["stats"]["errors"] == 0
+    assert http["stats"]["requests"] == 16 * 3 + 8 + 1
+    assert "answers == predictor.answer: True" in r.stdout
+    assert "predictor over the pack answers as over the memory store: " \
+        "True" in r.stdout
+    assert not os.path.exists(os.path.join(REPO, "build", "chip_smoke",
+                                           "phase8.vfpack"))
 
 
 def test_chip_smoke_without_cuda_prints_no_result():

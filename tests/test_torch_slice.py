@@ -273,12 +273,12 @@ def test_tokenizer_and_collate_match_jax():
 
 
 def test_port_imports_nothing_of_jax():
-    """Every module of the port, and chip_smoke.py, imports with ``jax``
-    and ``vqacl_tpu`` blocked (a None entry in sys.modules makes any
-    import of them raise)."""
+    """Every module of the port, and chip_smoke.py, imports with ``jax``,
+    ``vqacl_tpu``, ``h5py`` and ``ml_dtypes`` blocked (a None entry in
+    sys.modules makes any import of them raise)."""
     code = r"""
 import importlib, pkgutil, runpy, sys
-for name in ("jax", "jaxlib", "vqacl_tpu"):
+for name in ("jax", "jaxlib", "vqacl_tpu", "h5py", "ml_dtypes"):
     sys.modules[name] = None
 import vqacl_tpu_torch
 mods = [m.name for m in pkgutil.walk_packages(vqacl_tpu_torch.__path__,
@@ -301,7 +301,8 @@ print("imported", len(mods))
               "ops.fused_attention", "ops._build", "ops.dw", "mm_bench",
               "cl.tasks", "cl.metrics", "cl.exemplar", "cl.regularizers",
               "cl.trainer", "cl.comp_trainer", "evaluation.vqa_acc",
-              "data.partition", "data.synthetic_module"):
+              "data.partition", "data.synthetic_module", "cli.serve_http",
+              "data.device_cache", "data.packed_cache"):
         assert f"vqacl_tpu_torch.{m}" in imported, m
 
 

@@ -20,7 +20,11 @@ recompute (``remat``); the ``mm_bench`` probe with its weight-gradient
 kernel ``csrc/dw_splitk.cu`` (``ops.dw``); and the continual-learning
 loop, ``cl.trainer.VQACLTrainer``/``cl.comp_trainer.CompVQACLTrainer``
 over ``data.partition``'s group loaders and ``data.synthetic_module``,
-with the EWC/MAS (``cl.regularizers``) and DER/DER++ step options.
+with the EWC/MAS (``cl.regularizers``) and DER/DER++ step options; and
+the serving extras: ``models.generate.beam_search``, the device feature
+cache ``data.device_cache`` (serving and the loop), the HTTP front end
+``cli.serve_http`` and the host feature stores (``data.features``' h5
+store, ``data.packed_cache`` over the host C++ ``native/``).
 """
 
 __version__ = "0.1.0"

@@ -45,7 +45,8 @@ class CompVQACLTrainer(VQACLTrainer):
 
     def _group_test_loaders(self, task: str, task_idx: int):
         if task not in self._test_group_loaders:
-            ds = self.data.dataset(task, "test", task_idx=task_idx)
+            ds = self._slotify(self.data.dataset(task, "test",
+                                                 task_idx=task_idx))
             self._test_group_loaders[task] = group_loaders(
                 ds, self.cfg.train.valid_batch_size, shuffle=False,
                 with_targets=False, collate_kw=self._ck(),

@@ -26,10 +26,17 @@ With ``cl_reg`` "ewc"/"mas" the train step carries the anchor penalty and
 each task ends with an importance pass; with "der"/"derpp" replay batches
 distill against logits captured when their exemplars entered the buffer.
 
+With ``data.device_cache`` the whole region-feature table of the data
+module's store goes to the device once (data/device_cache.py, in
+``data.device_cache_dtype``); every dataset is switched to slot mode and
+the train, replay, capture, importance and eval steps gather their
+features on the device, so batches carry int32 slots.
+
 One process on one device: the DDP barriers and answer all-gathers of a
 multi-process run have nothing to do. What the port does not take yet is
-refused with ``ValueError``: ``data.device_cache``, a ``mesh.param_layout``
-other than "replicated", and ``mesh.dp``/``tp``/``pp`` above 1.
+refused with ``ValueError``: ``data.device_cache_sharded``, a
+``mesh.param_layout`` other than "replicated", and ``mesh.dp``/``tp``/
+``pp`` above 1.
 
 ``wall_s`` sums host seconds by phase (``loader``: waiting for the next
 train or memory batch; ``train``: the step calls and the epoch-end loss
@@ -64,6 +71,7 @@ from vqacl_tpu_torch.cl import regularizers as R
 from vqacl_tpu_torch.cl.exemplar import ExemplarBuffer
 from vqacl_tpu_torch.cl.metrics import ResultMatrix, evaluate_metric
 from vqacl_tpu_torch.cl.tasks import CATEGORY_SPLITS, make_rng, random_dic
+from vqacl_tpu_torch.data import device_cache as DC
 from vqacl_tpu_torch.data.partition import (BatchLoader, all_loader,
                                             group_loaders)
 from vqacl_tpu_torch.models.prototype import ProtoState
@@ -102,9 +110,13 @@ class LossMeter:
 
 def _refuse_unported(cfg) -> None:
     """ValueError for the options the port does not take yet."""
-    if cfg.data.device_cache:
-        raise ValueError("data.device_cache: the device feature cache is "
-                         "not ported yet")
+    if cfg.data.device_cache_sharded:
+        raise ValueError("data.device_cache_sharded: the sharded device "
+                         "cache comes with the parallel slice")
+    if cfg.data.device_cache_dtype not in DC.DTYPES:
+        raise ValueError(f"data.device_cache_dtype="
+                         f"{cfg.data.device_cache_dtype!r}; pick from "
+                         f"{tuple(DC.DTYPES)}")
     if cfg.mesh.param_layout != "replicated":
         raise ValueError(f"mesh.param_layout={cfg.mesh.param_layout!r}: "
                          "the port runs on one device ('replicated')")
@@ -148,7 +160,25 @@ class VQACLTrainer:
         # dropout generator seeded as the JAX trainer seeds its key
         self.state = TrainState.create(params, self._tx, proto,
                                        seed=cfg.train.seed + 1)
-        self.eval_step = make_eval_step(cfg, dtype=dtype, device=self.device)
+        # the device feature cache: the whole table on the device,
+        # batches carry slots (data/device_cache.py)
+        self._cache = None
+        self._slot_of = None
+        if cfg.data.device_cache:
+            if not hasattr(getattr(data, "features", None), "get"):
+                raise ValueError("data.device_cache needs a data module with "
+                                 "a feature store (.features)")
+            self._cache, self._slot_of = DC.DeviceFeatureCache.from_store(
+                data.features, sorted(data.cate_map.keys()),
+                device=self.device,
+                feat_dtype=DC.DTYPES[cfg.data.device_cache_dtype])
+            self._log(f"device feature cache: {self._cache.n} images "
+                      f"({self._cache.nbytes / 1e9:.2f} GB)")
+            self.eval_step = DC.make_cached_eval_step(
+                cfg, self._cache, dtype=dtype, device=self.device)
+        else:
+            self.eval_step = make_eval_step(cfg, dtype=dtype,
+                                            device=self.device)
         self._train_step_cache: Dict[Any, Any] = {}
 
         # EWC/MAS importance + anchor (cl/regularizers.py), DER/DER++
@@ -219,10 +249,11 @@ class VQACLTrainer:
         if key not in self._train_step_cache:
             reg_lambda = float(self.cfg.train.reg_lambda) \
                 if self._reg is not None else 0.0
-            fn = make_train_step(
-                self.cfg, dtype=self.dtype, device=self.device,
-                use_memory_loss=use_memory_loss,
-                remat=self.cfg.mesh.remat, reg_lambda=reg_lambda)
+            kw = dict(dtype=self.dtype, device=self.device,
+                      use_memory_loss=use_memory_loss,
+                      remat=self.cfg.mesh.remat, reg_lambda=reg_lambda)
+            fn = make_train_step(self.cfg, **kw) if self._cache is None \
+                else DC.make_cached_train_step(self.cfg, self._cache, **kw)
             if self._reg is not None:
                 raw = fn
                 # late-bound: consolidation swaps self._reg between tasks
@@ -230,11 +261,19 @@ class VQACLTrainer:
             self._train_step_cache[key] = fn
         return self._train_step_cache[key]
 
+    def _slotify(self, ds):
+        """Switch a dataset into the device cache's slot mode."""
+        if self._slot_of is not None:
+            ds.slot_of = self._slot_of
+        return ds
+
     def _der_replay_step(self):
         if self._der_step_fn is None:
-            self._der_step_fn = make_der_replay_step(
-                self.cfg, dtype=self.dtype, device=self.device,
-                remat=self.cfg.mesh.remat)
+            kw = dict(dtype=self.dtype, device=self.device,
+                      remat=self.cfg.mesh.remat)
+            self._der_step_fn = make_der_replay_step(self.cfg, **kw) \
+                if self._cache is None else \
+                DC.make_cached_der_step(self.cfg, self._cache, **kw)
         return self._der_step_fn
 
     def _der_capture(self, task_idx: int) -> None:
@@ -255,10 +294,12 @@ class VQACLTrainer:
         if not new_items:
             return
         if self._logits_step is None:
-            self._logits_step = make_logits_step(self.cfg, dtype=self.dtype,
-                                                 device=self.device)
-        ds = self.data.make_dataset(new_items, mode="train",
-                                    task_idx=task_idx - 1)
+            kw = dict(dtype=self.dtype, device=self.device)
+            self._logits_step = make_logits_step(self.cfg, **kw) \
+                if self._cache is None else \
+                DC.make_cached_logits_step(self.cfg, self._cache, **kw)
+        ds = self._slotify(self.data.make_dataset(new_items, mode="train",
+                                                  task_idx=task_idx - 1))
         bs = self.cfg.train.batch_size
         loader = BatchLoader(ds, np.arange(len(ds)), bs, shuffle=False,
                              with_targets=True, drop_last=False,
@@ -389,9 +430,12 @@ class VQACLTrainer:
             if self._der:
                 self._der_capture(task_idx)
 
-        train_ds = self.data.dataset(task, "train", task_idx=task_idx)
-        val_ds = self.data.dataset(task, "val", task_idx=task_idx)
-        test_ds_all = self.data.dataset(task, "test", task_idx=task_idx)
+        train_ds = self._slotify(self.data.dataset(task, "train",
+                                                    task_idx=task_idx))
+        val_ds = self._slotify(self.data.dataset(task, "val",
+                                                 task_idx=task_idx))
+        test_ds_all = self._slotify(self.data.dataset(task, "test",
+                                                      task_idx=task_idx))
         self.task_total_num[task_idx] = len(train_ds)
 
         bs = cfg.train.batch_size
@@ -404,8 +448,9 @@ class VQACLTrainer:
         val_loaders = group_loaders(val_ds, vbs, shuffle=False,
                                     with_targets=True, collate_kw=self._ck(),
                                     splits=self.splits, num_workers=nw)
-        mem_ds = self.data.make_dataset(mem_items, mode="train",
-                                        task_idx=task_idx)
+        mem_ds = self._slotify(self.data.make_dataset(mem_items,
+                                                      mode="train",
+                                                      task_idx=task_idx))
         mem_loaders = group_loaders(mem_ds, bs, shuffle=True,
                                     seed=cfg.train.seed + 7,
                                     collate_kw=self._ck(),
@@ -505,9 +550,12 @@ class VQACLTrainer:
         acc = tree_map(torch.zeros_like, self._reg.omega)
         n = 0
         for batch in loader:
+            t = batch["tensors"]
             with self._call("importance_batches"):
+                if self._cache is not None:
+                    t = DC.with_features(self._cache, t)
                 acc = self._imp_step(acc, self.state.params,
-                                     self.state.proto, batch["tensors"])
+                                     self.state.proto, t)
             n += 1
             if n >= cfg.train.fisher_batches:
                 break
@@ -571,7 +619,8 @@ class VQACLTrainer:
             test_task = self.tasks[j]
             loader = self.test_loader_dict_all.get(test_task)
             if loader is None:
-                test_ds = self.data.dataset(test_task, "test", task_idx=j)
+                test_ds = self._slotify(
+                    self.data.dataset(test_task, "test", task_idx=j))
                 loader = all_loader(test_ds, self.cfg.train.valid_batch_size,
                                     with_targets=False, collate_kw=self._ck())
                 self.test_loader_dict_all[test_task] = loader

@@ -11,7 +11,10 @@ path sees one set of shapes. Produces numpy arrays:
   ques_labels [B, n_ques_types]  float32 one-hot
   cate_labels [B, n_categories]  float32 one-hot
   der_logits  [B, T, V] float16 (DER replay examples only)
-plus host-side metadata (question_ids, sents, answers, n_real).
+In slot mode (examples that carry ``"slot"``, an index into the device
+feature cache, data/device_cache.py) ``slots`` [B] int32 replaces
+vis_feats and boxes, with −1 in the pad rows (the cache gives them
+zeros), plus host-side metadata (question_ids, sents, answers, n_real).
 """
 
 from __future__ import annotations
@@ -30,16 +33,21 @@ def collate(examples: Sequence[Dict[str, Any]],
             feat_dim: int = 2048,
             pad_to_batch: Optional[int] = None,
             with_targets: bool = True) -> Dict[str, Any]:
-    """examples: dicts with input_ids (list[int]), vis_feats [N,feat_dim],
-    boxes [N,4], ques_label (int), cate_label (int), and optionally
-    target_ids, score, question_id, sent, answers, der_logits [T,V]."""
+    """examples: dicts with input_ids (list[int]), vis_feats [N,feat_dim]
+    and boxes [N,4] (or slot (int)), ques_label (int), cate_label (int),
+    and optionally target_ids, score, question_id, sent, answers,
+    der_logits [T,V]."""
     B = len(examples)
     Bp = pad_to_batch or B
     L, N, T = max_text_length, n_boxes, target_max_length
+    slot_mode = B > 0 and "slot" in examples[0]
 
     input_ids = np.zeros((Bp, L), np.int32)
-    vis_feats = np.zeros((Bp, N, feat_dim), np.float32)
-    boxes = np.zeros((Bp, N, 4), np.float32)
+    if slot_mode:
+        slots = np.full((Bp,), -1, np.int32)
+    else:
+        vis_feats = np.zeros((Bp, N, feat_dim), np.float32)
+        boxes = np.zeros((Bp, N, 4), np.float32)
     scores = np.zeros((Bp,), np.float32)
     ques_labels = np.zeros((Bp, n_ques_types), np.float32)
     cate_labels = np.zeros((Bp, n_categories), np.float32)
@@ -56,8 +64,11 @@ def collate(examples: Sequence[Dict[str, Any]],
     for i, ex in enumerate(examples):
         ids = ex["input_ids"][:L]
         input_ids[i, :len(ids)] = ids
-        vis_feats[i] = ex["vis_feats"]
-        boxes[i] = np.clip(ex["boxes"], 0.0, 1.0)
+        if slot_mode:
+            slots[i] = ex["slot"]
+        else:
+            vis_feats[i] = ex["vis_feats"]
+            boxes[i] = np.clip(ex["boxes"], 0.0, 1.0)
         if with_targets and "target_ids" in ex:
             t = ex["target_ids"][:T]
             target_ids[i, :len(t)] = t
@@ -73,12 +84,15 @@ def collate(examples: Sequence[Dict[str, Any]],
 
     batch: Dict[str, Any] = {
         "input_ids": input_ids,
-        "vis_feats": vis_feats,
-        "boxes": boxes,
         "scores": scores,
         "ques_labels": ques_labels,
         "cate_labels": cate_labels,
     }
+    if slot_mode:
+        batch["slots"] = slots
+    else:
+        batch["vis_feats"] = vis_feats
+        batch["boxes"] = boxes
     if with_targets:
         batch["target_ids"] = target_ids
     if der_logits is not None:

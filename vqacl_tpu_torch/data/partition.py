@@ -22,8 +22,9 @@ or the prototypes), and iteration is plain numpy with a background
 prefetch thread. Every random draw (the loader shuffles, the answer
 sampling from the dataset's shared stream or, with several workers, from
 per-example generators) is the JAX package's, in the same order, so the
-same seeds give the same batches bit for bit. The device feature cache's
-slot mode is not ported yet.
+same seeds give the same batches bit for bit. With ``slot_of`` set
+({img_id: slot}, data/device_cache.py) a dataset's examples carry the
+image's slot in the device feature cache instead of its features.
 """
 
 from __future__ import annotations
@@ -78,6 +79,9 @@ class VQAPartitionDataset:
         self.rng = np.random.default_rng(seed)
         self.task_idx = task_idx
         self.answer_normalize = answer_normalize
+        # device-cache mode: {img_id: slot}; examples then carry the slot
+        # and skip the host feature read
+        self.slot_of: Optional[Dict[str, int]] = None
 
     def __len__(self) -> int:
         return len(self.data)
@@ -95,7 +99,6 @@ class VQAPartitionDataset:
         sent = d.get("sent", d.get("question"))
         input_ids = self.tok.encode(f"vqa: {sent}", max_length=self.L)
         qid = d["question_id"]
-        feats, boxes = self.features.get(img_id)
         ex: Dict[str, Any] = {
             "input_ids": input_ids,
             "question_id": qid,
@@ -104,9 +107,11 @@ class VQAPartitionDataset:
                                                 self.task_idx or 0)),
             "cate_label": int(self.cate_map.get(str(img_id),
                                                 self.cate_map.get(img_id, 0))),
-            "vis_feats": feats,
-            "boxes": boxes,
         }
+        if self.slot_of is not None:
+            ex["slot"] = int(self.slot_of[str(img_id)])
+        else:
+            ex["vis_feats"], ex["boxes"] = self.features.get(img_id)
         if "label" in d and d["label"]:
             answers, scores = zip(*d["label"].items())
             ssum = float(sum(scores))

@@ -9,6 +9,7 @@ Counterpart of ``vqacl_tpu/serve.py``, with the same behaviour:
 ``VQAServer`` adds continuous batching: concurrent ``submit()`` calls
 coalesce into single eval-step calls on a background worker, so batch
 fill tracks offered load instead of per-caller batch sizes.
+``cli/serve_http.py`` puts it behind HTTP.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 
 from vqacl_tpu_torch.data.collate import collate
+from vqacl_tpu_torch.data.device_cache import make_cached_eval_step
 from vqacl_tpu_torch.models.convert import to_device
 from vqacl_tpu_torch.models.prototype import ProtoState
 from vqacl_tpu_torch.models.vlt5 import cast_params_for_inference
@@ -33,14 +35,28 @@ from vqacl_tpu_torch.utils.device import resolve_device
 
 class VQAPredictor:
     def __init__(self, cfg: Config, params, proto: ProtoState, tokenizer,
-                 feature_store, batch_size: int = 16,
-                 dtype=torch.bfloat16, device="cuda"):
+                 feature_store, batch_size: int = 16, num_beams: int = 1,
+                 dtype=torch.bfloat16, device="cuda",
+                 device_cache=None, slot_of: Optional[Dict[str, int]] = None):
         """``params``/``proto`` are moved to ``device``; with bf16 the
         matmul weights are cast once (the predictor's weights never
-        change)."""
+        change). ``num_beams`` > 1 decodes with beam search.
+        ``device_cache``/``slot_of`` (a ``DeviceFeatureCache`` on
+        ``device`` and its img_id→slot map, data/device_cache.py) serve
+        from the device-resident feature table: requests carry int32
+        slots and the features never cross from the host."""
         self.device = resolve_device(device)
         self.cfg = cfg
-        self._eval = make_eval_step(cfg, dtype=dtype, device=self.device)
+        self._slot_of = slot_of
+        if device_cache is not None:
+            if slot_of is None:
+                raise ValueError("device_cache requires slot_of")
+            self._eval = make_cached_eval_step(cfg, device_cache, dtype=dtype,
+                                               device=self.device,
+                                               num_beams=num_beams)
+        else:
+            self._eval = make_eval_step(cfg, dtype=dtype, device=self.device,
+                                        num_beams=num_beams)
         params = to_device(params, self.device)
         if dtype == torch.bfloat16:
             params = cast_params_for_inference(params, dtype)
@@ -62,13 +78,16 @@ class VQAPredictor:
                   img_ids: Sequence[str]) -> List[Dict]:
         out = []
         for q, img in zip(questions, img_ids):
-            feats, boxes = self.features.get(img)
-            out.append({
+            ex = {
                 "input_ids": self.tok.encode(
                     f"vqa: {q}", max_length=self.cfg.model.max_text_length),
                 "ques_label": 0, "cate_label": 0,
-                "vis_feats": feats, "boxes": boxes,
-            })
+            }
+            if self._slot_of is not None:       # device-cache serving
+                ex["slot"] = self._slot_of[img]
+            else:
+                ex["vis_feats"], ex["boxes"] = self.features.get(img)
+            out.append(ex)
         return out
 
     def dispatch_chunk(self, chunk: List[Dict]) -> torch.Tensor:

@@ -10,8 +10,8 @@ card unless its caller reads one.
 ``make_der_replay_step``: the same update on the DER/DER++ replay loss.
 ``make_logits_step``: teacher-forced logits (the DER capture pass).
 ``make_eval_step``: encode once (K1) → prototype retrieval without
-update → greedy decode. ``make_loss_eval_step``: the teacher-forced
-validation loss with retrieval-only prototypes (with
+update → greedy decode or beam search. ``make_loss_eval_step``: the
+teacher-forced validation loss with retrieval-only prototypes (with
 ``cfg.model.fused_decoder`` its decoder attention runs in K1 too).
 """
 
@@ -24,7 +24,7 @@ import torch
 
 from vqacl_tpu_torch.cl.regularizers import penalty
 from vqacl_tpu_torch.models import vlt5
-from vqacl_tpu_torch.models.generate import greedy_decode
+from vqacl_tpu_torch.models.generate import beam_search, greedy_decode
 from vqacl_tpu_torch.models.prototype import ProtoState
 from vqacl_tpu_torch.train.optim import (dynamic_lr, global_norm,
                                          make_transform, tree_leaves,
@@ -249,13 +249,22 @@ def make_logits_step(cfg, dtype=torch.bfloat16, device="cuda",
     return logits_step
 
 
-def make_eval_step(cfg, dtype=torch.bfloat16, device="cuda") -> Callable:
-    """Returns ``(params, proto, batch) -> token ids [B, gen_max_length-1]``
-    (int32, on ``device``). ``params``/``proto`` must already be on
-    ``device``; ``batch`` holds ``input_ids``, ``vis_feats`` and ``boxes``
-    as numpy arrays or tensors (moved to ``device`` here)."""
+def make_eval_step(cfg, dtype=torch.bfloat16, device="cuda",
+                   use_prototype: Optional[bool] = None,
+                   max_length: Optional[int] = None,
+                   num_beams: int = 1) -> Callable:
+    """Returns ``(params, proto, batch) -> token ids [B, max_length-1]``
+    (int32, on ``device``; ``max_length`` defaults to
+    ``cfg.model.gen_max_length``). ``params``/``proto`` must already be
+    on ``device``; ``batch`` holds ``input_ids``, ``vis_feats`` and
+    ``boxes`` as numpy arrays or tensors (moved to ``device`` here).
+    Encoder once, prototype retrieval without update (unless
+    ``use_prototype`` is False), then greedy decoding, or beam search
+    with ``num_beams`` > 1."""
     dev = resolve_device(device)
     mcfg = cfg.model
+    if use_prototype is None:
+        use_prototype = mcfg.use_prototype
 
     @torch.inference_mode()
     def eval_step(params: Dict, proto: ProtoState, batch: Dict
@@ -264,10 +273,15 @@ def make_eval_step(cfg, dtype=torch.bfloat16, device="cuda") -> Callable:
         hidden, enc_mask = vlt5.encode(params, mcfg, b["input_ids"],
                                        b["vis_feats"], b["boxes"],
                                        dtype=dtype)
-        if mcfg.use_prototype:
+        if use_prototype:
             hidden, enc_mask, _, _ = vlt5.augment(mcfg, hidden, enc_mask,
                                                   proto)
-        return greedy_decode(params, mcfg, hidden, enc_mask, dtype=dtype)
+        if num_beams > 1:
+            return beam_search(params, mcfg, hidden, enc_mask,
+                               num_beams=num_beams, max_length=max_length,
+                               dtype=dtype)
+        return greedy_decode(params, mcfg, hidden, enc_mask,
+                             max_length=max_length, dtype=dtype)
 
     return eval_step
 

@@ -125,12 +125,16 @@ class MeshConfig:
 
 @dataclass
 class DataConfig:
-    """Loader policy. ``device_cache`` (the whole feature table on the
-    device) is a placeholder: the trainer refuses it until the device
-    feature cache is ported."""
+    """Loader policy. ``device_cache`` keeps the whole region-feature
+    table on the device (data/device_cache.py) in ``device_cache_dtype``
+    ("bfloat16", "float32" or "int8"); batches then carry int32 slots.
+    ``device_cache_sharded`` (the table row-sharded over a dp mesh) needs
+    the parallel slice: the trainer refuses it."""
 
     n_workers: int = 4               # loader threads per BatchLoader
     device_cache: bool = False
+    device_cache_sharded: bool = False
+    device_cache_dtype: str = "bfloat16"   # bfloat16|float32|int8
 
 
 @dataclass
