@@ -92,6 +92,34 @@ Phases, each of which exits non-zero on failure:
    ``/stats``, ``/metrics``. A feature pack of ``PACK_IMAGES`` images
    written under ``build/``: ``PackedFeatureStore`` gives the source back
    and a predictor over it answers as one over the memory store.
+9. The model extensions at t5-base (``model_extensions``): K1, K1′ and K2
+   on strided views of the merged projection layouts (q|k|v [B,S,3·768],
+   cross k|v [B,Sk,2·768], a 12-layer cross-K/V fold) at the eval, train
+   and decoder shapes, rates 0 and 0.1, bf16 and f32, each bit-equal to
+   the same kernel on dense copies, K2 also into one merged gradient
+   buffer, and each strided launch counted; strided beside dense times;
+   a bf16 row stride that is not a multiple of 8 refused with ValueError
+   before any launch. ``make_train_step`` with ``merged_qkv`` (and with
+   the fused decoder and ``folded_cross_kv``) at batch 80, bf16, dropout
+   0.1, timed in turns with the separate path (``MERGED_ROUNDS`` rounds
+   of separate, merged, merged, separate), 12 (36) strided K1′ and K2
+   per step, loss and gradients at dropout 0 within phase 4's bound of
+   the separate path's; greedy and beam tokens with merged and folded
+   projections equal to the separate path's at batch 100; tiny f32
+   merged + folded runs on the card equal to the CPU. The classifier
+   head (``CLS_ANSWERS`` answers, batch 80, bf16): ``CLS_STEPS`` HF-AdamW
+   steps over (params, head) on soft targets, the loss falling, 12 K1′
+   and K2 per step; ``classifier_logits`` at batch 100 through K1, timed.
+   Weights: t5-base through ``.pth``, ``model.safetensors`` (written by
+   the port's own writer, read by ``load_t5_base``), ``export_pth`` on
+   phase 7's ER checkpoint and the DCP directory checkpoint, each
+   bit-equal, with seconds and bytes, and the eval step's tokens on the
+   re-imported weights equal. VL-BART at bart-base's widths
+   (``BART_CFG``): encode + decode forward at batch 80, bf16, finite and
+   timed; a tiny f32 run on the card equal to the CPU within
+   ``F32_CARD_RTOL``. Phase 7's loop resolves ``merged_qkv`` to True (as
+   JAX's trainer does), so its launch checks also require every launch
+   strided.
 
 The second-to-last lines are a JSON object of per-kernel numbers and the
 card's name and power limit; the last line is the run's verdict as JSON.
@@ -114,6 +142,7 @@ import argparse
 import gc
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -207,6 +236,36 @@ CACHED_LOSS_RTOL = 1e-6
 # beam (length penalty 0) vs greedy: teacher-forced f32 sum log-probs of
 # the two sequences; only the incremental and teacher-forced sums differ
 BEAM_LOGP_TOL = 1e-3
+# phase 9, the model extensions: rounds of train steps timed in turns
+# (separate, merged, merged, separate); the classifier head's answers and
+# optimizer steps; a misaligned row stride (not a multiple of 8 bf16
+# elements) that the bf16 kernels must refuse
+MERGED_ROUNDS = 3
+CLS_ANSWERS = 3129
+CLS_STEPS = 5
+CLS_LR = 1e-4
+BAD_STRIDE_PAD = 4
+# VL-BART at bart-base's published widths (HF facebook/bart-base config:
+# d_model 768, 6+6 layers, 12 heads, ffn 3072, vocab 50265, 1024
+# positions), with VL-T5's region input (36 regions x 2048) and the
+# text/answer lengths of the VQA configuration; random weights
+BART_CFG = dict(vocab_size=50265, d_model=768, num_heads=12, d_ff=3072,
+                num_layers=6, num_decoder_layers=6,
+                max_position_embeddings=1024, pad_token_id=1,
+                eos_token_id=2, decoder_start_token_id=2, dropout_rate=0.1,
+                feat_dim=2048, pos_dim=4, n_images=2,
+                use_vis_order_embedding=True, use_vis_layer_norm=True,
+                individual_vis_layer_norm=True, layer_norm_epsilon=1e-5,
+                use_vision=True, n_boxes=36, text_len=20, target_len=10)
+BART_TINY = dict(BART_CFG, vocab_size=128, d_model=32, num_heads=4, d_ff=64,
+                 num_layers=2, num_decoder_layers=2,
+                 max_position_embeddings=64, dropout_rate=0.0, feat_dim=16,
+                 n_boxes=4, text_len=6, target_len=5)
+# f32 on the card vs the CPU: the same products summed in other orders
+F32_CARD_RTOL = 1e-5
+# phase 7's ER checkpoint, kept under the gitignored build/ for phase 9
+P7_DIR = os.path.join(HERE, "build", "chip_smoke", "phase7")
+P7_CKPT = os.path.join(P7_DIR, "er_LAST.npz")
 
 
 def log(*a):
@@ -288,6 +347,15 @@ def put_ab(row, key, times):
         row["base_" + key] = base
 
 
+def _bound(nbytes, ops_s):
+    """(bound ms, "bytes" or "operations"): the larger of the bytes over
+    the memory rate and the operations' seconds at their peak rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops_s * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
 def attention_inputs(B, Tq, Sk, H, dk, L, dtype, text_len, seed):
     """q/k/v [B,S,H·dk], bias [H,L,L] f32 or None, mask [B,Sk] f32 with a
     ragged text part (the first ``text_len`` keys) and visual keys on."""
@@ -359,10 +427,8 @@ def check_attention(fa, name, B, Tq, Sk, H, dk, L, dtype,
     nbytes = (2 * B * Tq + 2 * B * Sk) * H * dk * elem + B * Sk * 4 \
         + H * L * L * 4
     flops = 4 * B * H * Tq * Sk * dk
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    row["bound_ms"] = max(t_bytes, t_ops)
-    row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    row["bound_ms"], row["bound_by"] = _bound(nbytes,
+                                              flops / PEAK_FLOPS[dtype])
     log(f"kernel_time {name}: kernel_ms={row['ms']:.5f} "
         f"plain_ms={row['plain_ms']:.5f} library_ms={row['library_ms']:.5f} "
         f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']}: {nbytes} B, "
@@ -510,10 +576,7 @@ def check_train_attention(fa, name, B, Tq, Sk, H, dk, L, dtype, rate,
                                        2 * prod),
                                       (bwd_row, bwd_bytes, bwd_ops_s,
                                        4 * prod)):
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = ops_s * 1e3
-        row["bound_ms"] = max(t_bytes, t_ops)
-        row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        row["bound_ms"], row["bound_by"] = _bound(nbytes, ops_s)
         row["bytes"], row["flops"] = nbytes, flops
     log(f"kernel_time {name} K1': kernel_ms={fwd_row['ms']:.5f} "
         f"plain_ms={fwd_row['plain_ms']:.5f} "
@@ -661,10 +724,8 @@ def check_dw(dw, name, K, D, F, dtype, timed=False):
     elem = x.element_size()
     nbytes = (K * D + K * F) * elem + D * F * 4
     flops = 2 * K * D * F
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    row["bound_ms"] = max(t_bytes, t_ops)
-    row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    row["bound_ms"], row["bound_by"] = _bound(nbytes,
+                                              flops / PEAK_FLOPS[dtype])
     row["bytes"], row["flops"] = nbytes, flops
     log(f"kernel_time {name}: kernel_ms={row['ms']:.5f} "
         f"plain_ms={row['plain_ms']:.5f} library_ms={row['library_ms']:.5f} "
@@ -697,6 +758,16 @@ def _grads(vlt5, tree_leaves, tree_map, params, mcfg, batch, proto, dtype,
     return float(out.loss.detach()), flat
 
 
+def strided_counts():
+    """K1, K1′ and K2 launches on strided q/k/v (merged projections),
+    counted by the wrappers beside their totals."""
+    from vqacl_tpu_torch.ops import fused_attention as fa
+
+    return tuple(w.strided_launches for w in (
+        fa.fused_attention, fa.fused_attention_fwd_train,
+        fa.fused_attention_bwd))
+
+
 def drive_cl(trainer, label, counters=None):
     """Run ``trainer.train()`` as a user calls it, then read the
     trainer's own records: ``wall_s`` and ``task_wall_s`` (host clock),
@@ -706,8 +777,9 @@ def drive_cl(trainer, label, counters=None):
     counts are read around the run and checked against its steps and
     batches: K1′ and K2 once per encoder layer in every train, replay and
     importance step, K1 once per layer in every predict and DER capture
-    batch, each above zero. Checks finite losses and a finite result
-    matrix → record."""
+    batch, each above zero; with ``merged_qkv`` (the trainer resolves
+    "auto" to it) every one of them on strided q/k/v. Checks finite
+    losses and a finite result matrix → record."""
     import numpy as np
 
     zero_counts, read_counts, num_layers = counters or (
@@ -717,6 +789,8 @@ def drive_cl(trainer, label, counters=None):
     metrics = trainer.train()
     wall = time.perf_counter() - t0
     k1, k1p, k2 = read_counts()
+    strided = list(strided_counts()) if counters else [0, 0, 0]
+    merged = trainer.cfg.model.merged_qkv is True
     c, times = trainer.counts, trainer.times_ms
     losses = trainer.step_losses["train"] + trainer.step_losses["replay"]
     steps = c["train_steps"] + c["replay_steps"]
@@ -731,6 +805,7 @@ def drive_cl(trainer, label, counters=None):
     matrix = trainer.result_matrix.matrix().tolist()
     rec = {"wall_s": wall, "task_wall_s": dict(trainer.task_wall_s),
            "counts": dict(c), "launches": [k1, k1p, k2],
+           "strided_launches": strided, "merged_qkv": merged,
            "expected_launches": [want_k1, want_k1p, want_k1p],
            "train_step_ms_median": med(train_ms),
            "replay_step_ms_median": med(times["replay_steps"]),
@@ -766,12 +841,17 @@ def drive_cl(trainer, label, counters=None):
         f"{', '.join(f'{t:.3f}' for t in times['saves'])} ms; the rest the "
         f"final drain), background writes {rec['checkpoint_write_s']:.3f} s; "
         f"launches K1={k1} "
-        f"K1'={k1p} K2={k2} (expected {want_k1}/{want_k1p}/{want_k1p})")
+        f"K1'={k1p} K2={k2} (expected {want_k1}/{want_k1p}/{want_k1p}), "
+        f"merged_qkv={merged}: strided {strided[0]}/{strided[1]}/"
+        f"{strided[2]}")
     log(f"{label}: result matrix {matrix} Avg_acc {rec['Avg_acc']}")
     if counters and ((k1, k1p, k2) != (want_k1, want_k1p, want_k1p)
                      or min(k1, k1p, k2) <= 0):
         fail(f"{label}: launches K1/K1'/K2 {k1}/{k1p}/{k2}, expected "
              f"{want_k1}/{want_k1p}/{want_k1p}, each above zero")
+    if counters and merged and strided != [k1, k1p, k2]:
+        fail(f"{label}: merged_qkv, but strided launches {strided} of "
+             f"{[k1, k1p, k2]}")
     if not losses or not all(np.isfinite(losses)):
         fail(f"{label}: a loss is not finite: {losses}")
     if not np.isfinite(np.asarray(matrix)).all() \
@@ -1327,6 +1407,634 @@ def serving_extras(params, proto, counters, greedy_step_ms, tok):
     return out, k_total
 
 
+def strided_inputs(B, Tq, Sk, H, dk, L, dt, layout, seed, causal=False,
+                   fold_layers=12):
+    """Phase 2's training inputs packed as the merged projections lay them
+    out → (views (q, k, v), packed buffers, their dense copies, do, bias,
+    mask). ``layout``: "self" (q|k|v in one [B,S,3W] buffer), "cross" (q
+    dense, k|v in [B,Sk,2W]) or "folded" (q dense, k and v the slices of
+    one layer in the middle of a [B,Sk,2·fold_layers·W] fold)."""
+    W = H * dk
+    q0, k0, v0, do, bias, mask = train_attention_inputs(
+        B, Tq, Sk, H, dk, L, dt, L or Sk, seed, causal=causal)
+    if layout == "self":
+        buf = torch.cat([q0, k0, v0], dim=-1)
+        views, packed = (buf[..., :W], buf[..., W:2 * W], buf[..., 2 * W:]), \
+            (buf, None)
+    elif layout == "cross":
+        kv = torch.cat([k0, v0], dim=-1)
+        views, packed = (q0, kv[..., :W], kv[..., W:]), (q0, kv)
+    else:
+        g = torch.Generator(device="cuda").manual_seed(seed + 2)
+        fold = torch.randn(B, Sk, 2 * fold_layers * W, generator=g,
+                           device="cuda").to(dt)
+        o = 2 * (fold_layers // 2) * W
+        fold[..., o:o + W] = k0
+        fold[..., o + W:o + 2 * W] = v0
+        views, packed = (q0, fold[..., o:o + W],
+                         fold[..., o + W:o + 2 * W]), (q0, fold)
+    return views, packed, (q0, k0, v0), do, bias, mask
+
+
+def check_strided(fa, name, B, Tq, Sk, H, dk, L, dtype, rate, layout,
+                  causal=False, timed=False):
+    """K1 (at rate 0), K1′ and K2 on strided views of the merged
+    projection layouts against the same kernels on dense copies, bit for
+    bit (the stride changes addresses, not arithmetic); K2 also writing
+    into one gradient buffer of the packed layout, bit-equal to the dense
+    dq, dk, dv side by side; each strided call counted once in its
+    wrapper's ``strided_launches`` and each dense call not at all. With
+    ``timed``: strided and dense times (K1 at rate 0, else K1′ and K2) in
+    the order dense, strided, strided, dense, beside the bound → row."""
+    dt = getattr(torch, dtype)
+    W = H * dk
+    (q, k, v), packed, (qc, kc, vc), do, bias, mask = strided_inputs(
+        B, Tq, Sk, H, dk, L, dt, layout, seed=B + Tq + Sk + 7,
+        causal=causal)
+    seed = torch.tensor([4242 + Tq], dtype=torch.int32, device="cuda")
+    wrappers = (fa.fused_attention, fa.fused_attention_fwd_train,
+                fa.fused_attention_bwd)
+    counts = lambda: [w.strided_launches for w in wrappers]
+    before = counts()
+    eq = {}
+    if rate == 0.0:
+        eq["K1"] = torch.equal(fa.fused_attention(q, k, v, bias, mask, H),
+                               fa.fused_attention(qc, kc, vc, bias, mask, H))
+    o_s, p_s = fa.fused_attention_fwd_train(q, k, v, bias, mask, seed, H,
+                                            rate)
+    o_c, p_c = fa.fused_attention_fwd_train(qc, kc, vc, bias, mask, seed, H,
+                                            rate)
+    eq["K1'"] = torch.equal(o_s, o_c) and torch.equal(p_s, p_c)
+    g_s = fa.fused_attention_bwd(q, k, v, p_s, seed, do, H, L, rate)
+    g_c = fa.fused_attention_bwd(qc, kc, vc, p_c, seed, do, H, L, rate)
+    eq["K2"] = all(a is None and b is None or torch.equal(a, b)
+                   for a, b in zip(g_s, g_c))
+    # K2 into the merged gradient buffer, as _FusedAttentionPacked runs it
+    x, kv = packed
+    dx = torch.full_like(x, float("nan"))
+    dkv = None if kv is None else torch.full_like(kv, float("nan"))
+    if layout == "self":
+        out = (dx[..., :W], dx[..., W:2 * W], dx[..., 2 * W:])
+        want = [(dx, torch.cat(g_c[:3], dim=-1))]
+    else:
+        o = 0 if layout == "cross" else (kv.shape[-1] // 2 // W // 2) * 2 * W
+        out = (dx, dkv[..., o:o + W], dkv[..., o + W:o + 2 * W])
+        want = [(dx, g_c[0]), (dkv[..., o:o + 2 * W],
+                               torch.cat(g_c[1:3], dim=-1))]
+    fa.fused_attention_bwd(q, k, v, p_s, seed, do, H, L, rate, out=out)
+    torch.cuda.synchronize()
+    eq["K2 merged buffer"] = all(torch.equal(a, b) for a, b in want)
+    # K1 (rate 0), K1′, K2 and the merged-buffer K2: once each, strided
+    launched = [a - b for a, b in zip(counts(), before)]
+    want_counts = [int(rate == 0.0), 1, 2]
+    log(f"strided_check {name}: layout={layout} row strides "
+        f"{list(fa._qkv_strides(q, k, v))} B={B} Tq={Tq} Sk={Sk} H={H} "
+        f"dk={dk} L={L} {dtype} rate={rate}; bit-equal to dense: "
+        f"{json.dumps(eq)}; strided launches K1/K1'/K2 {launched} "
+        f"(expected {want_counts})")
+    if not all(eq.values()) or launched != want_counts:
+        fail(f"{name}: a strided launch differs from the dense one")
+    if not timed:
+        return {}
+    sets = [strided_inputs(B, Tq, Sk, H, dk, L, dt, layout, seed=500 + i,
+                           causal=causal) for i in range(4)]
+    ps = [fa.fused_attention_fwd_train(*s[2], s[4], s[5], seed, H, rate)[1]
+          for s in sets]
+    calls = {
+        "K1": lambda qkv, s, p: fa.fused_attention(*qkv, s[4], s[5], H),
+        "K1'": lambda qkv, s, p: fa.fused_attention_fwd_train(
+            *qkv, s[4], s[5], seed, H, rate),
+        "K2": lambda qkv, s, p: fa.fused_attention_bwd(*qkv, p, seed, s[3],
+                                                       H, L, rate)}
+    elem = q.element_size()
+    p_bytes = B * H * Tq * Sk * 4
+    io = (2 * B * Tq + 2 * B * Sk) * W * elem
+    small = B * Sk * 4 + H * L * L * 4
+    prod = 2 * B * H * Tq * Sk * dk
+    peak = PEAK_FLOPS[dtype]
+    bounds = {"K1": _bound(io + small, 2 * prod / peak),
+              "K1'": _bound(io + p_bytes + small + 4, 2 * prod / peak),
+              "K2": _bound(io + p_bytes + (B * Tq + 2 * B * Sk) * W * elem
+                           + H * L * L * 4 + 4, 4 * prod / peak)}
+    row = {}
+    for kind in ("K1",) if rate == 0.0 else ("K1'", "K2"):
+        fn = calls[kind]
+        dense = [lambda s=s, p=p: fn(s[2], s, p) for s, p in zip(sets, ps)]
+        strided = [lambda s=s, p=p: fn(s[0], s, p) for s, p in zip(sets, ps)]
+        d1, s1, s2, d2 = (time_ms(dense), time_ms(strided),
+                          time_ms(strided), time_ms(dense))
+        b_ms, b_by = bounds[kind]
+        row[kind] = {"strided_ms": (s1 + s2) / 2, "dense_ms": (d1 + d2) / 2,
+                     "bound_ms": b_ms, "bound_by": b_by}
+        log(f"strided_time {name} {kind}: strided_ms={(s1 + s2) / 2:.5f} "
+            f"dense_ms={(d1 + d2) / 2:.5f} (dense {d1:.5f}, strided "
+            f"{s1:.5f}, {s2:.5f}, dense {d2:.5f}) bound_ms={b_ms:.5f} "
+            f"({b_by})")
+    return row
+
+
+def check_stride_refused(fa):
+    """A bf16 q/k/v view whose row stride is not a multiple of 8 elements
+    (so its rows do not start on 16 bytes) is refused by K1's, K1′'s and
+    K2's wrappers with ValueError before any launch."""
+    B, S, H, dk = 4, 16, 4, 64
+    W = H * dk
+    buf = torch.zeros(B, S, 3 * W + BAD_STRIDE_PAD, dtype=torch.bfloat16,
+                      device="cuda")
+    q, k, v = buf[..., :W], buf[..., W:2 * W], buf[..., 2 * W:3 * W]
+    mask = torch.ones(B, S, device="cuda")
+    seed = torch.zeros((1,), dtype=torch.int32, device="cuda")
+    p = torch.zeros(B, H * S, S, device="cuda")
+    do = torch.zeros(B, S, W, dtype=torch.bfloat16, device="cuda")
+    wrappers = (fa.fused_attention, fa.fused_attention_fwd_train,
+                fa.fused_attention_bwd)
+    before = [w.launches for w in wrappers]
+    msgs = []
+    for call in (lambda: fa.fused_attention(q, k, v, None, mask, H),
+                 lambda: fa.fused_attention_fwd_train(q, k, v, None, mask,
+                                                      seed, H, 0.0),
+                 lambda: fa.fused_attention_bwd(q, k, v, p, seed, do, H, 0,
+                                                0.0)):
+        try:
+            call()
+        except ValueError as e:
+            msgs.append(str(e))
+            continue
+        fail(f"a bf16 row stride of {3 * W + BAD_STRIDE_PAD} was not "
+             f"refused")
+    if [w.launches for w in wrappers] != before:
+        fail("a refused strided call launched a kernel")
+    log(f"strided_check refused_stride_{3 * W + BAD_STRIDE_PAD}: K1, K1' "
+        f"and K2 raise ValueError before any launch ({msgs[0]})")
+
+
+def _bart_inputs(c, B, seed):
+    """(input_ids with ragged pad, attention mask, region feats, boxes,
+    labels with -100 pad) on the card for a BART config namespace."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    ids = torch.randint(3, c.vocab_size, (B, c.text_len), generator=g,
+                        device="cuda")
+    n = torch.randint(2, c.text_len + 1, (B,), generator=g, device="cuda")
+    pos = torch.arange(c.text_len, device="cuda")[None]
+    ids = torch.where(pos < n[:, None], ids, c.pad_token_id)
+    feats = torch.randn(B, c.n_boxes, c.feat_dim, generator=g, device="cuda")
+    x1y1 = 0.5 * torch.rand(B, c.n_boxes, 2, generator=g, device="cuda")
+    boxes = torch.cat([x1y1, x1y1 + 0.4 * torch.rand(
+        B, c.n_boxes, 2, generator=g, device="cuda")], dim=-1).clamp(0, 1)
+    labels = torch.randint(3, c.vocab_size, (B, c.target_len), generator=g,
+                           device="cuda")
+    labels[:, c.target_len // 2:] = -100
+    return ids, (ids != c.pad_token_id).float(), feats, boxes, labels
+
+
+def model_extensions(params, proto, counters, tok, phase7_ckpt):
+    """Phase 9 (see the module's docstring) on the random-init t5-base
+    ``params`` and prototype banks ``proto`` of phase 3. ``counters``:
+    (zero_counts, read_counts, read_strided); ``phase7_ckpt``: the ER
+    run's last checkpoint. → (summary dict, K1/K1′/K2 launches of the
+    phase's main-path runs)."""
+    from types import SimpleNamespace
+
+    import numpy as np
+
+    from vqacl_tpu_torch.cli import export_pth
+    from vqacl_tpu_torch.data.collate import collate
+    from vqacl_tpu_torch.data.synthetic import SyntheticVQA
+    from vqacl_tpu_torch.models import bart, hf_import, vlt5
+    from vqacl_tpu_torch.models.convert import to_device
+    from vqacl_tpu_torch.models.prototype import ProtoState
+    from vqacl_tpu_torch.ops import fused_attention as fa
+    from vqacl_tpu_torch.train import checkpoint as ckpt
+    from vqacl_tpu_torch.train.optim import (make_transform, tree_leaves,
+                                             tree_map, tree_unflatten)
+    from vqacl_tpu_torch.train.state import TrainState
+    from vqacl_tpu_torch.train.step import make_eval_step, make_train_step
+    from vqacl_tpu_torch.utils.config import (Config, resolve_merged_qkv,
+                                              tiny_model_config)
+
+    zero_counts, read_counts, read_strided = counters
+    bf16, f32 = torch.bfloat16, torch.float32
+    out = {}
+    k_total = [0, 0, 0]
+
+    def counted(fn):
+        """``fn()`` with the kernel counts read around it, added to the
+        phase's totals → (output, (K1, K1′, K2), strided (K1, K1′, K2))."""
+        torch.cuda.synchronize()
+        zero_counts()
+        res = fn()
+        torch.cuda.synchronize()
+        k, ks = read_counts(), read_strided()
+        for i in range(3):
+            k_total[i] += k[i]
+        return res, k, ks
+
+    def config(merged, folded=False, fused_decoder=False, model=None):
+        c = Config()
+        if model is not None:
+            c.model = model
+        c.model.merged_qkv = merged
+        c.model.folded_cross_kv = folded
+        c.model.fused_decoder = fused_decoder
+        return c
+
+    base = Config().model
+    H, dk, S, T = base.num_heads, base.d_kv, base.encoder_len, \
+        base.target_max_length
+    Lt = base.max_text_length
+    n_dec = base.num_decoder_layers
+
+    # ---- 9a. K1, K1′ and K2 on strided views ----------------------------
+    strided_rows = {}
+    for rate in (0.0, DROPOUT):
+        timed = rate == DROPOUT
+        strided_rows[f"train_{rate}"] = check_strided(
+            fa, "train_shape", TRAIN_BATCH, S, S, H, dk, Lt, "bfloat16", rate,
+            "self", timed=timed)
+        strided_rows[f"decoder_self_{rate}"] = check_strided(
+            fa, "decoder_self", TRAIN_BATCH, T, T, H, dk, T, "bfloat16", rate,
+            "self", causal=True, timed=timed)
+        strided_rows[f"decoder_cross_{rate}"] = check_strided(
+            fa, "decoder_cross", TRAIN_BATCH, T, S + 2, H, dk, 0, "bfloat16",
+            rate, "cross", timed=timed)
+        check_strided(fa, "decoder_cross_folded", TRAIN_BATCH, T, S + 2, H,
+                      dk, 0, "bfloat16", rate, "folded")
+        check_strided(fa, "odd_width_f32", 3, 13, 13, 4, 8, 5, "float32",
+                      rate, "self")
+        check_strided(fa, "rect_f32", 8, 10, 58, H, dk, 0, "float32", rate,
+                      "cross")
+    strided_rows["eval_timed"] = check_strided(
+        fa, "eval_shape", EVAL_BATCH, S, S, H, dk, Lt, "bfloat16", 0.0,
+        "self", timed=True)
+    for kind, shape in (("decoder_self_eval", (T, T, T, "self", True)),
+                        ("decoder_cross_eval", (T, S + 2, 0, "cross",
+                                                False))):
+        Tq, Sk, L_, layout, causal = shape
+        strided_rows[kind] = check_strided(
+            fa, kind, TRAIN_BATCH, Tq, Sk, H, dk, L_, "bfloat16", 0.0,
+            layout, causal=causal, timed=True)
+    check_stride_refused(fa)
+    out["strided"] = {k: v for k, v in strided_rows.items() if v}
+
+    # ---- 9b. merged and folded train steps at t5-base --------------------
+    tbatch = next(SyntheticVQA(2 * TRAIN_BATCH, seed=0).batches(
+        TRAIN_BATCH, seed=0))["tensors"]
+    gb = {k: torch.from_numpy(v).cuda() for k, v in tbatch.items()}
+    sep_cfg, mer_cfg = config(False), config(True)
+    fd_sep, fd_mer = config(False, fused_decoder=True), \
+        config(True, folded=True, fused_decoder=True)
+    tx = make_transform(sep_cfg.train)
+    proto0 = ProtoState.create(base.n_ques_types, base.n_categories,
+                               base.d_model, device="cuda")
+    train = {}
+    for label, c_sep, c_mer, per_step in (
+            ("encoder", sep_cfg, mer_cfg, base.num_layers),
+            ("fused_decoder", fd_sep, fd_mer, base.num_layers + 2 * n_dec)):
+        steps = {"separate": make_train_step(c_sep, dtype=bf16,
+                                             device="cuda"),
+                 "merged": make_train_step(c_mer, dtype=bf16, device="cuda")}
+        states = {n: TrainState.create(params, tx, proto0, seed=0,
+                                       warmup_iters=1.0, t_total=1000.0)
+                  for n in steps}
+        ms = {n: [] for n in steps}
+        losses = {n: [] for n in steps}
+        merged_counts = []
+        for r in range(MERGED_ROUNDS + 1):       # round 0 warms up
+            for n in ("separate", "merged", "merged", "separate"):
+                t0 = time.perf_counter()
+                (states[n], met), k, ks = counted(
+                    lambda n=n: steps[n](states[n], tbatch))
+                if r:
+                    ms[n].append((time.perf_counter() - t0) * 1e3)
+                losses[n].append(float(met["loss"]))
+                if n == "merged":
+                    merged_counts.append((k, ks))
+        want = ((0, per_step, per_step), (0, per_step, per_step))
+        med = lambda xs: sorted(xs)[len(xs) // 2]
+        rec = {"train_step_ms": {n: med(v) for n, v in ms.items()},
+               "train_step_ms_all": ms, "losses": losses,
+               "launches_per_merged_step": merged_counts[-1]}
+        log(f"merged_qkv {label}: bs {TRAIN_BATCH} bf16 dropout "
+            f"{base.dropout_rate} train_step_ms separate "
+            f"{rec['train_step_ms']['separate']:.3f} merged "
+            f"{rec['train_step_ms']['merged']:.3f} (in turns: separate "
+            f"{', '.join(f'{t:.3f}' for t in ms['separate'])}; merged "
+            f"{', '.join(f'{t:.3f}' for t in ms['merged'])}); launches per "
+            f"merged step K1/K1'/K2 {list(merged_counts[-1][0])}, strided "
+            f"{list(merged_counts[-1][1])} (expected {list(want[1])}); "
+            f"losses separate {', '.join(f'{x:.4f}' for x in losses['separate'])}"
+            f"; merged {', '.join(f'{x:.4f}' for x in losses['merged'])}")
+        if any(tuple(map(tuple, c)) != want for c in merged_counts):
+            fail(f"merged_qkv {label}: launches per step {merged_counts}, "
+                 f"expected {want}")
+        if not all(np.isfinite(v).all() for v in losses.values()) \
+                or not np.mean(losses["merged"][-3:]) < np.mean(
+                    losses["merged"][:3]):
+            fail(f"merged_qkv {label}: losses not finite or not falling: "
+                 f"{losses}")
+        # at dropout 0: the merged path against the separate one
+        lu, gu = _grads(vlt5, tree_leaves, tree_map, params, c_sep.model, gb,
+                        proto0, bf16)
+        lm, gm = _grads(vlt5, tree_leaves, tree_map, params, c_mer.model, gb,
+                        proto0, bf16)
+        rec["loss_rel"] = abs(lm - lu) / abs(lu)
+        rec["grad_rel"] = float((gm - gu).norm() / gu.norm())
+        tol = GRAD_REL_TOL["bfloat16"]
+        log(f"merged_qkv {label} vs separate at dropout 0, bf16 bs "
+            f"{TRAIN_BATCH}: loss {lm:.6f} vs {lu:.6f} (rel "
+            f"{rec['loss_rel']:.3e}), |g_merged - g_separate| / "
+            f"|g_separate| = {rec['grad_rel']:.3e} (tol {tol:g})")
+        if not (rec["loss_rel"] <= tol and rec["grad_rel"] <= tol):
+            fail(f"merged_qkv {label}: loss or gradients off the separate "
+                 f"path's")
+        del gu, gm, states
+        train[label] = rec
+    out["train"] = train
+    torch.cuda.empty_cache()
+
+    # greedy and beam tokens: merged and folded cross-K/V precompute vs
+    # separate, bf16 at the eval batch
+    cast = vlt5.cast_params_for_inference(params, bf16)
+    ebatch = collate(SyntheticVQA(EVAL_BATCH, seed=0).examples,
+                     with_targets=False)["tensors"]
+    decode = {}
+    for beams in (1, BEAM):
+        toks = {}
+        for n, c in (("separate", config(False)), ("merged", config(True)),
+                     ("folded", config(True, folded=True))):
+            step = make_eval_step(c, dtype=bf16, device="cuda",
+                                  num_beams=beams)
+            tk, k, ks = counted(lambda: step(cast, proto, ebatch))
+            toks[n] = tk.cpu().numpy()
+            if k != (base.num_layers, 0, 0) or ks != (
+                    base.num_layers if c.model.merged_qkv else 0, 0, 0):
+                fail(f"decode {n}: launches {k}, strided {ks}")
+        eq = {n: bool((toks[n] == toks["separate"]).all())
+              for n in ("merged", "folded")}
+        decode["greedy" if beams == 1 else f"beam{beams}"] = eq
+        log(f"decode {'greedy' if beams == 1 else f'beam {beams}'} bs "
+            f"{EVAL_BATCH} bf16: tokens equal to the separate path's: "
+            f"{json.dumps(eq)}; rows equal merged "
+            f"{float((toks['merged'] == toks['separate']).all(1).mean()):.3f}"
+            f", folded "
+            f"{float((toks['folded'] == toks['separate']).all(1).mean()):.3f}")
+        if not all(eq.values()):
+            fail("merged or folded decode tokens differ from the separate "
+                 "path's")
+    out["decode_tokens_equal"] = decode
+
+    # tiny f32: merged + folded card == CPU (three train steps, tokens)
+    tiny = {}
+    for fused_decoder in (False, True):
+        small = config(True, folded=True, fused_decoder=fused_decoder,
+                       model=tiny_model_config(vocab_size=32200,
+                                               dropout_rate=0.0))
+        small.train.lr = 1e-3
+        sm = small.model
+        sp = vlt5.init_vlt5_params(5, sm, device="cpu")
+        spro = ProtoState.create(sm.n_ques_types, sm.n_categories,
+                                 sm.d_model, device="cpu")
+        sb = [b["tensors"] for b in SyntheticVQA(
+            24, seed=6, feat_dim=sm.feat_dim, n_boxes=sm.n_boxes,
+            text_len=sm.max_text_length, vocab_size=sm.vocab_size,
+            answer_vocab=8).batches(8, seed=1)]
+        stx = make_transform(small.train)
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            st = TrainState.create(to_device(sp, dev), stx, spro.to(dev),
+                                   seed=0, warmup_iters=1.0, t_total=40.0)
+            step = make_train_step(small, dtype=f32, device=dev)
+            ls = []
+            for b in sb:
+                st, met = step(st, b)
+                ls.append(float(met["loss"]))
+            ev = {nb: make_eval_step(small, dtype=f32, device=dev,
+                                     num_beams=nb)(
+                st.params, st.proto, sb[0]).cpu().numpy()
+                for nb in (1, 3)}
+            runs[dev] = (ls, tree_leaves(st.params), ev)
+        (lg, pg, eg), (lc, pc, ec) = runs["cuda"], runs["cpu"]
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(lg, lc))
+        param_err = max(float((a.cpu() - b).abs().max())
+                        for a, b in zip(pg, pc))
+        same = all((eg[nb] == ec[nb]).all() for nb in eg)
+        tiny[f"fused_decoder={fused_decoder}"] = {
+            "loss_rel_err": loss_err, "param_err": param_err,
+            "tokens_equal": bool(same)}
+        log(f"small f32 merged+folded (fused_decoder={fused_decoder}): 3 "
+            f"steps card vs CPU: loss rel err {loss_err:.3e} (tol 1e-5), "
+            f"param max abs err {param_err:.3e} (tol {SMALL_PARAM_TOL:g}); "
+            f"greedy and beam-3 tokens equal {same}")
+        if not (loss_err <= 1e-5 and param_err <= SMALL_PARAM_TOL and same):
+            fail("merged+folded f32 on the card differs from the CPU")
+    out["tiny_merged_folded"] = tiny
+
+    # ---- 9c. the classifier head ----------------------------------------
+    ccfg = Config()
+    resolve_merged_qkv(ccfg.model)
+    cm = ccfg.model
+    head = vlt5.init_classifier_head(1, cm, CLS_ANSWERS, device="cuda")
+    tree = {"params": params, "head": head}
+    ctx = make_transform(ccfg.train)
+    opt = ctx.init(tree)
+    rng = np.random.default_rng(9)
+    tgt = np.zeros((TRAIN_BATCH, CLS_ANSWERS), np.float32)
+    for r in range(TRAIN_BATCH):       # VQA soft scores on 1-3 answers
+        n = int(rng.integers(1, 4))
+        tgt[r, rng.choice(CLS_ANSWERS, n, replace=False)] = rng.choice(
+            [0.3, 0.6, 0.9, 1.0], n)
+    tgt = torch.from_numpy(tgt).cuda()
+
+    def cls_step(tree, opt):
+        live = tree_map(lambda p: p.detach().requires_grad_(), tree)
+        hidden, mask = vlt5.encode(live["params"], cm, gb["input_ids"],
+                                   gb["vis_feats"], gb["boxes"], dtype=bf16)
+        logits = vlt5.classifier_logits(live["head"], cm, live["params"],
+                                        hidden, mask, dtype=bf16)
+        loss = vlt5.classifier_bce_loss(logits, tgt)
+        leaves = tree_leaves(live)
+        gs = torch.autograd.grad(loss, leaves, allow_unused=True)
+        g = tree_unflatten(tree, [torch.zeros_like(p) if x is None else x
+                                  for p, x in zip(leaves, gs)])
+        with torch.no_grad():
+            upd, opt = ctx.update(g, opt, tree)
+            tree = tree_map(lambda p, u: p - CLS_LR * u, tree, upd)
+        return tree, opt, float(loss.detach())
+
+    cls_losses, cls_counts, cls_ms = [], [], []
+    for _ in range(CLS_STEPS):
+        t0 = time.perf_counter()
+        (tree, opt, loss), k, ks = counted(lambda: cls_step(tree, opt))
+        cls_ms.append((time.perf_counter() - t0) * 1e3)
+        cls_losses.append(loss)
+        cls_counts.append((k, ks))
+    L = cm.num_layers
+    with torch.no_grad():
+        ccast = vlt5.cast_params_for_inference(tree["params"], bf16)
+        eb = {k: torch.from_numpy(ebatch[k]).cuda()
+              for k in ("input_ids", "vis_feats", "boxes")}
+
+        def cls_eval():
+            hidden, mask = vlt5.encode(ccast, cm, **eb, dtype=bf16)
+            return vlt5.classifier_logits(tree["head"], cm, ccast, hidden,
+                                          mask, dtype=bf16)
+
+        cls_eval()
+        (logits, eval_ms), k_eval, ks_eval = counted(
+            lambda: _events_ms(cls_eval, 3))
+    out["classifier"] = {"losses": cls_losses, "step_ms": cls_ms,
+                         "eval_ms": eval_ms, "launches_per_step": cls_counts,
+                         "eval_launches": [k_eval, ks_eval]}
+    log(f"classifier head: {CLS_ANSWERS} answers, bs {TRAIN_BATCH} bf16, "
+        f"HF-AdamW lr {CLS_LR:g} over (params, head): BCE "
+        f"{', '.join(f'{x:.5f}' for x in cls_losses)}; step ms (host clock) "
+        f"{', '.join(f'{t:.3f}' for t in cls_ms)}; launches per step "
+        f"K1/K1'/K2 {list(cls_counts[-1][0])} strided "
+        f"{list(cls_counts[-1][1])}; eval bs {EVAL_BATCH}: classifier_logits "
+        f"{tuple(logits.shape)} in {', '.join(f'{t:.3f}' for t in eval_ms)} "
+        f"ms (CUDA events), launches {list(k_eval)} strided {list(ks_eval)}")
+    if any(c != ((0, L, L), (0, L, L)) for c in cls_counts) \
+            or k_eval != (3 * L, 0, 0) or ks_eval != (3 * L, 0, 0):
+        fail("classifier head: unexpected kernel launches")
+    if not (np.isfinite(cls_losses).all() and cls_losses[-1] < cls_losses[0]
+            and bool(torch.isfinite(logits).all())):
+        fail(f"classifier head: loss did not fall: {cls_losses}")
+    del tree, opt, ccast
+    torch.cuda.empty_cache()
+
+    # ---- 9d. weight import and export, the directory checkpoint ---------
+    work = os.path.join(HERE, "build", "chip_smoke", "phase9")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    ref_leaves = {k: v.cpu() for k, v in ckpt._flat_tensors(params).items()}
+
+    def bit_equal(tree):
+        flat = ckpt._flat_tensors(tree)
+        return set(flat) == set(ref_leaves) and all(
+            torch.equal(flat[k].cpu(), ref_leaves[k]) for k in flat)
+
+    def du(path):
+        if os.path.isfile(path):
+            return os.path.getsize(path)
+        return sum(os.path.getsize(os.path.join(d, f))
+                   for d, _, fs in os.walk(path) for f in fs)
+
+    io = {}
+
+    def timed_io(name, save, load, path):
+        t0 = time.perf_counter()
+        save()
+        t1 = time.perf_counter()
+        got = load()
+        t2 = time.perf_counter()
+        io[name] = {"save_s": t1 - t0, "load_s": t2 - t1, "bytes": du(path)}
+        return got
+
+    pth = os.path.join(work, "t5_base.pth")
+    back = timed_io("pth", lambda: hf_import.save_reference_pth(
+        params, pth, base), lambda: hf_import.load_reference_pth(pth, base),
+        pth)
+    eq_pth = bit_equal(back)
+    st_dir = os.path.join(work, "t5_base_safetensors")
+    os.makedirs(st_dir)
+    back_st = timed_io("safetensors", lambda: hf_import.write_safetensors(
+        hf_import.to_state_dict(params, base),
+        os.path.join(st_dir, "model.safetensors")),
+        lambda: hf_import.load_t5_base(base, st_dir), st_dir)
+    eq_st = bit_equal(back_st)
+    # the eval step's tokens with the re-imported weights
+    ev = make_eval_step(Config(), dtype=bf16, device="cuda")
+    tok_orig = ev(cast, proto, ebatch).cpu().numpy()
+    tok_back = ev(vlt5.cast_params_for_inference(to_device(back_st, "cuda"),
+                                                 bf16), proto,
+                  ebatch).cpu().numpy()
+    same_tok = bool((tok_orig == tok_back).all())
+    del back, back_st
+    # export_pth on phase 7's checkpoint: the .pth holds its parameters
+    exp = os.path.join(work, "phase7_export.pth")
+    t0 = time.perf_counter()
+    export_pth.main([phase7_ckpt, exp])
+    export_s = time.perf_counter() - t0
+    p7, _, _ = ckpt.load_checkpoint(phase7_ckpt)
+    e7 = hf_import.load_reference_pth(exp, base)
+    f7, fe = ckpt._flat_tensors(p7), ckpt._flat_tensors(e7)
+    eq_export = set(f7) == set(fe) and all(torch.equal(f7[k], fe[k])
+                                           for k in f7)
+    io["export_pth"] = {"save_s": export_s, "bytes": du(exp)}
+    del p7, e7, f7, fe
+    # the directory checkpoint (torch.distributed.checkpoint)
+    dcp_dir = os.path.join(work, "dcp")
+    dp, dproto, dstep = timed_io(
+        "dcp", lambda: ckpt.save_checkpoint_dcp(dcp_dir, params, proto, 7),
+        lambda: ckpt.load_checkpoint_dcp(dcp_dir), dcp_dir)
+    eq_dcp = bit_equal(dp) and dstep == 7 and all(
+        torch.equal(a.cpu(), b) for a, b in zip(proto, dproto))
+    del dp, dproto
+    shutil.rmtree(work, ignore_errors=True)
+    out["io"] = io
+    out["io_equal"] = {"pth": eq_pth, "safetensors": eq_st,
+                       "eval_tokens": same_tok, "export_pth": eq_export,
+                       "dcp": eq_dcp}
+    log("weights: " + "; ".join(
+        f"{n} {r['bytes']} bytes, save {r['save_s']:.3f} s"
+        + (f", load {r['load_s']:.3f} s" if "load_s" in r else "")
+        for n, r in io.items())
+        + f"; bit-equal / equal: {json.dumps(out['io_equal'])}")
+    if not all(out["io_equal"].values()):
+        fail("weights changed through import, export or the directory "
+             "checkpoint")
+
+    # ---- 9e. VL-BART at bart-base widths --------------------------------
+    bc = SimpleNamespace(**BART_CFG)
+    bp = bart.init_bart_params(0, bc, device="cuda")
+    ids, am, feats, boxes, labels = _bart_inputs(bc, TRAIN_BATCH, seed=3)
+
+    def bart_fwd():
+        with torch.no_grad():
+            enc, mask = bart.bart_encode(bp, bc, ids, am, feats, boxes,
+                                         dtype=bf16)
+            return bart.bart_decode_train(bp, bc, enc, mask, labels,
+                                          dtype=bf16)
+
+    bart_fwd()
+    logits, bart_ms = _events_ms(bart_fwd, 3)
+    ok_shape = tuple(logits.shape) == (TRAIN_BATCH, bc.target_len,
+                                       bc.vocab_size)
+    finite = bool(torch.isfinite(logits).all())
+    del bp, logits
+    tc = SimpleNamespace(**BART_TINY)
+    tp = bart.init_bart_params(1, tc, device="cpu")
+    t_in = _bart_inputs(tc, 4, seed=4)
+    bart_err = 0.0
+    for regions in (False, True):
+        res = {}
+        for dev in ("cuda", "cpu"):
+            i, a, f_, b_, lab = (x.to(dev) for x in t_in)
+            pd = to_device(tp, dev)
+            enc, mask = bart.bart_encode(pd, tc, i, a,
+                                         f_ if regions else None,
+                                         b_ if regions else None)
+            res[dev] = bart.bart_decode_train(pd, tc, enc, mask,
+                                              lab).cpu()
+        diff = (res["cuda"] - res["cpu"]).abs()
+        bart_err = max(bart_err, float((diff / (F32_CARD_RTOL * (
+            1.0 + res["cpu"].abs()))).max()))
+    out["bart"] = {"forward_ms": bart_ms, "finite": finite,
+                   "shape_ok": ok_shape, "tiny_f32_err_over_tol": bart_err}
+    log(f"vl_bart: bart-base widths ({bc.num_layers}+{bc.num_decoder_layers}"
+        f" layers, d_model {bc.d_model}, vocab {bc.vocab_size}), bs "
+        f"{TRAIN_BATCH} bf16, {bc.text_len} text + {bc.n_boxes} regions, "
+        f"{bc.target_len} answer tokens: encode + decode_train "
+        f"{', '.join(f'{t:.3f}' for t in bart_ms)} ms (CUDA events), finite "
+        f"{finite}, shape ok {ok_shape}; tiny f32 card vs CPU with and "
+        f"without regions: max err / (1e-5 (1 + |cpu|)) = {bart_err:.3e}")
+    if not (finite and ok_shape and bart_err <= 1.0):
+        fail("VL-BART: not finite, wrong shape or the card differs from "
+             "the CPU")
+    log(f"phase 9 launches K1={k_total[0]} K1'={k_total[1]} K2={k_total[2]}")
+    return out, k_total
+
+
 def main(argv=None) -> int:
     global BASE_CSRC
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1379,6 +2087,7 @@ def main(argv=None) -> int:
     def zero_counts():
         for c in counters:
             c.launches = 0
+            c.strided_launches = 0
 
     def read_counts():
         return tuple(c.launches for c in counters)
@@ -1925,10 +2634,15 @@ def main(argv=None) -> int:
                 f"dropout {cm.dropout_rate}, batch {TRAIN_BATCH}, eval batch "
                 f"{EVAL_BATCH}, tasks {list(CL_TASKS)}, "
                 f"{len(cdata.train_items(CL_TASKS[0]))} "
-                f"train items per task, m_size {CL_M_SIZE}, cl_reg {reg}; "
-                f"set-up {time.time() - t0:.1f} s")
+                f"train items per task, m_size {CL_M_SIZE}, cl_reg {reg}, "
+                f"merged_qkv {cm.merged_qkv} (the trainer's resolve of "
+                f"'auto'); set-up {time.time() - t0:.1f} s")
             cl[name] = drive_cl(trainer, f"cl_{name}",
                                 (zero_counts, read_counts, cm.num_layers))
+            if name == "er":   # phase 9 exports its last checkpoint
+                os.makedirs(P7_DIR, exist_ok=True)
+                os.replace(os.path.join(out, f"{CL_TASKS[-1]}_LAST.npz"),
+                           P7_CKPT)
         cl_k = [a + b for a, b in zip(cl_k, cl[name]["launches"])]
         del trainer
         torch.cuda.empty_cache()
@@ -1989,6 +2703,16 @@ def main(argv=None) -> int:
                                   eval_step_ms, cl_tok)
     log(f"phase 8 in {time.time() - t0:.1f} s")
 
+    # ---- 9. the model extensions ----------------------------------------
+    t0 = time.time()
+    try:
+        ext9, p9_k = model_extensions(
+            params, proto, (zero_counts, read_counts, strided_counts),
+            cl_tok, P7_CKPT)
+    finally:
+        shutil.rmtree(P7_DIR, ignore_errors=True)
+    log(f"phase 9 in {time.time() - t0:.1f} s")
+
     def row(name, source, replaces, launches, r):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
@@ -2000,18 +2724,19 @@ def main(argv=None) -> int:
     # fused-decoder loss-eval step and the CL loops' predict and DER
     # capture batches; K1′/K2 in the train steps with the plain and with
     # the fused decoder and in the CL loops' train, replay and importance
-    # steps; K5 in the probe; phase 8's beam, cached, HTTP and pack runs
+    # steps; K5 in the probe; phase 8's beam, cached, HTTP and pack runs;
+    # phase 9's merged train steps, decodes and classifier head
     kernels = [
         row("fused_attention_fwd", fwd_src,
             "vqacl_tpu/ops/fused_attention.py:159",
-            eval_launches + loss_eval_k1 + cl_k[0] + p8_k[0], k1),
+            eval_launches + loss_eval_k1 + cl_k[0] + p8_k[0] + p9_k[0], k1),
         row("fused_attention_fwd_train", fwd_src,
             "vqacl_tpu/ops/fused_attention.py:199",
-            train_k1p + fd_k1p + cl_k[1] + p8_k[1], k1p),
+            train_k1p + fd_k1p + cl_k[1] + p8_k[1] + p9_k[1], k1p),
         row("fused_attention_bwd",
             "vqacl_tpu_torch/csrc/fused_attention_bwd.cu",
             "vqacl_tpu/ops/fused_attention.py:272",
-            train_k2 + fd_k2 + cl_k[2] + p8_k[2], k2),
+            train_k2 + fd_k2 + cl_k[2] + p8_k[2] + p9_k[2], k2),
         row("dw_splitk", "vqacl_tpu_torch/csrc/dw_splitk.cu",
             "scripts/mm_bench.py:121", dw_launches, k5),
     ]
@@ -2058,6 +2783,7 @@ def main(argv=None) -> int:
         "cl_tiny": {"loss_rel_err": tiny_err, "equal": same,
                     "launches": card_run["launches"]},
         "serving_extras": extras, "serving_extras_launches": p8_k,
+        "model_extensions": ext9, "model_extensions_launches": p9_k,
         "serve": st, "serve_wall_s": wall, "card": card}))
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -13,10 +13,13 @@ the plain and with the fused decoder, per loss-eval step, per remat
 mode, per served batch and in the probe, the kernels JSON line with all
 its keys, the card line and the final verdict line; in phase 7 the CL
 runs it makes (ER, EWC, DER++ and the tiny card-vs-CPU run) and each
-one's K1/K1′/K2 launches against its steps and batches; in phase 8 the
-beam, device-cache, cached-CL, HTTP and pack checks and their launches,
-at a cache of a few hundred images — and that without CUDA the real
-script prints no result and exits non-zero.
+one's K1/K1′/K2 launches against its steps and batches, all strided
+(merged projections); in phase 8 the beam, device-cache, cached-CL, HTTP
+and pack checks and their launches, at a cache of a few hundred images;
+in phase 9 the strided kernel checks, the merged and folded paths, the
+classifier head, weight import/export, the directory checkpoint and
+VL-BART (tiny BART widths) — and that without CUDA the real script
+prints no result and exits non-zero.
 """
 
 import json
@@ -72,6 +75,11 @@ class CpuGenerator(_Generator):   # a type, as annotations in torch need
         return _Generator()
 torch.Generator = CpuGenerator
 
+# DCP's file writer stages through CUDA streams when it sees a card (the
+# rehearsal claims one): its serial loader here
+import torch.distributed.checkpoint.filesystem as FS
+FS._OverlappingCpuLoader = lambda fn, **kw: FS._SerialCpuLoader(fn)
+
 from vqacl_tpu_torch.utils import device as D
 cpu = lambda d: torch.device("cpu")
 import vqacl_tpu_torch.models.vlt5 as V, vqacl_tpu_torch.serve as SV
@@ -85,26 +93,41 @@ DC.resolve_device = cpu
 from vqacl_tpu_torch.ops import _build, fused_attention as fa
 _build.build = lambda names=(), csrc=None: []
 dispatch = fa.fused_attention
-def route(q, k, H):      # the wrappers' validation, before any launch
-    fa.fwd_route(q.dtype, q.shape[-1] // H, q.shape[1], k.shape[1])
+fwd_train, bwd = fa.fused_attention_fwd_train, fa.fused_attention_bwd
+def rows(what, route, q, k, v, more=()):
+    # the wrappers' layout checks: rows of one stride each, 16-byte rows
+    # on the bf16 route → whether the call is strided
+    lds = fa._qkv_strides(q, k, v)
+    if route == "mma":
+        fa._check_rows16(what, list(zip("qkv", (q, k, v), lds)) + list(more))
+    return lds != (q.shape[-1],) * 3
+def route(q, k, v, H):   # the wrappers' validation, before any launch
+    r = fa.fwd_route(q.dtype, q.shape[-1] // H, q.shape[1], k.shape[1])
+    return rows("fused_attention", r, q, k, v)
 def counted(q, k, v, bias, mask, H, dropout_rate=0.0, seed=None):
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         fa.bwd_route(q.dtype, q.shape[-1] // H, q.shape[1], k.shape[1],
                      dropout_rate)
         return dispatch(q, k, v, bias, mask, H, dropout_rate, seed)
-    route(q, k, H)
+    counted.strided_launches += route(q, k, v, H)
     counted.launches += 1
     return fa.fused_attention_reference(q, k, v, bias, mask, H)
 def counted_fwd_train(*a):
-    route(a[0], a[1], a[6])
+    counted_fwd_train.strided_launches += route(a[0], a[1], a[2], a[6])
     counted_fwd_train.launches += 1
-    return fa.fused_attention_fwd_train_reference(*a)
-def counted_bwd(*a):
+    return fwd_train(*a)             # the plain version on CPU tensors
+def counted_bwd(*a, **kw):
+    q, k, v, do, H = a[0], a[1], a[2], a[5], a[6]
+    r = fa.bwd_route(q.dtype, q.shape[-1] // H, q.shape[1], k.shape[1], a[8])
+    strided = rows("fused_attention_bwd", r, q, k, v,
+                   [("do", do, do.shape[-1])])
+    res = bwd(*a, **kw)              # the plain version on CPU tensors
     counted_bwd.launches += 1
-    return fa.fused_attention_bwd_reference(*a)
+    counted_bwd.strided_launches += strided
+    return res
 for f in (counted, counted_fwd_train, counted_bwd):
-    f.launches = 0
+    f.launches = f.strided_launches = 0
 fa.fused_attention = counted
 fa.fused_attention_fwd_train = counted_fwd_train
 fa.fused_attention_bwd = counted_bwd
@@ -141,6 +164,10 @@ chip_smoke.CL_TINY = (24, 8, 8)
 chip_smoke.CL_TINY_BATCH = 8
 chip_smoke.CACHE_IMAGES = 300
 chip_smoke.PACK_IMAGES = 24
+chip_smoke.MERGED_ROUNDS = 2
+chip_smoke.CLS_ANSWERS = 16
+chip_smoke.CLS_LR = 1e-2
+chip_smoke.BART_CFG = dict(chip_smoke.BART_TINY, dropout_rate=0.1)
 with CudaOnCpu():
     sys.exit(chip_smoke.main())
 """
@@ -238,14 +265,22 @@ def test_chip_smoke_rehearsal_on_cpu():
     assert p8_k[0] == 2 * (3 + 1 + p8["http"]["batches"] + 2) + ext_cl[0]
     # K1'/K2: one cached train step of 2 layers
     assert p8_k[1] == p8_k[2] == 2 + ext_cl[1]
+    # phase 9: K1 in 6 eval steps (greedy and beam, separate, merged and
+    # folded) and 3 classifier evals; K1'/K2 in 3 rounds of 4 train steps
+    # with the plain (2 layers) and the fused decoder (6 attentions), and
+    # in 5 classifier steps
+    p9 = summary["model_extensions"]
+    p9_k = summary["model_extensions_launches"]
+    assert p9_k[0] == 2 * (6 + 3)
+    assert p9_k[1] == p9_k[2] == 3 * 4 * (2 + 6) + 5 * 2
     # K1: 2 layers x 3 timed eval steps, plus one fused-decoder loss-eval
     # step (2 encoder + 2 x 2 decoder attentions), plus the CL loops
-    assert k1["launches"] == 2 * 3 + 6 + cl_k[0] + p8_k[0]
+    assert k1["launches"] == 2 * 3 + 6 + cl_k[0] + p8_k[0] + p9_k[0]
     assert "fused_attention launches=6 (2/step)" in r.stdout
     # K1'/K2: 4 train steps x 2 encoder layers, and 4 fused-decoder
     # steps x (2 encoder + 2 x 2 decoder) attentions, plus the CL loops
     assert k1p["launches"] == k2["launches"] == 2 * 4 + 6 * 4 + cl_k[1] \
-        + p8_k[1]
+        + p8_k[1] + p9_k[1]
     assert cl_k[1] == cl_k[2]
     assert "train_step: bs 8 bf16" in r.stdout
     assert "launches over 4 steps: K1=0 K1'=8 K2=8" in r.stdout
@@ -333,6 +368,47 @@ def test_chip_smoke_rehearsal_on_cpu():
         "True" in r.stdout
     assert not os.path.exists(os.path.join(REPO, "build", "chip_smoke",
                                            "phase8.vfpack"))
+    # phase 7 runs merged (the trainer resolves "auto"): every launch of
+    # its loops strided
+    for name, run in cl.items():
+        assert run["merged_qkv"] and run["strided_launches"] == \
+            run["launches"], name
+        assert f"cl_{name}: t5-base bf16 compute" in r.stdout
+    assert "merged_qkv True (the trainer's resolve of 'auto')" in r.stdout
+    # phase 9: strided K1/K1'/K2 bit-equal to dense at every shape and
+    # layout, the bad stride refused, merged/folded steps, tokens, the
+    # classifier head, weights through .pth/.safetensors/export/DCP,
+    # VL-BART
+    checks = [l for l in lines if l.startswith("strided_check ")
+              and "refused" not in l]
+    assert len(checks) == 2 * 6 + 3
+    assert all('"K1\'": true, "K2": true, "K2 merged buffer": true' in l
+               and "strided launches K1/K1'/K2 [" in l for l in checks)
+    assert sum("layout=folded" in l for l in checks) == 2
+    assert sum(l.startswith("strided_time ") for l in lines) == \
+        3 * 2 + 1 + 2
+    assert "K1, K1' and K2 raise ValueError before any launch" in r.stdout
+    for label, per_step in (("encoder", 2), ("fused_decoder", 6)):
+        t = p9["train"][label]
+        assert t["launches_per_merged_step"] == [[0, per_step, per_step]] * 2
+        assert t["grad_rel"] <= 3e-2 and t["loss_rel"] <= 3e-2
+        assert len(t["train_step_ms_all"]["merged"]) == 2 * 2
+    assert p9["decode_tokens_equal"] == {
+        "greedy": {"merged": True, "folded": True},
+        "beam5": {"merged": True, "folded": True}}
+    assert all(t["tokens_equal"] and t["loss_rel_err"] <= 1e-5
+               for t in p9["tiny_merged_folded"].values())
+    cls = p9["classifier"]
+    assert len(cls["losses"]) == 5 and cls["losses"][-1] < cls["losses"][0]
+    assert cls["eval_launches"] == [[6, 0, 0], [6, 0, 0]]
+    assert all(p9["io_equal"].values()) and set(p9["io"]) == {
+        "pth", "safetensors", "export_pth", "dcp"}
+    assert all(r_["bytes"] > 0 for r_ in p9["io"].values())
+    assert p9["bart"]["finite"] and p9["bart"]["shape_ok"]
+    assert p9["bart"]["tiny_f32_err_over_tol"] <= 1.0
+    for d in ("phase7", "phase9"):
+        assert not os.path.exists(os.path.join(REPO, "build", "chip_smoke",
+                                               d))
 
 
 def test_chip_smoke_without_cuda_prints_no_result():

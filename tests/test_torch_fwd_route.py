@@ -238,3 +238,85 @@ def test_signatures_match_the_sources(stem):
         for c_decl, t in zip(params, argtypes):
             assert t.__name__ == _ctype(c_decl), (name, c_decl, t)
         assert restype.__name__ == _ctype(ret), (name, ret)
+
+
+# ---- strided q/k/v (merged projections) ---------------------------------
+
+def _merged(B, S, H, dk, n=3, pad=0, dtype=torch.bfloat16):
+    """n column slices [B,S,H·dk] of one [B,S,n·H·dk + pad] buffer."""
+    W = H * dk
+    buf = torch.zeros(B, S, n * W + pad, dtype=dtype)
+    return [buf[..., i * W:(i + 1) * W] for i in range(n)]
+
+
+@pytest.mark.parametrize("n,want", [(3, 2304), (2, 1536), (24, 18432)])
+def test_merged_t5_base_strides_pass(n, want):
+    """t5-base's merged self q/k/v, cross k/v and 12-layer folded cross
+    k/v slices: rows of one stride each, 16-byte rows for bf16."""
+    views = _merged(2, 5, 12, 64, n=n)
+    q, k, v = views[0], views[n - 2], views[n - 1]
+    lds = fa._qkv_strides(q, k, v)
+    assert lds == (want,) * 3
+    fa._check_rows16("fused_attention", zip("qkv", (q, k, v), lds))
+
+
+def test_row_stride_refuses_other_layouts():
+    W = 32
+    good = torch.zeros(3, 5, 3 * W)[..., :W]
+    assert fa._row_stride("q", good, torch.float32, (3, 5, W)) == 3 * W
+    assert fa._row_stride("q", torch.zeros(3, 5, W), torch.float32,
+                          (3, 5, W)) == W
+    bad = {"last dim not contiguous": torch.zeros(3, 5, 2 * W)[..., ::2],
+           "batch stride not S rows": torch.zeros(5, 3, W).transpose(0, 1),
+           "heads interleaved": torch.zeros(3, 5, W, 2)[..., 0]}
+    for why, t in bad.items():
+        with pytest.raises(ValueError, match="rows of one stride"):
+            fa._row_stride("q", t, torch.float32, (3, 5, W))
+    with pytest.raises(ValueError, match="shape"):
+        fa._row_stride("q", good, torch.float32, (3, 5, W + 1))
+    with pytest.raises(ValueError, match="bfloat16"):
+        fa._row_stride("q", good, torch.bfloat16, (3, 5, W))
+
+
+@pytest.mark.parametrize("pad,offset", [(4, 0), (0, 4)])
+def test_bf16_rows_off_16_bytes_are_refused(pad, offset):
+    """A bf16 row stride, or a base offset, that is not a multiple of 8
+    elements is refused: cp.async moves 16-byte chunks."""
+    W = 4 * 64
+    buf = torch.zeros(2, 5, 3 * W + pad + offset, dtype=torch.bfloat16)
+    views = [buf[..., offset + i * W:offset + (i + 1) * W] for i in range(3)]
+    lds = fa._qkv_strides(*views)
+    with pytest.raises(ValueError, match="16 bytes"):
+        fa._check_rows16("fused_attention", zip("qkv", views, lds))
+
+
+def test_k1_wrapper_refuses_a_bad_stride_before_building(monkeypatch):
+    # as test_k1_wrapper_refuses_before_building: a bf16 view of stride
+    # 772 (not a multiple of 8) raises before the library is loaded
+    monkeypatch.setattr(fa, "_validate_qkv",
+                        lambda q, k, v, H, extra=(): (*q.shape[:2],
+                                                      k.shape[1],
+                                                      q.shape[2] // H))
+    q, k, v = _merged(2, 8, 4, 64, pad=4)
+    mask = torch.ones(2, 8)
+    before = (fa.fused_attention.launches,
+              fa.fused_attention.strided_launches)
+    with pytest.raises(ValueError, match="16 bytes"):
+        fa._launch_k1(q, k, v, None, mask, 4)
+    assert (fa.fused_attention.launches,
+            fa.fused_attention.strided_launches) == before
+
+
+def test_strided_entries_keep_the_dense_ones():
+    """The strided entries sit beside the dense ones, whose C signatures
+    are unchanged (another checkout's libraries still load), with three
+    more int arguments (ldq, ldk, ldv)."""
+    fwd = _build.SIGNATURES["fused_attention_fwd"]
+    bwd = _build.SIGNATURES["fused_attention_bwd"]
+    for table, name in ((fwd, "fused_attention_fwd"),
+                        (fwd, "fused_attention_fwd_train"),
+                        (bwd, "fused_attention_bwd")):
+        dense, strided = table[name][0], table[name + "_strided"][0]
+        assert len(strided) == len(dense) + 3
+        assert [t.__name__ for t in strided].count("c_int") == \
+            [t.__name__ for t in dense].count("c_int") + 3

@@ -274,11 +274,15 @@ def test_tokenizer_and_collate_match_jax():
 
 def test_port_imports_nothing_of_jax():
     """Every module of the port, and chip_smoke.py, imports with ``jax``,
-    ``vqacl_tpu``, ``h5py`` and ``ml_dtypes`` blocked (a None entry in
-    sys.modules makes any import of them raise)."""
+    ``vqacl_tpu``, ``h5py``, ``ml_dtypes``, ``transformers``,
+    ``safetensors`` and ``orbax`` blocked (a None entry in sys.modules
+    makes any import of them raise); the weight files and the directory
+    checkpoint are written and read with them blocked too."""
     code = r"""
-import importlib, pkgutil, runpy, sys
-for name in ("jax", "jaxlib", "vqacl_tpu", "h5py", "ml_dtypes"):
+import importlib, os, pkgutil, runpy, sys, tempfile
+BLOCKED = ("jax", "jaxlib", "vqacl_tpu", "h5py", "ml_dtypes", "transformers",
+           "safetensors", "orbax")
+for name in BLOCKED:
     sys.modules[name] = None
 import vqacl_tpu_torch
 mods = [m.name for m in pkgutil.walk_packages(vqacl_tpu_torch.__path__,
@@ -286,7 +290,22 @@ mods = [m.name for m in pkgutil.walk_packages(vqacl_tpu_torch.__path__,
 for m in mods:
     importlib.import_module(m)
 runpy.run_path("chip_smoke.py", run_name="chip_smoke_import_check")
-bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax")
+from vqacl_tpu_torch.models import hf_import, vlt5
+from vqacl_tpu_torch.models.prototype import ProtoState
+from vqacl_tpu_torch.train import checkpoint
+from vqacl_tpu_torch.utils.config import tiny_model_config
+cfg = tiny_model_config()
+p = vlt5.init_vlt5_params(0, cfg, device="cpu")
+with tempfile.TemporaryDirectory() as d:
+    hf_import.write_safetensors(hf_import.to_state_dict(p, cfg),
+                                os.path.join(d, "model.safetensors"))
+    hf_import.load_t5_base(cfg, d)
+    hf_import.save_reference_pth(p, os.path.join(d, "m.pth"), cfg)
+    hf_import.load_reference_pth(os.path.join(d, "m.pth"), cfg)
+    checkpoint.save_checkpoint_dcp(os.path.join(d, "dcp"), p,
+                                   ProtoState.create(10, 80, 32, device="cpu"))
+    checkpoint.load_checkpoint_dcp(os.path.join(d, "dcp"))
+bad = [m for m in sys.modules if m.split(".")[0] in BLOCKED + ("flax",)
        and sys.modules[m] is not None]
 assert not bad, bad
 print(" ".join(mods))
@@ -302,7 +321,8 @@ print("imported", len(mods))
               "cl.tasks", "cl.metrics", "cl.exemplar", "cl.regularizers",
               "cl.trainer", "cl.comp_trainer", "evaluation.vqa_acc",
               "data.partition", "data.synthetic_module", "cli.serve_http",
-              "data.device_cache", "data.packed_cache"):
+              "data.device_cache", "data.packed_cache", "models.hf_import",
+              "models.bart", "cli.export_pth", "train.checkpoint"):
         assert f"vqacl_tpu_torch.{m}" in imported, m
 
 

@@ -86,6 +86,7 @@ from vqacl_tpu_torch.train.state import TrainState
 from vqacl_tpu_torch.train.step import (make_der_replay_step,
                                         make_eval_step, make_logits_step,
                                         make_train_step)
+from vqacl_tpu_torch.utils.config import resolve_merged_qkv
 from vqacl_tpu_torch.utils.device import resolve_device
 
 CL_REGS = ("none", "ewc", "mas", "der", "derpp")
@@ -141,6 +142,9 @@ class VQACLTrainer:
         weights either way)."""
         self.device = resolve_device(device)
         _refuse_unported(cfg)
+        # "auto" → merged projections on the one device, as JAX's trainer
+        # resolves it
+        resolve_merged_qkv(cfg.model, n_devices=1)
         self.cfg = cfg
         self.data = data
         self.tok = tokenizer

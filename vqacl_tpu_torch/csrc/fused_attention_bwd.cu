@@ -23,7 +23,14 @@
 // batch order: deterministic, with no atomics. With L == 0 neither dbias
 // nor the partials are written. q/dq are [B, Tq, H*dk], k/v/dk/dv
 // [B, Sk, H*dk] (the projection GEMMs' layout), and Tq != Sk is allowed
-// (decoder cross-attention), as in the forward.
+// (decoder cross-attention), as in the forward. q, k and v are read, and
+// dq, dk and dv written, as rows of their operand's stride (ldq, ldk, ldv
+// elements, at least H*dk; do is dense): with merged projections q, k and
+// v are column slices of one [B, S, 3*H*dk] GEMM output and dq, dk and dv
+// land in the matching slices of one gradient buffer of that layout, which
+// the merged projection's backward takes whole (one dX and one dW
+// product). Only global addresses change with the strides, never the
+// shared-memory layouts or the arithmetic.
 //
 // What bounds it on the card. At the train shape (B=80, Tq=Sk=56, H=12,
 // dk=64, bf16) it reads q/k/v/do 27.5 MB and p 12.0 MB and writes
@@ -42,7 +49,8 @@
 //   - Work is cut into units: one batch row b and `heads` heads of it. A
 //     unit's stage holds, per head, the q and do panels [Tqp][dk+8] and
 //     the k and v panels [Skp][dk+8] as bf16, copied in with cp.async
-//     (16-byte chunks of the rows at stride H*dk), and the ds and pd tiles
+//     (16-byte chunks of the rows at each operand's stride, so every row
+//     starts on 16 bytes), and the ds and pd tiles
 //     [Tqp][Skp+8] that the first phase writes for the second, each as a
 //     hi and a lo bf16 tile (Tqp, Skp: Tq, Sk rounded up to 16). Rows from Tq and Sk are zero-filled,
 //     so padded elements give ds = pd = 0. The 8-element row padding puts
@@ -102,8 +110,8 @@
 //     spills in any instance: 167 for dk <= 64 with one key tile (held to
 //     170 by its launch bounds, so 3 blocks of 4 warps fit on an SM by
 //     registers as by shared memory; 396 resident, so the train shape's
-//     960 units take 2.4 waves), 209 for dk <= 64 with longer rows, 235
-//     and 247 for dk 128. Fetching a warp's first p and keep bits before
+//     960 units take 2.4 waves), 209 for dk <= 64 with longer rows, 232
+//     and 248 for dk 128. Fetching a warp's first p and keep bits before
 //     the copy wait (as K1' draws its keep bits) was tried and gave
 //     nothing (PERF.md, PR 5); so were 1 and 2 heads per unit at the
 //     decoder shapes (4 is fastest at the cross shape, within 6 % at the
@@ -165,7 +173,8 @@ bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
            const int* __restrict__ seed, const T* __restrict__ dout,
            T* __restrict__ dq, T* __restrict__ dk_out, T* __restrict__ dv,
            float* __restrict__ dbias_part, int Tq, int Sk, int H, int dk,
-           int L, int dropout, uint32_t thresh, float keep_div) {
+           int L, int ldq, int ldk, int ldv, int dropout, uint32_t thresh,
+           float keep_div) {
   extern __shared__ float smem[];
   const int h = blockIdx.x;
   const int b = blockIdx.y;
@@ -181,19 +190,21 @@ bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* sdp = spd + (size_t)Tq * Sk;
   uint8_t* skeep = reinterpret_cast<uint8_t*>(sdp + (size_t)kWarps * Sk);
 
-  const size_t qoff = (size_t)b * Tq * HD + (size_t)h * dk;
-  const size_t koff = (size_t)b * Sk * HD + (size_t)h * dk;
+  const size_t qoff = (size_t)b * Tq * ldq + (size_t)h * dk;
+  const size_t ooff = (size_t)b * Tq * HD + (size_t)h * dk;
+  const size_t koff = (size_t)b * Sk * ldk + (size_t)h * dk;
+  const size_t voff = (size_t)b * Sk * ldv + (size_t)h * dk;
   for (int idx = threadIdx.x; idx < Tq * dk; idx += kThreads) {
     const int i = idx / dk;
     const int d = idx - i * dk;
-    sq[i * ld + d] = to_f32(q[qoff + (size_t)i * HD + d]);
-    sdo[i * ld + d] = to_f32(dout[qoff + (size_t)i * HD + d]);
+    sq[i * ld + d] = to_f32(q[qoff + (size_t)i * ldq + d]);
+    sdo[i * ld + d] = to_f32(dout[ooff + (size_t)i * HD + d]);
   }
   for (int idx = threadIdx.x; idx < Sk * dk; idx += kThreads) {
     const int j = idx / dk;
     const int d = idx - j * dk;
-    sk[j * ld + d] = to_f32(k[koff + (size_t)j * HD + d]);
-    sv[j * ld + d] = to_f32(v[koff + (size_t)j * HD + d]);
+    sk[j * ld + d] = to_f32(k[koff + (size_t)j * ldk + d]);
+    sv[j * ld + d] = to_f32(v[voff + (size_t)j * ldv + d]);
   }
   const float* pb = p + (size_t)bh * Tq * Sk;
   const uint32_t s0 = dropout ? (uint32_t)seed[0] : 0u;
@@ -238,7 +249,7 @@ bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       if (i < Lq && j < Lk) part[i * L + j] = ds;
     }
     __syncwarp();
-    T* dqr = dq + qoff + (size_t)i * HD;
+    T* dqr = dq + qoff + (size_t)i * ldq;
     for (int d = lane; d < dk; d += 32) {
       float acc = 0.0f;
       for (int j = 0; j < Sk; ++j) acc = fmaf(prow[j], sk[j * ld + d], acc);
@@ -257,8 +268,8 @@ bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       acc_k = fmaf(sp[i * Sk + j], sq[i * ld + d], acc_k);
       acc_v = fmaf(spd[i * Sk + j], sdo[i * ld + d], acc_v);
     }
-    dk_out[koff + (size_t)j * HD + d] = from_f32<T>(acc_k);
-    dv[koff + (size_t)j * HD + d] = from_f32<T>(acc_v);
+    dk_out[koff + (size_t)j * ldk + d] = from_f32<T>(acc_k);
+    dv[voff + (size_t)j * ldv + d] = from_f32<T>(acc_v);
   }
 }
 
@@ -304,8 +315,8 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    const float* p, const int* seed, const void* dout,
                    void* dq, void* dk_out, void* dv, float* dbias_part,
                    float* dbias, int B, int Tq, int Sk, int H, int dk, int L,
-                   int dropout, uint32_t thresh, float keep_div,
-                   cudaStream_t stream) {
+                   int ldq, int ldk, int ldv, int dropout, uint32_t thresh,
+                   float keep_div, cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * (2 * (size_t)Tq * (dk + 1) + 2 * (size_t)Sk * (dk + 1) +
                        2 * (size_t)Tq * Sk + (size_t)kWarps * Sk) +
@@ -321,7 +332,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), p, seed, static_cast<const T*>(dout),
       static_cast<T*>(dq), static_cast<T*>(dk_out), static_cast<T*>(dv),
-      dbias_part, Tq, Sk, H, dk, L, dropout, thresh, keep_div);
+      dbias_part, Tq, Sk, H, dk, L, ldq, ldk, ldv, dropout, thresh, keep_div);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || L == 0) return err;
   return launch_dbias_reduce(dbias_part, dbias, B, H, L, stream);
@@ -392,7 +403,8 @@ struct BwdArgs {
   int ldt;            // ds / pd tile row stride, Skp + 8 elements
   int chunks;         // 16-byte chunks per panel row, d / 8
   int rows_per_pass;  // panel rows a block's threads copy at once
-  int HD;             // H * d
+  int HD;             // H * d: the row stride of do
+  int ldq, ldk, ldv;  // row strides of q/dq, k/dk and v/dv (>= HD)
   int tqp, skp;       // Tq, Sk rounded up to 16
   int qtiles, ktiles; // 16-row query and key tiles per head
   int qitems, kitems; // heads * qtiles, heads * ktiles
@@ -418,17 +430,21 @@ __device__ __forceinline__ void stage_unit(const BwdArgs& a, int u,
     const size_t col = (size_t)(h0 + hl) * a.d + cc;
     for (int i = rr; i < a.tqp; i += a.rows_per_pass) {
       const bool in = i < a.Tq;
-      const size_t off = ((size_t)b * a.Tq + i) * a.HD + col;
+      const size_t row = (size_t)b * a.Tq + i;
       const int dst = hl * a.qpanel + i * a.ld + cc;
-      sm90::cp_async16(sq + dst, in ? a.q + off : a.q, in ? 16 : 0);
-      sm90::cp_async16(sdo + dst, in ? a.dout + off : a.dout, in ? 16 : 0);
+      sm90::cp_async16(sq + dst, in ? a.q + row * a.ldq + col : a.q,
+                       in ? 16 : 0);
+      sm90::cp_async16(sdo + dst, in ? a.dout + row * a.HD + col : a.dout,
+                       in ? 16 : 0);
     }
     for (int j = rr; j < a.skp; j += a.rows_per_pass) {
       const bool in = j < a.Sk;
-      const size_t off = ((size_t)b * a.Sk + j) * a.HD + col;
+      const size_t row = (size_t)b * a.Sk + j;
       const int dst = hl * a.kpanel + j * a.ld + cc;
-      sm90::cp_async16(sk + dst, in ? a.k + off : a.k, in ? 16 : 0);
-      sm90::cp_async16(sv + dst, in ? a.v + off : a.v, in ? 16 : 0);
+      sm90::cp_async16(sk + dst, in ? a.k + row * a.ldk + col : a.k,
+                       in ? 16 : 0);
+      sm90::cp_async16(sv + dst, in ? a.v + row * a.ldv + col : a.v,
+                       in ? 16 : 0);
     }
   }
 }
@@ -632,7 +648,7 @@ bwd_mma_kernel(const __grid_constant__ BwdArgs a) {
     for (int r = 0; r < 2; ++r) {
       const int i = r0 + g + 8 * r;
       if (i >= a.Tq) continue;
-      __nv_bfloat16* row = a.dq + ((size_t)b * a.Tq + i) * a.HD +
+      __nv_bfloat16* row = a.dq + ((size_t)b * a.Tq + i) * a.ldq +
                            (size_t)h * a.d;
 #pragma unroll
       for (int dt = 0; dt < 2 * KD; ++dt)
@@ -689,13 +705,16 @@ bwd_mma_kernel(const __grid_constant__ BwdArgs a) {
     for (int r = 0; r < 2; ++r) {
       const int j = j0 + g + 8 * r;
       if (j >= a.Sk) continue;
-      const size_t off = ((size_t)b * a.Sk + j) * a.HD + (size_t)h * a.d;
+      const size_t row = (size_t)b * a.Sk + j;
+      const size_t col = (size_t)h * a.d + c2;
 #pragma unroll
       for (int dt = 0; dt < 2 * KD; ++dt) {
         if (dt >= 2 * a.kd) continue;
-        *reinterpret_cast<__nv_bfloat162*>(a.dk + off + dt * 8 + c2) =
+        *reinterpret_cast<__nv_bfloat162*>(a.dk + row * a.ldk + col +
+                                           dt * 8) =
             __floats2bfloat162_rn(ak[dt][2 * r], ak[dt][2 * r + 1]);
-        *reinterpret_cast<__nv_bfloat162*>(a.dv + off + dt * 8 + c2) =
+        *reinterpret_cast<__nv_bfloat162*>(a.dv + row * a.ldv + col +
+                                           dt * 8) =
             __floats2bfloat162_rn(av[dt][2 * r], av[dt][2 * r + 1]);
       }
     }
@@ -748,16 +767,28 @@ cudaError_t launch_mma_instance(BwdArgs a, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// A bf16 operand whose rows of stride `ld` elements all start on 16 bytes.
+bool rows_aligned16(const void* t, int ld) {
+  return reinterpret_cast<uintptr_t>(t) % 16 == 0 && ld % 8 == 0;
+}
+
 // The bf16 route: dk a multiple of 16 up to 128, one head's stage within a
-// block's shared memory; anything else is refused.
+// block's shared memory, every row on 16 bytes; anything else is refused.
 cudaError_t launch_mma(const void* q, const void* k, const void* v,
                        const float* p, const int* seed, const void* dout,
                        void* dq, void* dk_out, void* dv, float* dbias_part,
                        float* dbias, int B, int Tq, int Sk, int H, int dk,
-                       int L, int dropout, uint32_t thresh, float keep_div,
-                       cudaStream_t stream) {
+                       int L, int ldq, int ldk, int ldv, int dropout,
+                       uint32_t thresh, float keep_div, cudaStream_t stream) {
   if (dk % 16 != 0 || dk < 16 || dk > 128 ||
       bwd_stage_bytes(1, Tq, Sk, dk) > kSmemLimit)
+    return cudaErrorInvalidValue;
+  // cp.async moves 16-byte chunks: every row of q, k, v and do starts on
+  // one (dq, dk and dv share their inputs' strides)
+  if (!rows_aligned16(q, ldq) || !rows_aligned16(k, ldk) ||
+      !rows_aligned16(v, ldv) || !rows_aligned16(dout, H * dk) ||
+      !rows_aligned16(dq, ldq) || !rows_aligned16(dk_out, ldk) ||
+      !rows_aligned16(dv, ldv))
     return cudaErrorInvalidValue;
   BwdArgs a{};
   a.q = static_cast<const __nv_bfloat16*>(q);
@@ -775,6 +806,9 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v,
   a.H = H;
   a.d = dk;
   a.L = L;
+  a.ldq = ldq;
+  a.ldk = ldk;
+  a.ldv = ldv;
   a.dropout = dropout;
   a.thresh = thresh;
   a.keep_div = keep_div;
@@ -791,12 +825,38 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// K2. dtype: 0 = float32 (scalar route), 1 = bfloat16 (tensor-core route);
-// q, k, v, do, dq, dk, dv share it. p is f32 [B, H*Tq, Sk], seed a device
-// int32 (read only when dropout is set), dbias_part f32 [B, H, L, L]
-// scratch and dbias f32 [H, L, L] (both unused when L == 0). Returns the
-// first failing cudaError_t of the two launches; 0 means both were
-// accepted.
+// K2 over strided operands. dtype: 0 = float32 (scalar route), 1 =
+// bfloat16 (tensor-core route); q, k, v, do, dq, dk, dv share it. q and dq
+// are rows of ldq elements, k and dk of ldk, v and dv of ldv (each >= H*dk;
+// do is dense [B, Tq, H*dk]). p is f32 [B, H*Tq, Sk], seed a device int32
+// (read only when dropout is set), dbias_part f32 [B, H, L, L] scratch and
+// dbias f32 [H, L, L] (both unused when L == 0). Returns the first failing
+// cudaError_t of the two launches; 0 means both were accepted.
+extern "C" int fused_attention_bwd_strided(
+    const void* q, const void* k, const void* v, const void* p,
+    const void* seed, const void* dout, void* dq, void* dk, void* dv,
+    void* dbias_part, void* dbias, int B, int Tq, int Sk, int H, int dkv,
+    int L, int ldq, int ldk, int ldv, int dtype, int dropout,
+    unsigned int thresh, float keep_div, void* stream) {
+  const float* p_f = static_cast<const float*>(p);
+  const int* seed_i = static_cast<const int*>(seed);
+  float* part = static_cast<float*>(dbias_part);
+  float* db = static_cast<float*>(dbias);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int HD = H * dkv;
+  if (ldq < HD || ldk < HD || ldv < HD) return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return (int)launch<float>(q, k, v, p_f, seed_i, dout, dq, dk, dv, part,
+                              db, B, Tq, Sk, H, dkv, L, ldq, ldk, ldv,
+                              dropout, thresh, keep_div, s);
+  if (dtype == 1)
+    return (int)launch_mma(q, k, v, p_f, seed_i, dout, dq, dk, dv, part, db,
+                           B, Tq, Sk, H, dkv, L, ldq, ldk, ldv, dropout,
+                           thresh, keep_div, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K2 on dense operands [B, S, H*dk]: the strided entry at stride H*dk.
 extern "C" int fused_attention_bwd(const void* q, const void* k,
                                    const void* v, const void* p,
                                    const void* seed, const void* dout,
@@ -806,20 +866,10 @@ extern "C" int fused_attention_bwd(const void* q, const void* k,
                                    int dtype, int dropout,
                                    unsigned int thresh, float keep_div,
                                    void* stream) {
-  const float* p_f = static_cast<const float*>(p);
-  const int* seed_i = static_cast<const int*>(seed);
-  float* part = static_cast<float*>(dbias_part);
-  float* db = static_cast<float*>(dbias);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)launch<float>(q, k, v, p_f, seed_i, dout, dq, dk, dv, part,
-                              db, B, Tq, Sk, H, dkv, L, dropout, thresh,
-                              keep_div, s);
-  if (dtype == 1)
-    return (int)launch_mma(q, k, v, p_f, seed_i, dout, dq, dk, dv, part, db,
-                           B, Tq, Sk, H, dkv, L, dropout, thresh, keep_div,
-                           s);
-  return (int)cudaErrorInvalidValue;
+  return fused_attention_bwd_strided(
+      q, k, v, p, seed, dout, dq, dk, dv, dbias_part, dbias, B, Tq, Sk, H,
+      dkv, L, H * dkv, H * dkv, H * dkv, dtype, dropout, thresh, keep_div,
+      stream);
 }
 
 // The Philox keep mask [BH, Tq, Sk] (uint8, 1 = kept) that K1' and K2

@@ -24,7 +24,13 @@
 //   written in q's dtype.
 // q/o are [B, Tq, H*dk] and k/v [B, Sk, H*dk]: the layout the projection
 // GEMMs produce, so the wrapper does no transposes; the head is the
-// column panel [h*dk, (h+1)*dk). bias is [H, L, L] f32 (the relative bias
+// column panel [h*dk, (h+1)*dk). q, k and v are read as rows of their own
+// stride (ldq, ldk, ldv elements, at least H*dk): with merged projections
+// they are column slices of one [B, S, 3*H*dk] (or, for cross-attention,
+// [B, Sk, 2*H*dk]) GEMM output, taken without a copy. Only the global
+// addresses change with the stride; the shared-memory layouts and the
+// arithmetic do not, so a strided launch gives the bits of a launch on
+// dense copies. o is always dense. bias is [H, L, L] f32 (the relative bias
 // of the text-text block, or the decoder's whole causal + relative block;
 // the rest is zero and never moves). mask is [B, Sk] f32, 1 = attend.
 // Ragged Tq/Sk are handled here, so the wrapper pads nothing.
@@ -50,7 +56,9 @@
 //     each head in 16-row query tiles, one warp per tile. A unit's stage
 //     holds its K and V panels [Skp][dk+8] and Q tiles [Tqp][dk+8] as bf16
 //     and its key mask [Skp] f32, copied in with cp.async (16-byte chunks
-//     of the 128-byte rows at stride H*dk; the mask 4 bytes at a time).
+//     of the 128-byte head rows at each operand's row stride, so every row
+//     must start on 16 bytes: a stride and base offset that are multiples
+//     of 8 elements; the mask 4 bytes at a time).
 //     The 8-element row padding puts the 8 rows an ldmatrix reads on
 //     distinct banks. Key rows from Sk up to Skp (Sk rounded up to 16) and
 //     query rows from Tq are zero-filled: stale shared memory in V would
@@ -103,15 +111,15 @@
 //     per thread (ptxas -v, CUDA 12.8, checked once): K1's is held to 128
 //     and spills 4 bytes, so 4 blocks fit on an SM by registers and by
 //     shared memory, 528 resident, and the eval shape runs 400 persistent
-//     blocks of 3 units (1200 units). The K1' one is held to 168 and uses 164
+//     blocks of 3 units (1200 units). The K1' one is held to 168 and uses 165
 //     with no spills (held to 128 it spilled 176 bytes, and at 4 blocks
 //     per SM it was slower than 3 without spills, PERF.md): 3 blocks per
 //     SM, 396 resident, and the train shape runs 320 blocks of 3 units
 //     (960). Decoder (Tq = 10): one warp per head, 4 heads per unit, 240
 //     units at batch 80 in one wave and one stage; 27.7 KB (self, T = 10)
 //     or 83.2 KB (cross, Sk = 58). The other instances run unbounded with
-//     no spills: K1 / K1' use 170 / 232 registers (dk <= 64, 128-key
-//     tiles), 194 / 222 (dk 128, Sk <= 64) and 220 / 245 (both).
+//     no spills: K1 / K1' use 174 / 228 registers (dk <= 64, 128-key
+//     tiles), 194 / 213 (dk 128, Sk <= 64) and 220 / 245 (both).
 //     Stage bytes, which ops/fused_attention.py::_mma_smem must give too
 //     (tests/test_torch_fwd_route.py reads these lines):
 //       mma_stage_bytes(1, 56, 56, 64) = 27904    encoder
@@ -183,9 +191,9 @@ __global__ void __launch_bounds__(kThreads)
 fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
            const T* __restrict__ v, const float* __restrict__ bias,
            const float* __restrict__ mask, T* __restrict__ o,
-           int Tq, int Sk, int H, int dk, int L, float* __restrict__ p_out,
-           const int* __restrict__ seed, int dropout, uint32_t thresh,
-           float keep_div) {
+           int Tq, int Sk, int H, int dk, int L, int ldq, int ldk, int ldv,
+           float* __restrict__ p_out, const int* __restrict__ seed,
+           int dropout, uint32_t thresh, float keep_div) {
   extern __shared__ float smem[];
   const int h = blockIdx.x;
   const int b = blockIdx.y;
@@ -197,13 +205,13 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* sq = sneg + Sk;
   float* sp = sq + kWarps * dk;
 
-  const T* kb = k + (size_t)b * Sk * HD + (size_t)h * dk;
-  const T* vb = v + (size_t)b * Sk * HD + (size_t)h * dk;
+  const T* kb = k + (size_t)b * Sk * ldk + (size_t)h * dk;
+  const T* vb = v + (size_t)b * Sk * ldv + (size_t)h * dk;
   for (int idx = threadIdx.x; idx < Sk * dk; idx += kThreads) {
     const int j = idx / dk;
     const int d = idx - j * dk;
-    sk[j * ks + d] = to_f32(kb[(size_t)j * HD + d]);
-    sv[j * dk + d] = to_f32(vb[(size_t)j * HD + d]);
+    sk[j * ks + d] = to_f32(kb[(size_t)j * ldk + d]);
+    sv[j * dk + d] = to_f32(vb[(size_t)j * ldv + d]);
   }
   for (int j = threadIdx.x; j < Sk; j += kThreads)
     sneg[j] = (1.0f - mask[(size_t)b * Sk + j]) * kNegInf;
@@ -220,7 +228,7 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int bh = b * H + h;
 
   for (int i = warp; i < Tq; i += kWarps) {
-    const T* qrow = q + ((size_t)b * Tq + i) * HD + (size_t)h * dk;
+    const T* qrow = q + ((size_t)b * Tq + i) * ldq + (size_t)h * dk;
     for (int d = lane; d < dk; d += 32) wq[d] = to_f32(qrow[d]);
     __syncwarp();
 
@@ -266,9 +274,9 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, bool kTrain>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const float* bias, const float* mask, void* o, int B,
-                   int Tq, int Sk, int H, int dk, int L, float* p,
-                   const int* seed, int dropout, uint32_t thresh,
-                   float keep_div, cudaStream_t stream) {
+                   int Tq, int Sk, int H, int dk, int L, int ldq, int ldk,
+                   int ldv, float* p, const int* seed, int dropout,
+                   uint32_t thresh, float keep_div, cudaStream_t stream) {
   const size_t smem = sizeof(float) *
       ((size_t)Sk * (dk + 1) + (size_t)Sk * dk + Sk + (size_t)kWarps * dk +
        (size_t)kWarps * Sk);
@@ -282,7 +290,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   fwd_kernel<T, kTrain><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), bias, mask, static_cast<T*>(o), Tq, Sk, H, dk,
-      L, p, seed, dropout, thresh, keep_div);
+      L, ldq, ldk, ldv, p, seed, dropout, thresh, keep_div);
   return cudaGetLastError();
 }
 
@@ -331,7 +339,8 @@ struct MmaArgs {
   int ld;             // shared-memory row stride, dk + 8 elements
   int chunks;         // 16-byte chunks per row, dk / 8
   int rows_per_pass;  // rows a block's threads copy at once
-  int HD;             // H * dk
+  int HD;             // H * dk: the row stride of o
+  int ldq, ldk, ldv;  // row strides of q, k and v in device memory (>= HD)
   int skp, tiles, tq16, items, nkt, Lq, Lk;
   int panel;          // elements of one K or V panel, skp * ld
   int mask_off;       // elements from a stage's start to its mask
@@ -392,14 +401,16 @@ __device__ __forceinline__ void stage_unit(const MmaArgs& a, int u,
     const size_t col = (size_t)(h0 + hl) * a.dk + cc;
     for (int j = rr; j < a.skp; j += a.rows_per_pass) {
       const bool in = j < a.Sk;
-      const size_t off = ((size_t)b * a.Sk + j) * a.HD + col;
+      const size_t row = (size_t)b * a.Sk + j;
       const int dst = hl * a.panel + j * a.ld + cc;
-      sm90::cp_async16(sk + dst, in ? a.k + off : a.k, in ? 16 : 0);
-      sm90::cp_async16(sv + dst, in ? a.v + off : a.v, in ? 16 : 0);
+      sm90::cp_async16(sk + dst, in ? a.k + row * a.ldk + col : a.k,
+                       in ? 16 : 0);
+      sm90::cp_async16(sv + dst, in ? a.v + row * a.ldv + col : a.v,
+                       in ? 16 : 0);
     }
     for (int i = rr; i < a.tq16; i += a.rows_per_pass) {
       const bool in = i < a.Tq;
-      const size_t off = ((size_t)b * a.Tq + i) * a.HD + col;
+      const size_t off = ((size_t)b * a.Tq + i) * a.ldq + col;
       sm90::cp_async16(sq + (hl * a.tq16 + i) * a.ld + cc, in ? a.q + off : a.q,
                        in ? 16 : 0);
     }
@@ -716,16 +727,26 @@ cudaError_t launch_mma_instance(MmaArgs a, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// A bf16 operand whose rows of stride `ld` elements all start on 16 bytes.
+bool rows_aligned16(const void* t, int ld) {
+  return reinterpret_cast<uintptr_t>(t) % 16 == 0 && ld % 8 == 0;
+}
+
 // The bf16 route: dk a multiple of 16 up to 128, one head's stage within a
-// block's shared memory; anything else is refused.
+// block's shared memory, q, k and v rows on 16 bytes; anything else is
+// refused.
 template <bool kTrain>
 cudaError_t launch_mma(const void* q, const void* k, const void* v,
                        const float* bias, const float* mask, void* o, int B,
-                       int Tq, int Sk, int H, int dk, int L, float* p,
-                       const int* seed, int dropout, uint32_t thresh,
-                       float keep_div, cudaStream_t stream) {
+                       int Tq, int Sk, int H, int dk, int L, int ldq, int ldk,
+                       int ldv, float* p, const int* seed, int dropout,
+                       uint32_t thresh, float keep_div, cudaStream_t stream) {
   if (dk % 16 != 0 || dk < 16 || dk > 128 ||
       mma_stage_bytes(1, Tq, Sk, dk) > kSmemLimit)
+    return cudaErrorInvalidValue;
+  // cp.async moves 16-byte chunks: every row of q, k and v starts on one
+  if (!rows_aligned16(q, ldq) || !rows_aligned16(k, ldk) ||
+      !rows_aligned16(v, ldv))
     return cudaErrorInvalidValue;
   MmaArgs a{};
   a.q = static_cast<const __nv_bfloat16*>(q);
@@ -741,6 +762,9 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v,
   a.H = H;
   a.dk = dk;
   a.L = L;
+  a.ldq = ldq;
+  a.ldk = ldk;
+  a.ldv = ldv;
   a.dropout = dropout;
   a.thresh = thresh;
   a.keep_div = keep_div;
@@ -756,31 +780,78 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// dtype: 0 = float32 (scalar route), 1 = bfloat16 (tensor-core route); q,
-// k, v and o share it. Returns the cudaError_t of the launch; 0 means it
-// was accepted.
+// Row strides: q, k and v are read as rows of ldq, ldk and ldv elements
+// (each >= H*dk), so they may be column slices of one wider projection
+// output (merged q/k/v: [B, S, 3*H*dk]); o is written densely, [B, Tq,
+// H*dk]. Refused (cudaErrorInvalidValue) for a stride below H*dk and, on
+// the bf16 route, for a row that does not start on 16 bytes.
+static bool strides_ok(int H, int dk, int ldq, int ldk, int ldv) {
+  const int HD = H * dk;
+  return ldq >= HD && ldk >= HD && ldv >= HD;
+}
+
+// K1 over strided q/k/v. dtype: 0 = float32 (scalar route), 1 = bfloat16
+// (tensor-core route); q, k, v and o share it. Returns the cudaError_t of
+// the launch; 0 means it was accepted.
+extern "C" int fused_attention_fwd_strided(const void* q, const void* k,
+                                           const void* v, const void* bias,
+                                           const void* mask, void* o, int B,
+                                           int Tq, int Sk, int H, int dk,
+                                           int L, int ldq, int ldk, int ldv,
+                                           int dtype, void* stream) {
+  const float* bias_f = static_cast<const float*>(bias);
+  const float* mask_f = static_cast<const float*>(mask);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!strides_ok(H, dk, ldq, ldk, ldv)) return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return (int)launch<float, false>(q, k, v, bias_f, mask_f, o, B, Tq, Sk, H,
+                                     dk, L, ldq, ldk, ldv, nullptr, nullptr,
+                                     0, 0u, 1.0f, s);
+  if (dtype == 1)
+    return (int)launch_mma<false>(q, k, v, bias_f, mask_f, o, B, Tq, Sk, H,
+                                  dk, L, ldq, ldk, ldv, nullptr, nullptr, 0,
+                                  0u, 1.0f, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K1 on dense q/k/v [B, S, H*dk]: the strided entry at stride H*dk.
 extern "C" int fused_attention_fwd(const void* q, const void* k,
                                    const void* v, const void* bias,
                                    const void* mask, void* o, int B, int Tq,
                                    int Sk, int H, int dk, int L, int dtype,
                                    void* stream) {
+  return fused_attention_fwd_strided(q, k, v, bias, mask, o, B, Tq, Sk, H, dk,
+                                     L, H * dk, H * dk, H * dk, dtype, stream);
+}
+
+// K1' over strided q/k/v: as above, and also p [B, H*Tq, Sk] f32
+// (pre-dropout). With dropout != 0, element (b, h, i, j) is kept when its
+// Philox bits (key seed[0], a device int32) are below `thresh`, and kept p
+// is divided by keep_div = 1 - rate (both computed by the wrapper as the
+// Pallas kernel does).
+extern "C" int fused_attention_fwd_train_strided(
+    const void* q, const void* k, const void* v, const void* bias,
+    const void* mask, const void* seed, void* o, void* p, int B, int Tq,
+    int Sk, int H, int dk, int L, int ldq, int ldk, int ldv, int dtype,
+    int dropout, unsigned int thresh, float keep_div, void* stream) {
   const float* bias_f = static_cast<const float*>(bias);
   const float* mask_f = static_cast<const float*>(mask);
+  const int* seed_i = static_cast<const int*>(seed);
+  float* p_f = static_cast<float*>(p);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!strides_ok(H, dk, ldq, ldk, ldv)) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return (int)launch<float, false>(q, k, v, bias_f, mask_f, o, B, Tq, Sk, H,
-                                     dk, L, nullptr, nullptr, 0, 0u, 1.0f, s);
+    return (int)launch<float, true>(q, k, v, bias_f, mask_f, o, B, Tq, Sk, H,
+                                    dk, L, ldq, ldk, ldv, p_f, seed_i,
+                                    dropout, thresh, keep_div, s);
   if (dtype == 1)
-    return (int)launch_mma<false>(q, k, v, bias_f, mask_f, o, B, Tq, Sk, H,
-                                  dk, L, nullptr, nullptr, 0, 0u, 1.0f, s);
+    return (int)launch_mma<true>(q, k, v, bias_f, mask_f, o, B, Tq, Sk, H, dk,
+                                 L, ldq, ldk, ldv, p_f, seed_i, dropout,
+                                 thresh, keep_div, s);
   return (int)cudaErrorInvalidValue;
 }
 
-// K1': as above, and also p [B, H*Tq, Sk] f32 (pre-dropout). With
-// dropout != 0, element (b, h, i, j) is kept when its Philox bits (key
-// seed[0], a device int32) are below `thresh`, and kept p is divided by
-// keep_div = 1 - rate (both computed by the wrapper as the Pallas kernel
-// does).
+// K1' on dense q/k/v: the strided entry at stride H*dk.
 extern "C" int fused_attention_fwd_train(const void* q, const void* k,
                                          const void* v, const void* bias,
                                          const void* mask, const void* seed,
@@ -789,19 +860,9 @@ extern "C" int fused_attention_fwd_train(const void* q, const void* k,
                                          int dtype, int dropout,
                                          unsigned int thresh, float keep_div,
                                          void* stream) {
-  const float* bias_f = static_cast<const float*>(bias);
-  const float* mask_f = static_cast<const float*>(mask);
-  const int* seed_i = static_cast<const int*>(seed);
-  float* p_f = static_cast<float*>(p);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)launch<float, true>(q, k, v, bias_f, mask_f, o, B, Tq, Sk, H,
-                                    dk, L, p_f, seed_i, dropout, thresh,
-                                    keep_div, s);
-  if (dtype == 1)
-    return (int)launch_mma<true>(q, k, v, bias_f, mask_f, o, B, Tq, Sk, H, dk,
-                                 L, p_f, seed_i, dropout, thresh, keep_div, s);
-  return (int)cudaErrorInvalidValue;
+  return fused_attention_fwd_train_strided(
+      q, k, v, bias, mask, seed, o, p, B, Tq, Sk, H, dk, L, H * dk, H * dk,
+      H * dk, dtype, dropout, thresh, keep_div, stream);
 }
 
 // Message for a cudaError_t returned above.

@@ -30,12 +30,22 @@ Params = Dict[str, Any]
 def _precompute_cross_kv(params: Params, cfg, enc_states: torch.Tensor
                          ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
     """Each decoder layer's cross-attention K/V of the encoder states,
-    once. enc_states [B,S,D] → per layer ([B,S,H,dk], [B,S,H,dk])."""
+    once. enc_states [B,S,D] → per layer ([B,S,H,dk], [B,S,H,dk]): one
+    GEMM for every layer with ``folded_cross_kv``, one per layer with
+    ``merged_qkv`` (views of its output), else two per layer, as JAX."""
+    if getattr(cfg, "folded_cross_kv", False) is True:
+        return t5.cross_kv_fold_all(params["decoder"], cfg.num_decoder_layers,
+                                    enc_states, cfg.num_heads, cfg.d_kv)
     dt = enc_states.dtype
     B, S, _ = enc_states.shape
+    merged = t5.merged_qkv(cfg)
     out = []
     for i in range(cfg.num_decoder_layers):
         p = params["decoder"][f"block_{i}"]["cross_attn"]
+        if merged:
+            out.append(t5.kv_proj_merged(p, enc_states, cfg.num_heads,
+                                         cfg.d_kv))
+            continue
         k = (enc_states @ p["wk"].to(dt)).reshape(B, S, cfg.num_heads,
                                                   cfg.d_kv)
         v = (enc_states @ p["wv"].to(dt)).reshape(B, S, cfg.num_heads,
@@ -60,6 +70,7 @@ def _decoder_step(params: Params, cfg, x: torch.Tensor, t: int,
         p = params["decoder"][f"block_{i}"]
         h = t5.layer_norm(p["ln1"], x, cfg.layer_norm_epsilon)
         ck, cv = cache[i]
+        # not merged, as in JAX: the per-step self k/v stay two GEMMs
         ck[:, t] = (h @ p["attn"]["wk"].to(dt)).reshape(B, H, dk)
         cv[:, t] = (h @ p["attn"]["wv"].to(dt)).reshape(B, H, dk)
         x = x + t5.multihead_attention(p["attn"], h, None, None,

@@ -21,7 +21,7 @@ computed here on f32 copies of the operands.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -104,6 +104,62 @@ def attention_scores_bias(mask: Optional[torch.Tensor],
     return bias
 
 
+def _merged_weight(ws, dt) -> torch.Tensor:
+    """The projection weights ``ws`` ([D, H·dk] each, f32 masters)
+    concatenated along their outputs and cast to ``dt``, per call as in
+    JAX: autograd splits the gradient back onto each leaf, and the
+    parameter tree keeps its separate ``wq``/``wk``/``wv`` leaves."""
+    return torch.cat(list(ws), dim=1).to(dt)
+
+
+def qkv_proj_merged_flat(p: Params, h: torch.Tensor) -> torch.Tensor:
+    """Self-attention q|k|v as ONE GEMM → [B, L, 3·H·dk] (the buffer the
+    fused kernels take as strided views)."""
+    return h @ _merged_weight((p["wq"], p["wk"], p["wv"]), h.dtype)
+
+
+def kv_proj_merged_flat(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """Cross-attention k|v as one GEMM → [B, S, 2·H·dk]."""
+    return x @ _merged_weight((p["wk"], p["wv"]), x.dtype)
+
+
+def _split_heads(flat: torch.Tensor, n: int, num_heads: int, d_kv: int):
+    """n equal column slices of [B, L, n·H·dk] as [B, L, H, dk] views."""
+    B, L, _ = flat.shape
+    inner = num_heads * d_kv
+    return tuple(flat[..., i * inner:(i + 1) * inner].reshape(
+        B, L, num_heads, d_kv) for i in range(n))
+
+
+def qkv_proj_merged(p: Params, h: torch.Tensor, num_heads: int, d_kv: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Counterpart of JAX ``t5.qkv_proj_merged``: self-attention q/k/v as
+    one [D, 3·H·dk] GEMM, returned as three [B,L,H,dk] views of its
+    output. The parameter layout is unchanged."""
+    return _split_heads(qkv_proj_merged_flat(p, h), 3, num_heads, d_kv)
+
+
+def kv_proj_merged(p: Params, x: torch.Tensor, num_heads: int, d_kv: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Counterpart of JAX ``t5.kv_proj_merged``: cross-attention k/v as
+    one [D, 2·H·dk] GEMM → two [B,S,H,dk] views."""
+    return _split_heads(kv_proj_merged_flat(p, x), 2, num_heads, d_kv)
+
+
+def cross_kv_fold_all(p: Params, n_layers: int, x: torch.Tensor,
+                      num_heads: int, d_kv: int
+                      ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """Counterpart of JAX ``t5.cross_kv_fold_all``: every decoder layer's
+    cross-attention k/v of the (layer-invariant) encoder states as ONE
+    [D, n·2·H·dk] GEMM. ``p`` is the decoder stack's parameters; → per
+    layer (k, v), [B,S,H,dk] views of the one output."""
+    w = _merged_weight([p[f"block_{i}"]["cross_attn"][n]
+                        for i in range(n_layers) for n in ("wk", "wv")],
+                       x.dtype)
+    kv = _split_heads(x @ w, 2 * n_layers, num_heads, d_kv)
+    return [(kv[2 * i], kv[2 * i + 1]) for i in range(n_layers)]
+
+
 def multihead_attention(p: Params,
                         q_in: torch.Tensor,
                         k_in: Optional[torch.Tensor],
@@ -115,20 +171,27 @@ def multihead_attention(p: Params,
                         mask_add: Optional[torch.Tensor] = None,
                         dropout_rate: float = 0.0,
                         generator: Optional[torch.Generator] = None,
+                        merged: bool = False,
                         ) -> torch.Tensor:
     """Unscaled T5 attention. q_in [B,Lq,D]; k_in/v_in [B,Lk,D], or
     ``kv_proj`` = already projected (k, v) [B,Lk,H,dk]. ``bias`` and
     ``mask_add`` are additive f32 terms broadcast to [B,H,Lq,Lk]. With a
-    ``generator`` the f32 attention weights take dropout."""
+    ``generator`` the f32 attention weights take dropout. ``merged`` runs
+    the q/k/v (self) or k/v (cross) projections as one GEMM, as JAX."""
     B, Lq, _ = q_in.shape
     dt = q_in.dtype
-    q = (q_in @ p["wq"].to(dt)).reshape(B, Lq, num_heads, d_kv)
-    if kv_proj is None:
-        Lk = k_in.shape[1]
-        k = (k_in @ p["wk"].to(dt)).reshape(B, Lk, num_heads, d_kv)
-        v = (v_in @ p["wv"].to(dt)).reshape(B, Lk, num_heads, d_kv)
+    if merged and kv_proj is None and q_in is k_in:
+        q, k, v = qkv_proj_merged(p, q_in, num_heads, d_kv)
     else:
-        k, v = kv_proj
+        q = (q_in @ p["wq"].to(dt)).reshape(B, Lq, num_heads, d_kv)
+        if kv_proj is not None:
+            k, v = kv_proj
+        elif merged and k_in is v_in:
+            k, v = kv_proj_merged(p, k_in, num_heads, d_kv)
+        else:
+            Lk = k_in.shape[1]
+            k = (k_in @ p["wk"].to(dt)).reshape(B, Lk, num_heads, d_kv)
+            v = (v_in @ p["wv"].to(dt)).reshape(B, Lk, num_heads, d_kv)
     scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
     if bias is not None:
         scores = scores + bias
@@ -219,6 +282,12 @@ def maybe_checkpoint(fn, remat, generator: Optional[torch.Generator]):
     return run
 
 
+def merged_qkv(cfg) -> bool:
+    """Whether the blocks merge their projections: only a strict True, as
+    JAX reads ``merged_qkv`` ("auto" is resolved by the CL trainer)."""
+    return getattr(cfg, "merged_qkv", False) is True
+
+
 def encoder_block(p: Params, cfg, x: torch.Tensor,
                   bias: Optional[torch.Tensor],
                   mask_add: Optional[torch.Tensor] = None,
@@ -228,7 +297,7 @@ def encoder_block(p: Params, cfg, x: torch.Tensor,
     h = layer_norm(p["ln1"], x, cfg.layer_norm_epsilon)
     a = multihead_attention(p["attn"], h, h, h, bias, cfg.num_heads,
                             cfg.d_kv, mask_add=mask_add, dropout_rate=rate,
-                            generator=generator)
+                            generator=generator, merged=merged_qkv(cfg))
     x = x + dropout(a, rate, generator)
     h = layer_norm(p["ln2"], x, cfg.layer_norm_epsilon)
     m = mlp_apply(p["mlp"], h, cfg.feed_forward_proj, rate, generator)
@@ -243,20 +312,28 @@ def encoder_block_fused(p: Params, cfg, x: torch.Tensor,
     """``encoder_block`` with the attention core in
     ``ops.fused_attention`` (the CUDA kernels on CUDA tensors).
     pos_bias [H,L,L] f32 for the first L positions, mask [B,S], seed
-    int32 [1] (the layer's attention-dropout stream)."""
-    from vqacl_tpu_torch.ops.fused_attention import fused_encoder_attention
+    int32 [1] (the layer's attention-dropout stream). With ``merged_qkv``
+    the kernels take q, k and v as strided views of the one merged
+    projection output."""
+    from vqacl_tpu_torch.ops.fused_attention import (
+        fused_encoder_attention, fused_encoder_attention_merged)
 
     rate = cfg.dropout_rate
+    attn_rate = 0.0 if generator is None else rate
     h = layer_norm(p["ln1"], x, cfg.layer_norm_epsilon)
     dt = h.dtype
     B, S, _ = h.shape
     a = p["attn"]
-    q = (h @ a["wq"].to(dt)).reshape(B, S, cfg.num_heads, cfg.d_kv)
-    k = (h @ a["wk"].to(dt)).reshape(B, S, cfg.num_heads, cfg.d_kv)
-    v = (h @ a["wv"].to(dt)).reshape(B, S, cfg.num_heads, cfg.d_kv)
-    o = fused_encoder_attention(
-        q, k, v, pos_bias, mask,
-        dropout_rate=0.0 if generator is None else rate, seed=seed)
+    if merged_qkv(cfg):
+        o = fused_encoder_attention_merged(
+            qkv_proj_merged_flat(a, h), pos_bias, mask, cfg.num_heads,
+            dropout_rate=attn_rate, seed=seed)
+    else:
+        q = (h @ a["wq"].to(dt)).reshape(B, S, cfg.num_heads, cfg.d_kv)
+        k = (h @ a["wk"].to(dt)).reshape(B, S, cfg.num_heads, cfg.d_kv)
+        v = (h @ a["wv"].to(dt)).reshape(B, S, cfg.num_heads, cfg.d_kv)
+        o = fused_encoder_attention(q, k, v, pos_bias, mask,
+                                    dropout_rate=attn_rate, seed=seed)
     x = x + dropout(o @ a["wo"].to(dt), rate, generator)
     h = layer_norm(p["ln2"], x, cfg.layer_norm_epsilon)
     m = mlp_apply(p["mlp"], h, cfg.feed_forward_proj, rate, generator)
@@ -310,20 +387,26 @@ def decoder_block(p: Params, cfg, x: torch.Tensor,
                   self_bias: Optional[torch.Tensor],
                   enc_states: torch.Tensor,
                   cross_bias: Optional[torch.Tensor],
-                  generator: Optional[torch.Generator] = None
+                  generator: Optional[torch.Generator] = None,
+                  cross_kv: Optional[Tuple[torch.Tensor,
+                                           torch.Tensor]] = None
                   ) -> torch.Tensor:
     """Teacher-forced decoder block: causal self-attention (``self_bias``
     [·,H,T,T] holds the causal mask and the relative bias), cross-
-    attention to the encoder (``cross_bias`` [B,1,1,S]), MLP."""
+    attention to the encoder (``cross_bias`` [B,1,1,S]; ``cross_kv``: its
+    k/v already projected, as ``folded_cross_kv`` gives them), MLP."""
     rate = cfg.dropout_rate
+    merged = merged_qkv(cfg)
     h = layer_norm(p["ln1"], x, cfg.layer_norm_epsilon)
     a = multihead_attention(p["attn"], h, h, h, self_bias, cfg.num_heads,
-                            cfg.d_kv, dropout_rate=rate, generator=generator)
+                            cfg.d_kv, dropout_rate=rate, generator=generator,
+                            merged=merged)
     x = x + dropout(a, rate, generator)
     h = layer_norm(p["ln2"], x, cfg.layer_norm_epsilon)
     c = multihead_attention(p["cross_attn"], h, enc_states, enc_states,
                             cross_bias, cfg.num_heads, cfg.d_kv,
-                            dropout_rate=rate, generator=generator)
+                            kv_proj=cross_kv, dropout_rate=rate,
+                            generator=generator, merged=merged)
     x = x + dropout(c, rate, generator)
     h = layer_norm(p["ln3"], x, cfg.layer_norm_epsilon)
     m = mlp_apply(p["mlp"], h, cfg.feed_forward_proj, rate, generator)
@@ -341,36 +424,50 @@ def decoder_block_fused(p: Params, cfg, x: torch.Tensor,
     ``self_bias`` [H,T,T] f32 is the whole causal + relative bias (one
     for every batch row: the train path has no decoder padding mask);
     the cross-attention is bias-free, masked by ``enc_mask`` [B,S].
-    ``seeds`` int32 [2]: the self- and cross-attention dropout streams."""
-    from vqacl_tpu_torch.ops.fused_attention import (fused_cross_attention,
-                                                     fused_encoder_attention)
+    ``seeds`` int32 [2]: the self- and cross-attention dropout streams.
+    With ``merged_qkv`` the self q/k/v and the cross k/v come from one
+    GEMM each and reach the kernels as strided views."""
+    from vqacl_tpu_torch.ops.fused_attention import (
+        fused_cross_attention, fused_cross_attention_merged,
+        fused_encoder_attention, fused_encoder_attention_merged)
 
     rate = cfg.dropout_rate
     attn_rate = 0.0 if generator is None else rate
+    merged = merged_qkv(cfg)
     H, dkv = cfg.num_heads, cfg.d_kv
     B, T, _ = x.shape
     dt = x.dtype
+    s_self = None if seeds is None else seeds[0:1]
+    s_cross = None if seeds is None else seeds[1:2]
 
     h = layer_norm(p["ln1"], x, cfg.layer_norm_epsilon)
     a = p["attn"]
-    q = (h @ a["wq"].to(dt)).reshape(B, T, H, dkv)
-    k = (h @ a["wk"].to(dt)).reshape(B, T, H, dkv)
-    v = (h @ a["wv"].to(dt)).reshape(B, T, H, dkv)
     ones = torch.ones((B, T), dtype=torch.float32, device=x.device)
-    o = fused_encoder_attention(
-        q, k, v, self_bias, ones, dropout_rate=attn_rate,
-        seed=None if seeds is None else seeds[0:1])
+    if merged:
+        o = fused_encoder_attention_merged(
+            qkv_proj_merged_flat(a, h), self_bias, ones, H,
+            dropout_rate=attn_rate, seed=s_self)
+    else:
+        q = (h @ a["wq"].to(dt)).reshape(B, T, H, dkv)
+        k = (h @ a["wk"].to(dt)).reshape(B, T, H, dkv)
+        v = (h @ a["wv"].to(dt)).reshape(B, T, H, dkv)
+        o = fused_encoder_attention(q, k, v, self_bias, ones,
+                                    dropout_rate=attn_rate, seed=s_self)
     x = x + dropout(o @ a["wo"].to(dt), rate, generator)
 
     h = layer_norm(p["ln2"], x, cfg.layer_norm_epsilon)
     c = p["cross_attn"]
     S = enc_states.shape[1]
     qc = (h @ c["wq"].to(dt)).reshape(B, T, H, dkv)
-    kc = (enc_states @ c["wk"].to(dt)).reshape(B, S, H, dkv)
-    vc = (enc_states @ c["wv"].to(dt)).reshape(B, S, H, dkv)
-    oc = fused_cross_attention(
-        qc, kc, vc, enc_mask, dropout_rate=attn_rate,
-        seed=None if seeds is None else seeds[1:2])
+    if merged:
+        oc = fused_cross_attention_merged(
+            qc, kv_proj_merged_flat(c, enc_states), enc_mask,
+            dropout_rate=attn_rate, seed=s_cross)
+    else:
+        kc = (enc_states @ c["wk"].to(dt)).reshape(B, S, H, dkv)
+        vc = (enc_states @ c["wv"].to(dt)).reshape(B, S, H, dkv)
+        oc = fused_cross_attention(qc, kc, vc, enc_mask,
+                                   dropout_rate=attn_rate, seed=s_cross)
     x = x + dropout(oc @ c["wo"].to(dt), rate, generator)
 
     h = layer_norm(p["ln3"], x, cfg.layer_norm_epsilon)
@@ -390,7 +487,10 @@ def decoder_stack(p: Params, cfg, inputs_embeds: torch.Tensor,
     attention cores run in ``ops.fused_attention``, the self-attention
     with the causal + relative bias [H,T,T] as a bias block covering
     every position, the cross-attention bias-free; each layer draws two
-    dropout seeds. ``remat``: see ``maybe_checkpoint``."""
+    dropout seeds. ``remat``: see ``maybe_checkpoint``. Unfused, with
+    ``folded_cross_kv``, every layer's cross k/v come from one GEMM
+    (``cross_kv_fold_all``), as in JAX; the fused branch projects them
+    per block, as JAX's does."""
     T = inputs_embeds.shape[1]
     dev = inputs_embeds.device
     pb = compute_position_bias(p["rel_bias"], T, T, bidirectional=False,
@@ -412,10 +512,14 @@ def decoder_stack(p: Params, cfg, inputs_embeds: torch.Tensor,
         self_bias = attention_scores_bias(causal_mask(T, dev), pb)
         cross_mask = None if enc_mask is None else enc_mask[:, None, None, :]
         cross_bias = attention_scores_bias(cross_mask, None)
+        cross_kvs = [None] * n
+        if getattr(cfg, "folded_cross_kv", False) is True:
+            cross_kvs = cross_kv_fold_all(p, n, enc_states, cfg.num_heads,
+                                          cfg.d_kv)
         block_fn = maybe_checkpoint(decoder_block, remat, generator)
         for i in range(n):
             x = block_fn(p[f"block_{i}"], cfg, x, self_bias, enc_states,
-                         cross_bias, generator)
+                         cross_bias, generator, cross_kvs[i])
     x = layer_norm(p["final_ln"], x, cfg.layer_norm_epsilon)
     return dropout(x, rate, generator)
 

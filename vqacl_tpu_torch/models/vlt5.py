@@ -14,6 +14,8 @@ training paths:
                                 ``autograd.Function``
   ``forward_train``             the train-time forward → loss, new
                                 prototype state, aux metrics
+  ``init_classifier_head``, ``classifier_logits``, ``classifier_bce_loss``
+                                the answer-classification head
 """
 
 from __future__ import annotations
@@ -370,6 +372,60 @@ def fused_head_loss(hidden: torch.Tensor, shared: torch.Tensor,
     weighted by ``scores`` [B]; differentiable in hidden, shared and
     scores."""
     return _FusedHeadLoss.apply(hidden, shared, labels, scores, rescale)
+
+
+# ---------------------------------------------------------------------------
+# classifier head (the working version of the reference's --classifier)
+# ---------------------------------------------------------------------------
+
+def init_classifier_head(seed: int, cfg, num_answers: int = 3129,
+                         device="cuda") -> Params:
+    """Answer-classification head over the top-k answer vocabulary
+    (counterpart of JAX ``vlt5.init_classifier_head``): the decoder's
+    start-token state → Linear(d, 2d) → GELU → T5 layer norm →
+    Linear(2d, A), f32, from a numpy seed on ``device``. Same shapes and
+    init scales as JAX's; the values differ (another generator)."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    d = cfg.d_model
+
+    def normal(shape, std):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
+                                * np.float32(std)).to(dev)
+
+    zeros = lambda n: torch.zeros((n,), dtype=torch.float32, device=dev)
+    return {"fc1_w": normal((d, 2 * d), d ** -0.5),
+            "fc1_b": zeros(2 * d),
+            "ln": torch.ones((2 * d,), dtype=torch.float32, device=dev),
+            "fc2_w": normal((2 * d, num_answers), (2 * d) ** -0.5),
+            "fc2_b": zeros(num_answers)}
+
+
+def classifier_logits(head: Params, cfg, params: Params,
+                      hidden: torch.Tensor, enc_mask: torch.Tensor,
+                      dtype=torch.float32) -> torch.Tensor:
+    """One decoder step from the start token over the encoder states →
+    answer logits [B, A] f32 (the reference test_step's classifier
+    branch). The decoder runs unfused and without dropout, as in JAX."""
+    B = hidden.shape[0]
+    start = torch.full((B, 1), cfg.decoder_start_token_id, dtype=torch.long,
+                       device=hidden.device)
+    dec_emb = t5.embed_tokens(params["shared"], start, dtype)
+    seq = t5.decoder_stack(params["decoder"], cfg, dec_emb, hidden, enc_mask)
+    h = seq[:, 0].float()                                       # [B, d]
+    x = h @ head["fc1_w"] + head["fc1_b"]
+    x = torch.nn.functional.gelu(x, approximate="none")
+    x = t5.layer_norm(head["ln"], x, cfg.layer_norm_epsilon)
+    return x @ head["fc2_w"] + head["fc2_b"]
+
+
+def classifier_bce_loss(logits: torch.Tensor, targets: torch.Tensor
+                        ) -> torch.Tensor:
+    """BCE-with-logits over soft targets, through log-sigmoid so large
+    logits stay finite."""
+    F = torch.nn.functional
+    return -(targets * F.logsigmoid(logits)
+             + (1.0 - targets) * F.logsigmoid(-logits)).mean()
 
 
 # ---------------------------------------------------------------------------

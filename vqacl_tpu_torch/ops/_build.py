@@ -40,12 +40,20 @@ SIGNATURES = {
         # dropout, thresh, keep_div, stream
         "fused_attention_fwd_train": ([_P] * 8 + [_I] * 8 + [_U, _F, _P],
                                       _I),
+        # as fused_attention_fwd, with ldq, ldk, ldv before dtype
+        "fused_attention_fwd_strided": ([_P] * 6 + [_I] * 10 + [_P], _I),
+        # as fused_attention_fwd_train, with ldq, ldk, ldv before dtype
+        "fused_attention_fwd_train_strided": ([_P] * 8 + [_I] * 11
+                                              + [_U, _F, _P], _I),
         "fused_attention_error_string": ([_I], ctypes.c_char_p),
     },
     "fused_attention_bwd": {
         # q, k, v, p, seed, do, dq, dk, dv, dbias_part, dbias, B, Tq, Sk,
         # H, dk, L, dtype, dropout, thresh, keep_div, stream
         "fused_attention_bwd": ([_P] * 11 + [_I] * 8 + [_U, _F, _P], _I),
+        # as fused_attention_bwd, with ldq, ldk, ldv before dtype
+        "fused_attention_bwd_strided": ([_P] * 11 + [_I] * 11
+                                        + [_U, _F, _P], _I),
         # seed, out, B*H, Tq, Sk, thresh, stream
         "fused_attention_keep_mask": ([_P] * 2 + [_I] * 3 + [_U, _P], _I),
         "fused_attention_bwd_error_string": ([_I], ctypes.c_char_p),
@@ -126,7 +134,9 @@ def build(names: Iterable[str] = tuple(SIGNATURES),
 def load(name: str, csrc: Optional[str] = None) -> ctypes.CDLL:
     """The loaded library for ``<csrc>/<name>.cu`` (default ``CSRC``),
     built on first use, with ``argtypes``/``restype`` set for every entry
-    point."""
+    point. Another checkout's sources may predate some entries (the
+    strided attention entries); those are left unset there, and the
+    wrappers reach them only for strided calls."""
     csrc = csrc or CSRC
     with _lock:
         lib = _libs.get((csrc, name))
@@ -134,6 +144,8 @@ def load(name: str, csrc: Optional[str] = None) -> ctypes.CDLL:
             path, = build([name], csrc)
             lib = ctypes.CDLL(path)
             for fn, (argtypes, restype) in SIGNATURES[name].items():
+                if csrc != CSRC and not hasattr(lib, fn):
+                    continue
                 getattr(lib, fn).argtypes = argtypes
                 getattr(lib, fn).restype = restype
             _libs[(csrc, name)] = lib

@@ -20,7 +20,10 @@ call neither takes. ``bwd_route`` does the same for K2, whose block holds
 the whole [Tq, Sk] score tile, and ``_FusedAttention`` checks it before
 K1′ runs, so a training call K2 cannot take fails before its forward.
 
-They consume q/k/v in the projection GEMMs' ``[B, S, H·dk]`` layout, add
+They consume q/k/v in the projection GEMMs' ``[B, S, H·dk]`` layout (or
+as column slices of a merged q|k|v or k|v GEMM output: each operand has
+its own row stride, ``_row_stride``, and K2 writes dq, dk and dv with
+their inputs' strides), add
 the relative bias on the top-left ``L×L`` block only and the −1e9 key
 mask, run an f32 softmax, cast the (dropped) probabilities to v's dtype
 and accumulate ``p·v`` in f32. Dropout keeps an element when its
@@ -30,13 +33,19 @@ Pallas kernel's rule, and scales kept p by 1/(1−rate). The TPU's own
 random bits cannot be reproduced, so parity with JAX holds at rate 0.
 
 ``_FusedAttention`` is the custom VJP (K3, single device): its forward
-runs K1′ and saves p and the seed, its backward runs K2. Dispatch in
+runs K1′ and saves p and the seed, its backward runs K2;
+``_FusedAttentionPacked`` is its variant over merged projection outputs
+(``fused_attention_packed``), whose backward returns one gradient buffer
+of the packed layout. Dispatch in
 ``fused_attention``: with grad enabled and q, k or v requiring grad the
 call goes through ``_FusedAttention``; otherwise it runs K1, which is
 inference-only (``dropout_rate > 0`` raises there). Each wrapper takes
 its plain PyTorch version (``*_reference``) for CPU tensors, so the CPU
 tests run the same autograd logic; on CUDA tensors it launches its
-kernel or raises, and counts the launch in ``<wrapper>.launches``.
+kernel or raises, and counts the launch in ``<wrapper>.launches`` (and,
+when an operand is strided, in ``<wrapper>.strided_launches``). Strided
+calls go to the ``*_strided`` C entries; dense ones keep the original
+entries, which pass the stride H·dk.
 """
 
 from __future__ import annotations
@@ -199,9 +208,51 @@ def _check(name: str, t: torch.Tensor, dtype, shape) -> None:
                          f"{t.is_contiguous()}")
 
 
+def _row_stride(name: str, t: torch.Tensor, dtype, shape) -> int:
+    """The row stride, in elements, of a [B,S,W] operand that the kernels
+    read or write as rows: its last dimension contiguous and its batch
+    stride S rows, as a column slice of a wider projection output (merged
+    q/k/v) is. Raises ValueError for any other layout or type."""
+    B, S, W = shape
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape):
+        raise ValueError(f"fused_attention: {name} must be a {dtype} tensor "
+                         f"of shape {tuple(shape)}, got {t.dtype} "
+                         f"{tuple(t.shape)}")
+    ld = t.stride(1) if S > 1 else (t.stride(0) if B > 1 else W)
+    if (W > 1 and t.stride(2) != 1) or ld < W \
+            or (B > 1 and t.stride(0) != S * ld):
+        raise ValueError(f"fused_attention: {name} must be rows of one "
+                         f"stride with a contiguous last dimension, got "
+                         f"strides {t.stride()} for shape {tuple(t.shape)}")
+    return ld
+
+
+def _qkv_strides(q, k, v) -> Tuple[int, int, int]:
+    """(ldq, ldk, ldv): the row strides of q [B,Tq,W] and k, v [B,Sk,W];
+    W = H·dk for a dense operand, more for a slice of a merged one."""
+    B, Tq, HD = q.shape
+    Sk = k.shape[1]
+    return (_row_stride("q", q, q.dtype, (B, Tq, HD)),
+            _row_stride("k", k, q.dtype, (B, Sk, HD)),
+            _row_stride("v", v, q.dtype, (B, Sk, HD)))
+
+
+def _check_rows16(what: str, named) -> None:
+    """The bf16 routes stage rows in 16-byte ``cp.async`` chunks: each
+    (name, tensor, row stride) must start every row on 16 bytes, i.e.
+    base address and stride multiples of 8 bf16 elements."""
+    for name, t, ld in named:
+        if t.data_ptr() % 16 or ld % 8:
+            raise ValueError(
+                f"{what}: the bf16 kernel needs every row of {name} on 16 "
+                f"bytes (base offset and row stride multiples of 8 "
+                f"elements), got stride {ld} at address {t.data_ptr()}")
+
+
 def _validate_qkv(q, k, v, num_heads, extra=()):
-    """Check the kernels' q/k/v on a CUDA device, and that ``extra``
-    tensors lie on the same device → (B, Tq, Sk, dk)."""
+    """Check the kernels' q/k/v on a CUDA device (dense, or rows of one
+    stride each: ``_row_stride``), and that ``extra`` tensors lie on the
+    same device → (B, Tq, Sk, dk)."""
     if q.device.type != "cuda":
         raise ValueError(f"fused_attention: unsupported device {q.device}")
     B, Tq, HD = q.shape
@@ -212,9 +263,7 @@ def _validate_qkv(q, k, v, num_heads, extra=()):
                          f"{H} heads")
     if q.dtype not in _DTYPE_CODE:
         raise ValueError(f"fused_attention: dtype {q.dtype} not supported")
-    _check("q", q, q.dtype, (B, Tq, HD))
-    _check("k", k, q.dtype, (B, Sk, HD))
-    _check("v", v, q.dtype, (B, Sk, HD))
+    _qkv_strides(q, k, v)
     for t in (k, v) + tuple(extra):
         if t.device != q.device:
             raise ValueError("fused_attention: tensors on different devices")
@@ -222,15 +271,12 @@ def _validate_qkv(q, k, v, num_heads, extra=()):
 
 
 def _validate_fwd(q, k, v, num_heads, extra=()):
-    """``_validate_qkv`` plus the forward's route and limits; the bf16
-    route stages 16-byte chunks, so q, k and v must be 16-byte aligned
-    → (B, Tq, Sk, dk)."""
+    """``_validate_qkv`` plus the forward's route and limits and, on the
+    bf16 route, 16-byte rows → (B, Tq, Sk, dk)."""
     B, Tq, Sk, dk = _validate_qkv(q, k, v, num_heads, extra)
     if fwd_route(q.dtype, dk, Tq, Sk) == "mma":
-        for name, t in (("q", q), ("k", k), ("v", v)):
-            if t.data_ptr() % 16:
-                raise ValueError(f"fused_attention: the bf16 kernel needs "
-                                 f"{name} 16-byte aligned")
+        _check_rows16("fused_attention",
+                      zip("qkv", (q, k, v), _qkv_strides(q, k, v)))
     return B, Tq, Sk, dk
 
 
@@ -360,14 +406,21 @@ def _launch_k1(q, k, v, bias, mask, num_heads) -> torch.Tensor:
 
     B, Tq, Sk, dk = _validate_fwd(q, k, v, num_heads)
     L, mask = _validate_bias_mask(q, bias, mask, num_heads, Sk)
+    lds = _qkv_strides(q, k, v)
+    strided = lds != (num_heads * dk,) * 3
     lib = _build.load("fused_attention_fwd")
-    o = torch.empty_like(q)
-    err = lib.fused_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        bias.data_ptr() if L else None, mask.data_ptr(), o.data_ptr(),
-        B, Tq, Sk, num_heads, dk, L, _DTYPE_CODE[q.dtype], _stream(q))
+    o = torch.empty((B, Tq, num_heads * dk), dtype=q.dtype, device=q.device)
+    head = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            bias.data_ptr() if L else None, mask.data_ptr(), o.data_ptr(),
+            B, Tq, Sk, num_heads, dk, L)
+    tail = (_DTYPE_CODE[q.dtype], _stream(q))
+    if strided:
+        err = lib.fused_attention_fwd_strided(*head, *lds, *tail)
+    else:
+        err = lib.fused_attention_fwd(*head, *tail)
     _raise_on(err, lib, "fused_attention_fwd", "fused_attention_error_string")
     fused_attention.launches += 1
+    fused_attention.strided_launches += strided
     return o
 
 
@@ -375,13 +428,16 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     bias: Optional[torch.Tensor], mask: torch.Tensor,
                     num_heads: int, dropout_rate: float = 0.0,
                     seed: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """q [B,Tq,H·dk], k/v [B,Sk,H·dk] (f32 or bf16, one dtype); bias
-    [H,L,L] f32 covering the first L positions, or None; mask [B,Sk]
-    (1 = attend); seed int32 [1] on q's device (the layer's dropout
-    stream; zeros when None) → [B,Tq,H·dk] in q's dtype.
+    """q [B,Tq,H·dk], k/v [B,Sk,H·dk] (f32 or bf16, one dtype; dense, or
+    column slices of a wider projection output, whose row stride the
+    kernels take: ``_row_stride``); bias [H,L,L] f32 covering the first L
+    positions, or None; mask [B,Sk] (1 = attend); seed int32 [1] on q's
+    device (the layer's dropout stream; zeros when None) → [B,Tq,H·dk] in
+    q's dtype.
 
     Differentiable calls go through K1′/K2; others run K1 (counted in
-    ``fused_attention.launches``)."""
+    ``fused_attention.launches``, and those on strided operands also in
+    ``fused_attention.strided_launches``)."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         if seed is None:
@@ -398,6 +454,7 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 fused_attention.launches = 0
+fused_attention.strided_launches = 0
 
 
 def fused_attention_fwd_train(q: torch.Tensor, k: torch.Tensor,
@@ -405,7 +462,9 @@ def fused_attention_fwd_train(q: torch.Tensor, k: torch.Tensor,
                               mask: torch.Tensor, seed: torch.Tensor,
                               num_heads: int, dropout_rate: float
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K1′ → (o in q's dtype, pre-dropout p [B,H·Tq,Sk] f32)."""
+    """K1′ → (o [B,Tq,H·dk] in q's dtype, pre-dropout p [B,H·Tq,Sk] f32).
+    q, k and v as in ``fused_attention``; launches on strided operands
+    are also counted in ``strided_launches``."""
     if q.device.type == "cpu":
         return fused_attention_fwd_train_reference(
             q, k, v, bias, mask, seed, num_heads, dropout_rate)
@@ -414,37 +473,73 @@ def fused_attention_fwd_train(q: torch.Tensor, k: torch.Tensor,
     B, Tq, Sk, dk = _validate_fwd(q, k, v, num_heads, (seed,))
     L, mask = _validate_bias_mask(q, bias, mask, num_heads, Sk)
     _check("seed", seed, torch.int32, (1,))
+    lds = _qkv_strides(q, k, v)
+    strided = lds != (num_heads * dk,) * 3
     lib = _build.load("fused_attention_fwd")
-    o = torch.empty_like(q)
+    o = torch.empty((B, Tq, num_heads * dk), dtype=q.dtype, device=q.device)
     p = torch.empty((B, num_heads * Tq, Sk), dtype=torch.float32,
                     device=q.device)
     drop = dropout_rate > 0.0
-    err = lib.fused_attention_fwd_train(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        bias.data_ptr() if L else None, mask.data_ptr(), seed.data_ptr(),
-        o.data_ptr(), p.data_ptr(), B, Tq, Sk, num_heads, dk, L,
-        _DTYPE_CODE[q.dtype], int(drop),
-        dropout_threshold(dropout_rate) if drop else 0,
-        1.0 - dropout_rate, _stream(q))
+    head = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            bias.data_ptr() if L else None, mask.data_ptr(), seed.data_ptr(),
+            o.data_ptr(), p.data_ptr(), B, Tq, Sk, num_heads, dk, L)
+    tail = (_DTYPE_CODE[q.dtype], int(drop),
+            dropout_threshold(dropout_rate) if drop else 0,
+            1.0 - dropout_rate, _stream(q))
+    if strided:
+        err = lib.fused_attention_fwd_train_strided(*head, *lds, *tail)
+    else:
+        err = lib.fused_attention_fwd_train(*head, *tail)
     _raise_on(err, lib, "fused_attention_fwd_train",
               "fused_attention_error_string")
     fused_attention_fwd_train.launches += 1
+    fused_attention_fwd_train.strided_launches += strided
     return o, p
 
 
 fused_attention_fwd_train.launches = 0
+fused_attention_fwd_train.strided_launches = 0
+
+
+def _rows_like(t: torch.Tensor, ld: int) -> torch.Tensor:
+    """An empty tensor of ``t``'s shape [B,S,W] laid out as rows of
+    ``ld`` elements (a column slice of a [B,S,ld] buffer): where K2
+    writes the gradient of an operand of that stride."""
+    B, S, W = t.shape
+    return torch.empty((B, S, ld), dtype=t.dtype, device=t.device)[..., :W]
 
 
 def fused_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         p: torch.Tensor, seed: torch.Tensor,
                         do: torch.Tensor, num_heads: int, L: int,
-                        dropout_rate: float
+                        dropout_rate: float,
+                        out: Optional[Tuple[torch.Tensor, torch.Tensor,
+                                            torch.Tensor]] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                                    Optional[torch.Tensor]]:
-    """K2 → (dq, dk, dv in q's dtype, dbias [H,L,L] f32 or None if L=0)."""
+    """K2 → (dq, dk, dv in q's dtype, dbias [H,L,L] f32 or None if L=0).
+
+    q, k and v as in ``fused_attention`` (do dense [B,Tq,H·dk]); dq, dk
+    and dv are written as rows of their input's stride: into ``out``
+    (three tensors of that layout, e.g. the slices of one merged gradient
+    buffer) or, without it, into new buffers of that layout. Launches on
+    strided operands are also counted in ``strided_launches``."""
+    if out is not None:
+        for name, t, g in zip(("dq", "dk", "dv"), (q, k, v), out):
+            if g.device != t.device or _row_stride(name, g, t.dtype,
+                                                   t.shape) != (
+                    _row_stride(name[1:], t, t.dtype, t.shape)):
+                raise ValueError(f"fused_attention_bwd: out {name} must "
+                                 f"have {name[1:]}'s shape, dtype, device "
+                                 f"and row stride")
     if q.device.type == "cpu":
-        return fused_attention_bwd_reference(q, k, v, p, seed, do,
-                                             num_heads, L, dropout_rate)
+        dq, dk_, dv, dbias = fused_attention_bwd_reference(
+            q, k, v, p, seed, do, num_heads, L, dropout_rate)
+        if out is None:
+            return dq, dk_, dv, dbias
+        for g, r in zip(out, (dq, dk_, dv)):
+            g.copy_(r)
+        return (*out, dbias)
     from vqacl_tpu_torch.ops import _build
 
     H = num_heads
@@ -456,36 +551,41 @@ def fused_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if L > min(Tq, Sk):
         raise ValueError(f"fused_attention_bwd: bias block {L} exceeds "
                          f"(Tq, Sk) = ({Tq}, {Sk})")
+    lds = _qkv_strides(q, k, v)
+    dq, dk_, dv = out if out is not None else (
+        _rows_like(t, ld) for t, ld in zip((q, k, v), lds))
     if bwd_route(q.dtype, dk, Tq, Sk, dropout_rate) == "mma":
-        for name, t in (("q", q), ("k", k), ("v", v), ("do", do)):
-            if t.data_ptr() % 16:
-                raise ValueError(f"fused_attention_bwd: the bf16 kernel "
-                                 f"needs {name} 16-byte aligned")
+        _check_rows16("fused_attention_bwd", zip(
+            ("q", "k", "v", "do", "dq", "dk", "dv"), (q, k, v, do, dq, dk_, dv),
+            lds + (HD,) + lds))
+    strided = lds != (HD,) * 3
     lib = _build.load("fused_attention_bwd")
-    dq = torch.empty_like(q)
-    dk_ = torch.empty_like(k)
-    dv = torch.empty_like(v)
     dbias = part = None
     if L:
         part = torch.empty((B, H, L, L), dtype=torch.float32,
                            device=q.device)
         dbias = torch.empty((H, L, L), dtype=torch.float32, device=q.device)
     drop = dropout_rate > 0.0
-    err = lib.fused_attention_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), p.data_ptr(),
-        seed.data_ptr(), do.data_ptr(), dq.data_ptr(), dk_.data_ptr(),
-        dv.data_ptr(), part.data_ptr() if L else None,
-        dbias.data_ptr() if L else None, B, Tq, Sk, H, dk, L,
-        _DTYPE_CODE[q.dtype], int(drop),
-        dropout_threshold(dropout_rate) if drop else 0,
-        1.0 - dropout_rate, _stream(q))
+    head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), p.data_ptr(),
+            seed.data_ptr(), do.data_ptr(), dq.data_ptr(), dk_.data_ptr(),
+            dv.data_ptr(), part.data_ptr() if L else None,
+            dbias.data_ptr() if L else None, B, Tq, Sk, H, dk, L)
+    tail = (_DTYPE_CODE[q.dtype], int(drop),
+            dropout_threshold(dropout_rate) if drop else 0,
+            1.0 - dropout_rate, _stream(q))
+    if strided:
+        err = lib.fused_attention_bwd_strided(*head, *lds, *tail)
+    else:
+        err = lib.fused_attention_bwd(*head, *tail)
     _raise_on(err, lib, "fused_attention_bwd",
               "fused_attention_bwd_error_string")
     fused_attention_bwd.launches += 1
+    fused_attention_bwd.strided_launches += strided
     return dq, dk_, dv, dbias
 
 
 fused_attention_bwd.launches = 0
+fused_attention_bwd.strided_launches = 0
 
 
 def fused_attention_keep_mask(seed: torch.Tensor, B: int, H: int, Tq: int,
@@ -535,6 +635,93 @@ class _FusedAttention(torch.autograd.Function):
         return dq, dk, dv, dbias, None, None, None, None
 
 
+def _unpack(x: torch.Tensor, kv: Optional[torch.Tensor]):
+    """(q, k, v) views of packed projection outputs: x [B,S,3·W] holds
+    q|k|v when ``kv`` is None; otherwise x is q [B,Tq,W] and kv
+    [B,Sk,2·W] holds k|v. No copy: each view keeps its buffer's row
+    stride."""
+    if kv is None:
+        W = x.shape[-1] // 3
+        return x[..., :W], x[..., W:2 * W], x[..., 2 * W:]
+    W = x.shape[-1]
+    return x, kv[..., :W], kv[..., W:]
+
+
+class _FusedAttentionPacked(torch.autograd.Function):
+    """K3 over merged projection outputs (``merged_qkv``): the merged
+    variant of ``_FusedAttention``.
+
+    Design: the Function takes the packed GEMM outputs themselves, x =
+    q|k|v [B,S,3·H·dk] (self-attention; ``kv`` None) or x = q with kv =
+    k|v [B,Sk,2·H·dk] (cross-attention), and hands K1′ and K2 their column
+    slices as strided views, with no copy. Its backward allocates ONE
+    gradient buffer per packed input, laid out as that input, and K2
+    writes dq, dk and dv straight into its slices, so autograd sees one
+    gradient of the packed GEMM output and the merged projection's
+    backward is one dX and one dW product. (Slicing first and calling
+    ``_FusedAttention`` would leave autograd to build the packed
+    gradient from three zero-filled slice gradients summed.)"""
+
+    @staticmethod
+    def forward(ctx, x, kv, bias, mask, seed, num_heads, dropout_rate):
+        q, k, v = _unpack(x, kv)
+        if q.device.type == "cuda":    # refuse before K1′ launches
+            bwd_route(q.dtype, q.shape[-1] // num_heads, q.shape[1],
+                      k.shape[1], dropout_rate)
+        o, p = fused_attention_fwd_train(q, k, v, bias, mask, seed,
+                                         num_heads, dropout_rate)
+        ctx.save_for_backward(x, kv, p, seed)
+        ctx.num_heads = num_heads
+        ctx.dropout_rate = dropout_rate
+        ctx.L = 0 if bias is None else bias.shape[-1]
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        x, kv, p, seed = ctx.saved_tensors
+        dx = torch.empty_like(x)       # dense, as fused_attention_packed
+        dkv = None if kv is None else torch.empty_like(kv)   # checks x, kv
+        *_, dbias = fused_attention_bwd(
+            *_unpack(x, kv), p, seed, do.contiguous(), ctx.num_heads, ctx.L,
+            ctx.dropout_rate, out=_unpack(dx, dkv))
+        return dx, dkv, dbias, None, None, None, None
+
+
+def fused_attention_packed(x: torch.Tensor, kv: Optional[torch.Tensor],
+                           bias: Optional[torch.Tensor], mask: torch.Tensor,
+                           num_heads: int, dropout_rate: float = 0.0,
+                           seed: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """``fused_attention`` on packed projection outputs (``_unpack``: x =
+    q|k|v [B,S,3·H·dk], or x = q [B,Tq,H·dk] with kv = k|v [B,Sk,2·H·dk];
+    each dense) → [B,Tq,H·dk]. Differentiable calls go through
+    ``_FusedAttentionPacked``; others run K1 on the strided views."""
+    for name, t in (("x", x), ("kv", kv)):
+        if t is not None and not t.is_contiguous():
+            raise ValueError(f"fused_attention_packed: {name} must be a "
+                             f"dense projection output")
+    if torch.is_grad_enabled() and (x.requires_grad or (
+            kv is not None and kv.requires_grad)):
+        if seed is None:
+            seed = torch.zeros((1,), dtype=torch.int32, device=x.device)
+        return _FusedAttentionPacked.apply(x, kv, bias, mask, seed,
+                                           num_heads, float(dropout_rate))
+    return fused_attention(*_unpack(x, kv), bias, mask, num_heads,
+                           dropout_rate=dropout_rate, seed=seed)
+
+
+def _bias_block(pos_bias: Optional[torch.Tensor], q: torch.Tensor,
+                k: torch.Tensor) -> Optional[torch.Tensor]:
+    """pos_bias [H,L,L] as the kernels' dense f32 bias block, checked to
+    fit the first L of q's and k's positions (dim 1); None stays None."""
+    if pos_bias is None:
+        return None
+    L, Tq, Sk = pos_bias.shape[-1], q.shape[1], k.shape[1]
+    if L > min(Tq, Sk):
+        raise ValueError(f"bias block {L} exceeds (Tq, Sk) = ({Tq}, {Sk})")
+    return pos_bias.to(torch.float32).contiguous()
+
+
 def _fused_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                pos_bias: Optional[torch.Tensor], mask: torch.Tensor,
                dropout_rate: float = 0.0,
@@ -547,12 +734,7 @@ def _fused_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the same)."""
     B, Tq, H, dk = q.shape
     Sk = k.shape[1]
-    bias = None
-    if pos_bias is not None:
-        L = pos_bias.shape[-1]
-        if L > min(Tq, Sk):
-            raise ValueError(f"bias block {L} exceeds (Tq, Sk) = ({Tq}, {Sk})")
-        bias = pos_bias.to(torch.float32).contiguous()
+    bias = _bias_block(pos_bias, q, k)
     return fused_attention(q.reshape(B, Tq, H * dk), k.reshape(B, Sk, H * dk),
                            v.reshape(B, Sk, H * dk), bias, mask, H,
                            dropout_rate=dropout_rate, seed=seed)
@@ -577,3 +759,29 @@ def fused_cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     mask [B,Sk], seed int32 [1] → [B,Tq,H·dk]."""
     return _fused_mha(q, k, v, None, mask, dropout_rate=dropout_rate,
                       seed=seed)
+
+
+def fused_encoder_attention_merged(qkv: torch.Tensor, pos_bias: torch.Tensor,
+                                   mask: torch.Tensor, num_heads: int,
+                                   dropout_rate: float = 0.0,
+                                   seed: Optional[torch.Tensor] = None
+                                   ) -> torch.Tensor:
+    """Self-attention on the merged projection output qkv [B,S,3·H·dk]
+    (``t5.qkv_proj_merged``'s GEMM), q, k and v reaching the kernels as
+    strided views; pos_bias [H,L,L] f32, mask [B,S], seed int32 [1] →
+    [B,S,H·dk]."""
+    return fused_attention_packed(qkv, None, _bias_block(pos_bias, qkv, qkv),
+                                  mask, num_heads, dropout_rate, seed)
+
+
+def fused_cross_attention_merged(q: torch.Tensor, kv: torch.Tensor,
+                                 mask: torch.Tensor,
+                                 dropout_rate: float = 0.0,
+                                 seed: Optional[torch.Tensor] = None
+                                 ) -> torch.Tensor:
+    """Bias-free rectangular attention: q [B,Tq,H,dk] and the merged k|v
+    projection kv [B,Sk,2·H·dk] (``t5.kv_proj_merged``'s GEMM), mask
+    [B,Sk], seed int32 [1] → [B,Tq,H·dk]."""
+    B, Tq, H, dk = q.shape
+    return fused_attention_packed(q.reshape(B, Tq, H * dk), kv, None, mask,
+                                  H, dropout_rate, seed)

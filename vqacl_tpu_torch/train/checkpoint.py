@@ -6,14 +6,18 @@ step (``meta::step``) and any ``extra::<name>`` arrays, so the port
 serves a checkpoint the JAX package wrote and the JAX package loads one
 the port wrote. ``AsyncCheckpointer`` writes in a background thread;
 ``load_reference_prototypes`` reads the reference run's loose prototype
-banks.
+banks. ``save_checkpoint_dcp``/``load_checkpoint_dcp`` keep the same tree
+as a ``torch.distributed.checkpoint`` directory, the counterpart of JAX's
+orbax pair.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import threading
 import time
+import warnings
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -138,6 +142,78 @@ def load_checkpoint(path: str, device="cpu"
                           .to(device) for name in ProtoState._fields})
     step = int(flat.get(f"meta{SEP}step", np.asarray(0)))
     return from_jax_params(params, device=device), proto, step
+
+
+# ---------------------------------------------------------------------------
+# the directory format: torch.distributed.checkpoint (counterpart of JAX's
+# orbax pair). The tree is the same, {"params", "proto" as a dict, "step"};
+# the two directory formats are not interchangeable.
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def _one_process():
+    """DCP in one process without a process group: it warns that it
+    assumes a single process, which is what the port runs, and, on a
+    save over an earlier one, that it overwrites, which the save means
+    to do (as orbax's ``force=True``); those two warnings alone are
+    silenced."""
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message="torch.distributed is "
+                                "disabled, unavailable or uninitialized")
+        warnings.filterwarnings("ignore", message="Detected an existing "
+                                "checkpoint in")
+        yield
+
+
+def _flat_tensors(tree: Any, prefix: str = "") -> Dict[str, torch.Tensor]:
+    if isinstance(tree, dict):
+        out: Dict[str, torch.Tensor] = {}
+        for k, v in tree.items():
+            out.update(_flat_tensors(v, f"{prefix}{SEP}{k}" if prefix
+                                     else str(k)))
+        return out
+    return {prefix: tree.detach()}
+
+
+def save_checkpoint_dcp(directory: str, params: Any, proto: ProtoState,
+                        step: int = 0) -> None:
+    """Write {"params", "proto", "step"} as a ``torch.distributed.checkpoint``
+    directory (created, or overwritten), the tree's paths joined with
+    ``::`` as its keys. Tensors may lie on any device."""
+    import torch.distributed.checkpoint as dcp
+
+    directory = os.path.abspath(directory)
+    os.makedirs(directory, exist_ok=True)
+    tree = {"params": params, "proto": dict(proto._asdict()),
+            "step": torch.tensor(step, dtype=torch.int64)}
+    with _one_process():
+        dcp.save(_flat_tensors(tree), no_dist=True,
+                 storage_writer=dcp.FileSystemWriter(directory,
+                                                     overwrite=True))
+
+
+def load_checkpoint_dcp(directory: str
+                        ) -> Tuple[Dict[str, Any], ProtoState, int]:
+    """→ (params, ProtoState, step) from a ``save_checkpoint_dcp``
+    directory, on the CPU in the saved dtypes. No template is needed: the
+    targets are built from the directory's own metadata."""
+    import torch.distributed.checkpoint as dcp
+    from torch.distributed.checkpoint import FileSystemReader
+    from torch.distributed.checkpoint.metadata import TensorStorageMetadata
+
+    directory = os.path.abspath(directory)
+    meta = FileSystemReader(directory).read_metadata().state_dict_metadata
+    targets = {}
+    for key, m in meta.items():
+        if not isinstance(m, TensorStorageMetadata):
+            raise ValueError(f"load_checkpoint_dcp: {key!r} in {directory} "
+                             f"is not a tensor")
+        targets[key] = torch.empty(m.size, dtype=m.properties.dtype)
+    with _one_process():
+        dcp.load(targets, checkpoint_id=directory, no_dist=True)
+    tree = _unflatten(targets)
+    proto = ProtoState(**{k: tree["proto"][k] for k in ProtoState._fields})
+    return tree["params"], proto, int(tree["step"])
 
 
 def load_reference_prototypes(proto: ProtoState, q_path: str,

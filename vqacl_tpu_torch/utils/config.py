@@ -63,6 +63,20 @@ class ModelConfig:
     # attention through the same kernels. It takes effect only together
     # with fused_attention; off by default, as in the JAX package.
     fused_decoder: bool = False
+    # merged q/k/v (self) and k/v (cross) projection GEMMs
+    # (t5.qkv_proj_merged; the fused kernels take q, k and v as strided
+    # views of the one output). "auto" → True on one device
+    # (resolve_merged_qkv, called by the CL trainer); readers take only a
+    # strict True, so "auto" elsewhere keeps the separate projections, as
+    # in JAX. A regrouping of the same products: the parameter layout is
+    # unchanged.
+    merged_qkv: object = "auto"
+    # fold ALL decoder layers' cross-attention K/V projections (their
+    # input, the encoder states, is the same for every layer) into ONE
+    # [D, n·2·H·dk] GEMM (t5.cross_kv_fold_all): the unfused decoder
+    # stack and the decode's cross-K/V precompute. Off by default, as in
+    # JAX (an opt-in for decoders deep relative to batch·S).
+    folded_cross_kv: bool = False
 
     @property
     def encoder_len(self) -> int:
@@ -144,6 +158,14 @@ class Config:
     mesh: MeshConfig = field(default_factory=MeshConfig)
     data: DataConfig = field(default_factory=DataConfig)
     output: str = "snap/vqacl"
+
+
+def resolve_merged_qkv(model_cfg: ModelConfig, n_devices: int = 1) -> None:
+    """Resolve ``merged_qkv="auto"`` in place: True on one device (the
+    part of JAX's ``resolve_fused_attention`` that applies to the port;
+    a multi-device mesh keeps separate projections there)."""
+    if model_cfg.merged_qkv == "auto":
+        model_cfg.merged_qkv = n_devices == 1
 
 
 def tiny_model_config(**overrides) -> ModelConfig:
