@@ -18,8 +18,15 @@ one's K1/K1′/K2 launches against its steps and batches, all strided
 and pack checks and their launches, at a cache of a few hundred images;
 in phase 9 the strided kernel checks, the merged and folded paths, the
 classifier head, weight import/export, the directory checkpoint and
-VL-BART (tiny BART widths) — and that without CUDA the real script
-prints no result and exits non-zero.
+VL-BART (tiny BART widths); in phase 10 the VQA CLI's ten-task run from
+a tsv-converted pack (the files it leaves, launches against its steps,
+``Test()`` equal to the training matrix), the backbone start bit-equal to
+the file, NExT-QA's launches against its steps at the 39-position
+encoder, the tiny card-vs-CPU CLI pair and the phase's launches in the
+kernels line (``torch.device("cuda")`` is left naming the card there, so
+the trainers that ``--platform auto`` makes time their calls as on the
+card) — and that without CUDA the real script prints no result and exits
+non-zero.
 """
 
 import json
@@ -49,6 +56,8 @@ class CudaOnCpu(TorchFunctionMode):
     def __torch_function__(self, func, types, args=(), kwargs=None):
         if func is torch.Tensor.cuda:
             return args[0]
+        if func is torch.device:   # a device object may name the card
+            return func(*args, **(kwargs or {}))
         kwargs = {k: to_cpu(v) for k, v in (kwargs or {}).items()}
         return func(*(to_cpu(a) for a in args), **kwargs)
 
@@ -59,6 +68,8 @@ class HostEvent:
         self.t = time.perf_counter()
     def elapsed_time(self, other):
         return (other.t - self.t) * 1e3
+    def synchronize(self):
+        pass
 
 torch.cuda.is_available = lambda: True
 torch.cuda.synchronize = lambda *a: None
@@ -87,8 +98,9 @@ import vqacl_tpu_torch.train.step as ST
 import vqacl_tpu_torch.mm_bench as MB
 import vqacl_tpu_torch.cl.trainer as CT, vqacl_tpu_torch.cl.regularizers as RG
 import vqacl_tpu_torch.data.device_cache as DC
+import vqacl_tpu_torch.cli.args  # noqa: F401 (--platform auto: the "card")
 D.resolve_device = V.resolve_device = SV.resolve_device = ST.resolve_device = cpu
-MB.resolve_device = CT.resolve_device = RG.resolve_device = cpu
+MB.resolve_device = RG.resolve_device = cpu
 DC.resolve_device = cpu
 from vqacl_tpu_torch.ops import _build, fused_attention as fa
 _build.build = lambda names=(), csrc=None: []
@@ -148,6 +160,7 @@ def tiny():
     c.train.lr = 1e-2
     return c
 C.Config = tiny
+vqacl_tpu_torch.cli.args.Config = tiny
 import chip_smoke
 chip_smoke.card_line = lambda: "rehearsal card, 0 W"
 chip_smoke.EVAL_BATCH = 4
@@ -168,6 +181,12 @@ chip_smoke.MERGED_ROUNDS = 2
 chip_smoke.CLS_ANSWERS = 16
 chip_smoke.CLS_LR = 1e-2
 chip_smoke.BART_CFG = dict(chip_smoke.BART_TINY, dropout_rate=0.1)
+chip_smoke.P10_ITEMS = (12, 4, 4)
+chip_smoke.P10_IMAGES = 16
+chip_smoke.NQ_ITEMS = (24, 8, 8)
+chip_smoke.NQ_VIDEOS = 16
+chip_smoke.P10_TINY = (16, 8, 8)
+chip_smoke.P10_TINY_BATCH = 8
 with CudaOnCpu():
     sys.exit(chip_smoke.main())
 """
@@ -184,12 +203,12 @@ def test_chip_smoke_base_rehearsal_on_cpu():
     ab = json.loads(lines[-1][len("ab "):])
     assert ab["base"] == os.path.join(REPO, "vqacl_tpu_torch", "csrc")
     rows = [k for k in ab if k not in ("base", "card")]
-    assert len(rows) == 9
+    assert len(rows) == 12
     for k in rows:
         assert {"ms", "base_ms", "bound_ms"} <= set(ab[k]), k
         assert ("call_ms" in ab[k]) == ("base_call_ms" in ab[k]) \
             == k.startswith("K1"), k
-    assert sum(l.startswith("  ab device: base ") for l in lines) == 9
+    assert sum(l.startswith("  ab device: base ") for l in lines) == 12
     assert '"ok"' not in r.stdout and "eval_step:" not in r.stdout
 
 
@@ -273,14 +292,63 @@ def test_chip_smoke_rehearsal_on_cpu():
     p9_k = summary["model_extensions_launches"]
     assert p9_k[0] == 2 * (6 + 3)
     assert p9_k[1] == p9_k[2] == 3 * 4 * (2 + 6) + 5 * 2
+    # phase 10: the VQA CLI's training run and Test(), NExT-QA and the
+    # tiny card runs, each against its steps and batches
+    p10 = summary["training_cli"]
+    p10_k = summary["training_cli_launches"]
+    runs10 = [p10["vqa"], p10["nextqa"]]
+    for run in runs10:
+        c = run["counts"]
+        steps = c["train_steps"] + c["replay_steps"]
+        assert run["launches"] == run["expected_launches"] == [
+            2 * c["predict_batches"], 2 * steps, 2 * steps]
+        assert run["strided_launches"] == run["launches"]
+        assert c["replay_steps"] > 0
+    assert len(p10["vqa"]["task_wall_s"]) == 10
+    assert len(p10["vqa"]["checkpoint_save_ms"]) == 10
+    test10 = p10["vqa_test"]
+    assert test10["equal_to_training"]
+    assert test10["result_matrix"] == p10["vqa"]["result_matrix"]
+    assert test10["launches"] == test10["strided_launches"] == [
+        2 * test10["predict_batches"], 0, 0]
+    assert test10["predict_batches"] == 55
+    assert p10["backbone"] == {"bit_equal": True, "scratch_differs": True,
+                               "start_s": p10["backbone"]["start_s"]}
+    nq = p10["nextqa"]
+    assert nq["encoder_len"] == 39 and len(nq["task_wall_s"]) == 2
+    assert nq["wups_backend"] == ["vendored-taxonomy"]
+    assert 0.0 <= nq["wups_vocab_coverage"][0] <= 1.0
+    for name, cls in (("vqa", "CompVQACLTrainer"),
+                      ("nextqa", "VQACLTrainer")):
+        t = p10["tiny"][name]
+        assert t["cls"] == cls and all(t["equal"].values())
+        assert t["loss_rel_err"] <= 1e-5 and min(t["launches"]) > 0
+        assert f"cli tiny f32 {name} ({cls}), --platform auto on cuda vs " \
+            f"cpu on cpu" in r.stdout
+    assert p10_k == [sum(x["launches"][i] for x in runs10
+                         + [test10] + list(p10["tiny"].values()))
+                     for i in range(3)]
+    assert "feature store PackedFeatureStore" in r.stdout
+    assert "cli_vqa: Test() matrix == the training run's: True" in r.stdout
+    assert not os.path.exists(os.path.join(REPO, "build", "chip_smoke",
+                                           "phase10"))
+    # NExT-QA's 39 x 39 shape in phase 2: K1 at the eval batch, K1' and K2
+    # at rates 0 and 0.1, dense and strided, each timed once
+    for name, n in (("nextqa_eval_shape", 1), ("nextqa_train_shape", 2)):
+        assert sum(l.startswith(f"kernel_check {name}:") and "Tq=39 Sk=39"
+                   in l and "L=23" in l for l in lines) == n, name
+        assert sum(l.startswith(f"strided_check {name}:") for l in lines) \
+            == n, name
+    assert set(summary["nextqa_kernel_times"]) == {"K1", "K1p", "K2"}
     # K1: 2 layers x 3 timed eval steps, plus one fused-decoder loss-eval
     # step (2 encoder + 2 x 2 decoder attentions), plus the CL loops
-    assert k1["launches"] == 2 * 3 + 6 + cl_k[0] + p8_k[0] + p9_k[0]
+    assert k1["launches"] == 2 * 3 + 6 + cl_k[0] + p8_k[0] + p9_k[0] \
+        + p10_k[0]
     assert "fused_attention launches=6 (2/step)" in r.stdout
     # K1'/K2: 4 train steps x 2 encoder layers, and 4 fused-decoder
     # steps x (2 encoder + 2 x 2 decoder) attentions, plus the CL loops
     assert k1p["launches"] == k2["launches"] == 2 * 4 + 6 * 4 + cl_k[1] \
-        + p8_k[1] + p9_k[1]
+        + p8_k[1] + p9_k[1] + p10_k[1]
     assert cl_k[1] == cl_k[2]
     assert "train_step: bs 8 bf16" in r.stdout
     assert "launches over 4 steps: K1=0 K1'=8 K2=8" in r.stdout
@@ -381,7 +449,7 @@ def test_chip_smoke_rehearsal_on_cpu():
     # VL-BART
     checks = [l for l in lines if l.startswith("strided_check ")
               and "refused" not in l]
-    assert len(checks) == 2 * 6 + 3
+    assert len(checks) == 2 * 6 + 3 + 3     # + NExT-QA's, phase 2
     assert all('"K1\'": true, "K2": true, "K2 merged buffer": true' in l
                and "strided launches K1/K1'/K2 [" in l for l in checks)
     assert sum("layout=folded" in l for l in checks) == 2

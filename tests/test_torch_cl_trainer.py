@@ -32,6 +32,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from torch_parity import jax_tiny_params, torch_cfg_like  # noqa: E402
+from torch_parity import record_trainer as _record  # noqa: E402
 from vqacl_tpu.cl.comp_trainer import CompVQACLTrainer as JComp  # noqa: E402
 from vqacl_tpu.cl.trainer import VQACLTrainer as JTrainer  # noqa: E402
 from vqacl_tpu.data.synthetic_module import SyntheticDataModule as JData  # noqa: E402
@@ -83,49 +84,6 @@ def _configs(out_j, out_t, reg="none", comp=None):
                      for f in dataclasses.fields(tc.train)})
     tc.output = str(out_t)
     return jc, tc, params
-
-
-def _record(trainer):
-    """Per-step losses (replay steps tagged) and batches, every predict's
-    answers and every eval step's tokens."""
-    rec = {"losses": [], "batches": [], "answers": [], "tokens": []}
-
-    def steps(make, tag):
-        def wrapped(*a):
-            fn = make(*a)
-
-            def step(state, batch):
-                # the stored DER logits come from each package's own
-                # forward: compared within a tolerance below
-                rec["batches"].append({k: np.asarray(v).tobytes()
-                                       for k, v in batch.items()
-                                       if k != "der_logits"})
-                state, m = fn(state, batch)
-                rec["losses"].append((tag, float(m["loss"])))
-                return state, m
-            return step
-        return wrapped
-
-    trainer._train_step = steps(trainer._train_step, "train")
-    trainer._der_replay_step = steps(trainer._der_replay_step, "der")
-    predict = trainer.predict
-
-    def predicting(loader):
-        out = predict(loader)
-        rec["answers"].append(dict(out))
-        return out
-
-    trainer.predict = predicting
-    eval_step = trainer.eval_step
-
-    def evaluating(*a):
-        tokens = eval_step(*a)
-        rec["tokens"].append(np.asarray(tokens.cpu() if hasattr(tokens, "cpu")
-                                        else tokens))
-        return tokens
-
-    trainer.eval_step = evaluating
-    return rec
 
 
 def _jax_trainer(cls, jc, params):

@@ -275,13 +275,14 @@ def test_tokenizer_and_collate_match_jax():
 def test_port_imports_nothing_of_jax():
     """Every module of the port, and chip_smoke.py, imports with ``jax``,
     ``vqacl_tpu``, ``h5py``, ``ml_dtypes``, ``transformers``,
-    ``safetensors`` and ``orbax`` blocked (a None entry in sys.modules
-    makes any import of them raise); the weight files and the directory
-    checkpoint are written and read with them blocked too."""
+    ``safetensors``, ``orbax``, ``yaml``, ``pyarrow``, ``nltk`` and
+    ``tokenizers`` blocked (a None entry in sys.modules makes any import
+    of them raise); the weight files and the directory checkpoint are
+    written and read with them blocked too."""
     code = r"""
 import importlib, os, pkgutil, runpy, sys, tempfile
 BLOCKED = ("jax", "jaxlib", "vqacl_tpu", "h5py", "ml_dtypes", "transformers",
-           "safetensors", "orbax")
+           "safetensors", "orbax", "yaml", "pyarrow", "nltk", "tokenizers")
 for name in BLOCKED:
     sys.modules[name] = None
 import vqacl_tpu_torch
@@ -322,7 +323,11 @@ print("imported", len(mods))
               "cl.trainer", "cl.comp_trainer", "evaluation.vqa_acc",
               "data.partition", "data.synthetic_module", "cli.serve_http",
               "data.device_cache", "data.packed_cache", "models.hf_import",
-              "models.bart", "cli.export_pth", "train.checkpoint"):
+              "models.bart", "cli.export_pth", "train.checkpoint",
+              "cli.args", "cli.vqacl_train", "cli.nextqa_train",
+              "cli.validate_wordnet", "data.vqa_module", "data.tsv_convert",
+              "data.arrow_store", "evaluation.taxonomy",
+              "evaluation.wordnet_db", "evaluation.wups", "nextqa.data"):
         assert f"vqacl_tpu_torch.{m}" in imported, m
 
 

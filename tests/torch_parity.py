@@ -51,3 +51,46 @@ def proto_banks(cfg, seed=0):
     rng = np.random.default_rng(seed)
     return (rng.normal(size=(cfg.n_ques_types, cfg.d_model)).astype(np.float32),
             rng.normal(size=(cfg.n_categories, cfg.d_model)).astype(np.float32))
+
+
+def record_trainer(trainer):
+    """Per-step losses (replay steps tagged) and batches, every predict's
+    answers and every eval step's tokens."""
+    rec = {"losses": [], "batches": [], "answers": [], "tokens": []}
+
+    def steps(make, tag):
+        def wrapped(*a):
+            fn = make(*a)
+
+            def step(state, batch):
+                # the stored DER logits come from each package's own
+                # forward: compared within a tolerance below
+                rec["batches"].append({k: np.asarray(v).tobytes()
+                                       for k, v in batch.items()
+                                       if k != "der_logits"})
+                state, m = fn(state, batch)
+                rec["losses"].append((tag, float(m["loss"])))
+                return state, m
+            return step
+        return wrapped
+
+    trainer._train_step = steps(trainer._train_step, "train")
+    trainer._der_replay_step = steps(trainer._der_replay_step, "der")
+    predict = trainer.predict
+
+    def predicting(loader):
+        out = predict(loader)
+        rec["answers"].append(dict(out))
+        return out
+
+    trainer.predict = predicting
+    eval_step = trainer.eval_step
+
+    def evaluating(*a):
+        tokens = eval_step(*a)
+        rec["tokens"].append(np.asarray(tokens.cpu() if hasattr(tokens, "cpu")
+                                        else tokens))
+        return tokens
+
+    trainer.eval_step = evaluating
+    return rec

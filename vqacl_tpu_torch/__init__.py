@@ -24,7 +24,13 @@ with the EWC/MAS (``cl.regularizers``) and DER/DER++ step options; and
 the serving extras: ``models.generate.beam_search``, the device feature
 cache ``data.device_cache`` (serving and the loop), the HTTP front end
 ``cli.serve_http`` and the host feature stores (``data.features``' h5
-store, ``data.packed_cache`` over the host C++ ``native/``).
+store, ``data.packed_cache`` over the host C++ ``native/``); the model
+extensions (merged projections, the classifier head, weight import and
+export, VL-BART); and the training entry points, ``cli.vqacl_train`` and
+``cli.nextqa_train`` (argv through ``cli.args``) over the reference-format
+``data.vqa_module`` and ``nextqa.data``, with WUPS evaluation
+(``evaluation.wups``) and the feature converters (``data.tsv_convert``,
+``data.arrow_store``).
 """
 
 __version__ = "0.1.0"

@@ -1,17 +1,21 @@
 """Run configuration for the serving, training and continual-learning
-paths.
+paths and the training entry points.
 
-Counterpart of ``vqacl_tpu/utils/config.py``, cut to the fields the
-ported paths read. The defaults are the JAX package's: the same t5-base
-geometry, optimisation hyperparameters and CL protocol. There is no yaml
-round-trip here, so the module needs nothing beyond the standard
-library. Block recompute is the ``remat`` argument of
-``make_train_step``; the CL trainer passes ``MeshConfig.remat``.
+Counterpart of ``vqacl_tpu/utils/config.py``: every field that
+``cli/args.py::parse_config`` writes, with the JAX package's defaults
+(the same t5-base geometry, optimisation hyperparameters and CL
+protocol). ``fused_attention`` is a boolean here: the CLI maps its
+``auto|on|off`` onto it. The yaml round-trip (``Config.save``/``load``)
+imports ``yaml`` inside the methods, so the module itself needs nothing
+beyond the standard library. Block recompute is the ``remat`` argument
+of ``make_train_step``; the CL trainer passes ``MeshConfig.remat``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
+from typing import Any, Dict
 
 
 @dataclass
@@ -103,10 +107,13 @@ class TrainConfig:
     valid_batch_size: int = 100
     schedule: str = "constant_warmup"   # or "linear_warmup"
     freeze: bool = False             # train only the shared embedding
+    from_scratch: bool = True        # False: the CLI starts from --backbone
     proto_alpha: float = 0.5         # Q memory-bank EMA coefficient
     proto_beta: float = 0.3          # V bank EMA coefficient
     lambda_Q: float = 0.01           # memory-loss weights
     lambda_V: float = 0.1
+    lambda_Q_new: float = 0.0
+    lambda_V_new: float = 0.0
     use_memory_loss: bool = False
     # --- the continual-learning loop (cl/trainer.py) ---
     epochs: int = 3
@@ -114,6 +121,7 @@ class TrainConfig:
     memory: bool = True              # experience replay on
     m_size: int = 5000               # replay buffer size M
     comp_cate: str = "G-1"           # held-out category group ("G-1" = none)
+    use_class_hierarchy: bool = True  # dual-level inner loop over G1..G5
     # "none" | "ewc" | "mas" (cl/regularizers.py) | "der" | "derpp"
     # (train/step.py::make_der_replay_step)
     cl_reg: str = "none"
@@ -125,14 +133,19 @@ class TrainConfig:
 @dataclass
 class MeshConfig:
     """Placement. ``remat`` is the train steps' block recompute (False,
-    True/"full", "dots"). The port runs on one device: ``dp``, ``tp``,
-    ``pp`` and ``param_layout`` are placeholders with the JAX package's
-    defaults, read only by the trainer to refuse any other value, until
-    the parallel slice gives them their behaviour."""
+    True/"full", "dots"); ``dtype`` the compute dtype the CLI hands the
+    trainer. The port runs on one device: ``dp``, ``tp``, ``pp`` and
+    ``param_layout`` are placeholders with the JAX package's defaults,
+    read only by the trainer to refuse any other value, until the
+    parallel slice gives them their behaviour; ``pp_micro`` and
+    ``param_dtype`` are read by nothing yet."""
 
     dp: int = -1                     # -1: all devices (here: one)
     tp: int = 1
     pp: int = 1
+    pp_micro: int = 4                # pipeline microbatches (placeholder)
+    dtype: str = "bfloat16"          # compute dtype (the CLI's --dtype)
+    param_dtype: str = "float32"     # master weights
     remat: object = False
     param_layout: str = "replicated"
 
@@ -145,7 +158,16 @@ class DataConfig:
     ``device_cache_sharded`` (the table row-sharded over a dp mesh) needs
     the parallel slice: the trainer refuses it."""
 
+    dataset_root: str = "datasets"
+    feature_files: Dict[str, str] = field(default_factory=dict)
+    train_split: str = "karpathy_train"
+    valid_split: str = "karpathy_val"
+    test_split: str = "karpathy_test"
     n_workers: int = 4               # loader threads per BatchLoader
+    train_topk: int = -1             # first k items of each train split
+    valid_topk: int = -1             # ... of each val and test split
+    answer_normalize: bool = False
+    host_cache_bytes: int = 4 << 30  # host-RAM tier of the feature cache
     device_cache: bool = False
     device_cache_sharded: bool = False
     device_cache_dtype: str = "bfloat16"   # bfloat16|float32|int8
@@ -158,6 +180,39 @@ class Config:
     mesh: MeshConfig = field(default_factory=MeshConfig)
     data: DataConfig = field(default_factory=DataConfig)
     output: str = "snap/vqacl"
+    backbone: str = "t5-base"
+    verbose: bool = True
+
+    # ---- yaml round-trip, as the JAX package's ----
+    def to_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
+    def save(self, path: str) -> None:
+        import yaml
+
+        with open(path, "w") as f:
+            yaml.safe_dump(self.to_dict(), f, sort_keys=False)
+
+    @classmethod
+    def load(cls, path: str) -> "Config":
+        import yaml
+
+        with open(path) as f:
+            raw = yaml.safe_load(f)
+        return cls.from_dict(raw)
+
+    @classmethod
+    def from_dict(cls, raw: Dict[str, Any]) -> "Config":
+        kw: Dict[str, Any] = {}
+        for f_ in dataclasses.fields(cls):
+            if f_.name not in raw:
+                continue
+            v = raw[f_.name]
+            sub = {"model": ModelConfig, "train": TrainConfig,
+                   "mesh": MeshConfig, "data": DataConfig}.get(f_.name)
+            kw[f_.name] = sub(**v) if sub is not None and isinstance(v, dict) \
+                else v
+        return cls(**kw)
 
 
 def resolve_merged_qkv(model_cfg: ModelConfig, n_devices: int = 1) -> None:
