@@ -25,7 +25,15 @@ the file, NExT-QA's launches against its steps at the 39-position
 encoder, the tiny card-vs-CPU CLI pair and the phase's launches in the
 kernels line (``torch.device("cuda")`` is left naming the card there, so
 the trainers that ``--platform auto`` makes time their calls as on the
-card) — and that without CUDA the real script prints no result and exits
+card); N1's wrapper replaced by its plain loop plus the launch counter
+(its argument checks kept), checked at a 600-box RPN shape and the
+sweep's; in phase 11 the detector and the 3D ResNeXt at reduced depth
+(the port's stage tables monkeypatched: one narrow block per stage, C4
+1024, res5 and the motion features 2048 wide), a 64-px resize, 40
+proposals and 32-px videos: the per-image stage times, two N1 launches
+per image, the CLI's record generator into a pack read back bit for bit
+and answered through K1, the f32 stage checks and both motion halves —
+and that without CUDA the real script prints no result and exits
 non-zero.
 """
 
@@ -150,6 +158,29 @@ def counted_dw(x, g):
     return dw.dw_splitk_reference(x, g)
 counted_dw.launches = 0
 dw.dw_splitk = counted_dw
+from vqacl_tpu_torch.ops import nms as NM
+def counted_nms(b, v, t):
+    NM._validate(b, v, t)            # the wrapper's checks, before a launch
+    counted_nms.launches += 1
+    return NM.greedy_nms_reference(b, v, t)
+counted_nms.launches = 0
+NM.greedy_nms = counted_nms
+# phase 11 at reduced depth (C4 1024 and res5 2048, the 3D ResNeXt's last
+# stage 2048 wide) and a 64-px resize
+from vqacl_tpu_torch.vision import frcnn as FR, resnet as RN, resnext3d as RX
+RN.R101_STAGES = [("res2", 1, 32, 8, 1), ("res3", 1, 64, 8, 2),
+                  ("res4", 1, 1024, 16, 2)]
+RN.RES5 = ("res5", 1, 2048, 16, 2)
+RX.R3D101_STAGES = [(1, 32, 1), (1, 1024, 2)]
+_resize = FR.resize_shortest_edge
+FR.resize_shortest_edge = lambda img, short=64, max_size=128: _resize(
+    img, short, max_size)
+FR.PAD_BUCKETS = (64, 96, 128)
+_er, _erb = FR.extract_regions, FR.extract_regions_batch
+FR.extract_regions = lambda *a, n_proposals=40, **k: _er(
+    *a, n_proposals=n_proposals, **k)
+FR.extract_regions_batch = lambda *a, n_proposals=40, **k: _erb(
+    *a, n_proposals=n_proposals, **k)
 from vqacl_tpu_torch.utils import config as C
 _Config = C.Config
 def tiny():
@@ -187,6 +218,11 @@ chip_smoke.NQ_ITEMS = (24, 8, 8)
 chip_smoke.NQ_VIDEOS = 16
 chip_smoke.P10_TINY = (16, 8, 8)
 chip_smoke.P10_TINY_BATCH = 8
+chip_smoke.NMS_RPN = (600, (0.7,), 60)
+chip_smoke.P11_F32_IMAGE = ((64, 96), (56, 90))
+chip_smoke.P11_VIDEO_FRAMES = 20
+chip_smoke.P11_VIDEO_SIDE = 32
+chip_smoke.P11_MOTION_SIDE = 16
 with CudaOnCpu():
     sys.exit(chip_smoke.main())
 """
@@ -203,12 +239,13 @@ def test_chip_smoke_base_rehearsal_on_cpu():
     ab = json.loads(lines[-1][len("ab "):])
     assert ab["base"] == os.path.join(REPO, "vqacl_tpu_torch", "csrc")
     rows = [k for k in ab if k not in ("base", "card")]
-    assert len(rows) == 12
+    assert len(rows) == 14
     for k in rows:
         assert {"ms", "base_ms", "bound_ms"} <= set(ab[k]), k
         assert ("call_ms" in ab[k]) == ("base_call_ms" in ab[k]) \
             == k.startswith("K1"), k
-    assert sum(l.startswith("  ab device: base ") for l in lines) == 12
+    assert {"N1 rpn", "N1 sweep"} <= set(rows)
+    assert sum(l.startswith("  ab device: base ") for l in lines) == 14
     assert '"ok"' not in r.stdout and "eval_step:" not in r.stdout
 
 
@@ -223,19 +260,23 @@ def test_chip_smoke_rehearsal_on_cpu():
     kernels = json.loads(lines[-3])["kernels"]
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
-    assert [set(k) for k in kernels] == [keys] * 4
+    assert [set(k) for k in kernels] == [keys] * 5
     assert [k["name"] for k in kernels] == [
         "fused_attention_fwd", "fused_attention_fwd_train",
-        "fused_attention_bwd", "dw_splitk"]
+        "fused_attention_bwd", "dw_splitk", "greedy_nms"]
     for k in kernels:
         assert k["route"] == "cuda" and k["bound_by"] in ("bytes",
                                                           "operations")
         assert os.path.exists(os.path.join(REPO, k["source"]))
     for k in kernels[:3]:
         assert k["replaces"].startswith("vqacl_tpu/ops/fused_attention.py:")
-    k1, k1p, k2, k5 = kernels
+    k1, k1p, k2, k5, n1 = kernels
     assert k5["replaces"] == "scripts/mm_bench.py:121"
     assert k5["source"] == "vqacl_tpu_torch/csrc/dw_splitk.cu"
+    assert n1["replaces"] == \
+        "vqacl_tpu/vision/rpn.py:154, vqacl_tpu/ops/nms.py:83"
+    assert n1["source"] == "vqacl_tpu_torch/csrc/nms.cu"
+    assert n1["library_ms"] is None
     summary = json.loads(next(l for l in lines if l.startswith("summary "))
                          [len("summary "):])
     # phase 7: the ER, EWC and DER++ runs and the tiny run on the card,
@@ -342,8 +383,10 @@ def test_chip_smoke_rehearsal_on_cpu():
     assert set(summary["nextqa_kernel_times"]) == {"K1", "K1p", "K2"}
     # K1: 2 layers x 3 timed eval steps, plus one fused-decoder loss-eval
     # step (2 encoder + 2 x 2 decoder attentions), plus the CL loops
+    p11 = summary["extraction"]
+    p11_k = summary["extraction_launches"]
     assert k1["launches"] == 2 * 3 + 6 + cl_k[0] + p8_k[0] + p9_k[0] \
-        + p10_k[0]
+        + p10_k[0] + p11_k[0]
     assert "fused_attention launches=6 (2/step)" in r.stdout
     # K1'/K2: 4 train steps x 2 encoder layers, and 4 fused-decoder
     # steps x (2 encoder + 2 x 2 decoder) attentions, plus the CL loops
@@ -477,6 +520,40 @@ def test_chip_smoke_rehearsal_on_cpu():
     for d in ("phase7", "phase9"):
         assert not os.path.exists(os.path.join(REPO, "build", "chip_smoke",
                                                d))
+    # N1 in phase 2: the RPN, sweep, all-invalid and scarce cases, bit-equal
+    # to its plain version twice; the RPN and sweep shapes timed
+    n1_checks = [l for l in lines if l.startswith("kernel_check nms_")]
+    assert len(n1_checks) == 4
+    assert all("differing from plain=0" in l and "second launch equal: True"
+               in l for l in n1_checks)
+    assert sum(l.startswith("kernel_time nms_") for l in lines) == 2
+    assert set(summary["nms_kernel_times"]) == {"rpn", "sweep"}
+    # phase 11 at reduced depth: per-image stage times, two N1 launches per
+    # image, the CLI's pack read back and answered through K1, the f32
+    # stage checks, both video motion halves
+    assert len(p11["images"]) == 4 and p11["n1_per_image"] == 2
+    assert len({tuple(i["bucket"]) for i in p11["images"]}) >= 2
+    for im in p11["images"]:
+        assert list(im["stage_ms"]) == ["backbone", "rpn", "roi_align",
+                                        "res5_heads", "nms36", "attr"]
+    assert p11["cli"] == {"records": 4, "write_s": p11["cli"]["write_s"],
+                          "answers": 16, "k1": 2}
+    assert p11_k == [2, 0, 0]
+    assert "bit for bit: True" in r.stdout
+    assert all(p11["f32"]["bit_equal"].values())
+    assert max(p11["f32"]["rel_err"].values()) <= 1e-4
+    assert p11["batch"]["c4_rel_err"] <= 1e-4
+    assert set(p11["video"]) == {"rgb_diff", "resnext3d"}
+    assert set(p11["video"]["resnext3d"]["parts"]) == {
+        "load_clips_ms", "resize_ms", "resnext3d_ms"}
+    assert all(i["resize_ms"] > 0 for i in p11["images"])
+    assert all(len(v["ms"]) == 2 for v in p11["video"].values())
+    # N1 on the main path: four warm-up and four timed images, the CLI's
+    # four records, two launches each
+    assert summary["extraction_n1_launches"] == n1["launches"] == 2 * 12
+    assert "phase 11: TF32 flags restored" in r.stdout
+    assert not os.path.exists(os.path.join(REPO, "build", "chip_smoke",
+                                           "phase11"))
 
 
 def test_chip_smoke_without_cuda_prints_no_result():

@@ -275,14 +275,17 @@ def test_tokenizer_and_collate_match_jax():
 def test_port_imports_nothing_of_jax():
     """Every module of the port, and chip_smoke.py, imports with ``jax``,
     ``vqacl_tpu``, ``h5py``, ``ml_dtypes``, ``transformers``,
-    ``safetensors``, ``orbax``, ``yaml``, ``pyarrow``, ``nltk`` and
-    ``tokenizers`` blocked (a None entry in sys.modules makes any import
-    of them raise); the weight files and the directory checkpoint are
-    written and read with them blocked too."""
+    ``safetensors``, ``orbax``, ``yaml``, ``pyarrow``, ``nltk``,
+    ``tokenizers``, ``PIL``, ``cv2``, ``matplotlib`` and ``torchvision``
+    blocked (a None entry in sys.modules makes any import of them raise);
+    the weight files and the directory checkpoint are written and read
+    with them blocked too, and so are the detector's weights (npz) and a
+    pack of extracted records made from a decoded array."""
     code = r"""
 import importlib, os, pkgutil, runpy, sys, tempfile
 BLOCKED = ("jax", "jaxlib", "vqacl_tpu", "h5py", "ml_dtypes", "transformers",
-           "safetensors", "orbax", "yaml", "pyarrow", "nltk", "tokenizers")
+           "safetensors", "orbax", "yaml", "pyarrow", "nltk", "tokenizers",
+           "PIL", "cv2", "matplotlib", "torchvision")
 for name in BLOCKED:
     sys.modules[name] = None
 import vqacl_tpu_torch
@@ -306,6 +309,27 @@ with tempfile.TemporaryDirectory() as d:
     checkpoint.save_checkpoint_dcp(os.path.join(d, "dcp"), p,
                                    ProtoState.create(10, 80, 32, device="cpu"))
     checkpoint.load_checkpoint_dcp(os.path.join(d, "dcp"))
+    # the extraction path over decoded arrays: a pack, no PIL, no h5py
+    import numpy as np
+    from vqacl_tpu_torch.cli import extract_features as ef
+    from vqacl_tpu_torch.data.packed_cache import PackedFeatureStore
+    from vqacl_tpu_torch.vision import convert_weights, frcnn, resnet, video
+    resnet.R101_STAGES = [("res2", 1, 32, 8, 1), ("res3", 1, 64, 8, 2),
+                          ("res4", 1, 1024, 16, 2)]
+    resnet.RES5 = ("res5", 1, 2048, 16, 2)
+    det = frcnn.init_frcnn(0, device="cpu")
+    convert_weights.save_npz_params(os.path.join(d, "w.npz"), det)
+    det = convert_weights.load_npz_params(os.path.join(d, "w.npz"))
+    rs = frcnn.resize_shortest_edge
+    frcnn.resize_shortest_edge = lambda img: rs(img, 32, 64)
+    frcnn.PAD_BUCKETS = (32, 64)
+    args = ef.parse_args(["--out", os.path.join(d, "r.vfpack"), "--pack",
+                          "--n_boxes", "4"])
+    img = np.zeros((24, 32, 3), np.uint8)
+    ef.write(args, ef.records(det, [("a", img, None)], 4, "cpu"))
+    assert PackedFeatureStore(args.out).get("a")[0].shape == (4, 2048)
+    assert video._resize_square(np.zeros((2, 8, 8, 3), np.uint8), 8).shape \
+        == (2, 8, 8, 3)
 bad = [m for m in sys.modules if m.split(".")[0] in BLOCKED + ("flax",)
        and sys.modules[m] is not None]
 assert not bad, bad
@@ -327,7 +351,14 @@ print("imported", len(mods))
               "cli.args", "cli.vqacl_train", "cli.nextqa_train",
               "cli.validate_wordnet", "data.vqa_module", "data.tsv_convert",
               "data.arrow_store", "evaluation.taxonomy",
-              "evaluation.wordnet_db", "evaluation.wups", "nextqa.data"):
+              "evaluation.wordnet_db", "evaluation.wups", "nextqa.data",
+              "utils.boxes", "ops.nms", "ops.roi_align", "ops.topk",
+              "vision.resnet", "vision.rpn", "vision.frcnn",
+              "vision.convert_weights", "vision.datasets",
+              "vision.visualize", "cli.extract_features",
+              "cli.validate_features", "vision.resnext3d", "vision.video",
+              "cli.extract_video_features", "utils.profiling",
+              "utils.backbones"):
         assert f"vqacl_tpu_torch.{m}" in imported, m
 
 

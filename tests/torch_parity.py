@@ -94,3 +94,75 @@ def record_trainer(trainer):
 
     trainer.eval_step = evaluating
     return rec
+
+
+# ---- the detector and the 3D ResNeXt at reduced depth ---------------------
+
+# one block per stage, narrow bottlenecks; C4 stays 1024 and res5 2048 so
+# the RPN and the heads keep their widths
+SMALL_R101 = [("res2", 1, 32, 8, 1), ("res3", 1, 64, 8, 2),
+              ("res4", 1, 1024, 16, 2)]
+SMALL_RES5 = ("res5", 1, 2048, 16, 2)
+# block 0 of each stage with a projection, a second block with identity
+SMALL_R3D = [(1, 32, 1), (2, 64, 2)]
+
+
+def patch_small_stages(monkeypatch):
+    """Both packages' stage tables → the reduced ones above."""
+    from vqacl_tpu.vision import resnet as jr
+    from vqacl_tpu.vision import resnext3d as jx
+    from vqacl_tpu_torch.vision import resnet as tr
+    from vqacl_tpu_torch.vision import resnext3d as tx
+
+    for m in (jr, tr):
+        monkeypatch.setattr(m, "R101_STAGES", SMALL_R101)
+        monkeypatch.setattr(m, "RES5", SMALL_RES5)
+    for m in (jx, tx):
+        monkeypatch.setattr(m, "R3D101_STAGES", SMALL_R3D)
+
+
+def _perturb_bn(tree, rng):
+    """Folded-BN scales in [0.5, 1.5) and biases N(0, 0.1), in place, so
+    the affine is exercised (init leaves them 1 and 0)."""
+    import torch
+
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            _perturb_bn(v, rng)
+        elif k == "scale" and "w" in tree:
+            tree[k] = torch.from_numpy(
+                rng.uniform(0.5, 1.5, v.shape).astype(np.float32))
+        elif k == "bias" and "w" in tree:
+            tree[k] = torch.from_numpy(
+                rng.normal(0, 0.1, v.shape).astype(np.float32))
+
+
+def small_detector(seed=0, cls_scale=1.0, obj_scale=1.0, delta_scale=1.0):
+    """(the port's detector on the CPU, the same weights as the JAX
+    package's tree of numpy arrays) at the patched stage tables. The
+    class head, the RPN objectness and the RPN deltas are drawn
+    ``cls_scale``, ``obj_scale`` and ``delta_scale`` times the init's
+    scale: a larger objectness and a spread of class scores put the
+    scores far apart compared with f32 noise, so the selected indices
+    are well defined, and smaller deltas keep proposals on the image."""
+    from vqacl_tpu_torch.vision import frcnn
+    from vqacl_tpu_torch.vision.convert_weights import to_jax_params
+
+    p = frcnn.init_frcnn(seed, device="cpu")
+    _perturb_bn(p["backbone"], np.random.default_rng(seed))
+    p["heads"]["cls_w"] *= cls_scale
+    p["rpn"]["obj_w"] *= obj_scale
+    p["rpn"]["delta_w"] *= delta_scale
+    return p, to_jax_params(p)
+
+
+def small_resnext3d(seed=0):
+    """(the port's 3D ResNeXt on the CPU, the JAX tree as numpy) at
+    ``SMALL_R3D``."""
+    from vqacl_tpu_torch.vision import resnext3d
+    from vqacl_tpu_torch.vision.convert_weights import to_jax_params
+
+    p = resnext3d.init_resnext3d(seed, stages=SMALL_R3D, device="cpu")
+    _perturb_bn(p, np.random.default_rng(seed + 1))
+    return p, to_jax_params(p)

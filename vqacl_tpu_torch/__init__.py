@@ -30,7 +30,12 @@ export, VL-BART); and the training entry points, ``cli.vqacl_train`` and
 ``cli.nextqa_train`` (argv through ``cli.args``) over the reference-format
 ``data.vqa_module`` and ``nextqa.data``, with WUPS evaluation
 (``evaluation.wups``) and the feature converters (``data.tsv_convert``,
-``data.arrow_store``).
+``data.arrow_store``); and region and video feature extraction,
+``cli.extract_features``/``cli.extract_video_features`` over
+``vision.frcnn`` (ResNet-101-C4, the RPN, RoIAlign, the 36-box NMS
+sweep; the greedy suppressions in ``csrc/nms.cu``), ``vision.resnext3d``
+and ``vision.video``, with ``vision.convert_weights`` and
+``cli.validate_features``.
 """
 
 __version__ = "0.1.0"

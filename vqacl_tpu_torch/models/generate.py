@@ -23,6 +23,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from vqacl_tpu_torch.models import t5
+from vqacl_tpu_torch.ops.topk import top_k
 
 Params = Dict[str, Any]
 
@@ -89,21 +90,8 @@ def _decoder_step(params: Params, cfg, x: torch.Tensor, t: int,
 NEG = -1e9  # score of an empty pool slot or a dead beam, as in JAX
 
 
-def _top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The k largest values of each row of f32 ``x`` (no NaN), in
-    descending order, with their indices; equal values rank the lower
-    index first, as ``jax.lax.top_k`` ranks them (``torch.topk`` keeps
-    no order among ties, and beam search ties at ``NEG`` every step).
-    Each value maps to an int32 whose order is the float order; the key
-    value·2³² + (n−1−index) is unique in its row, so one ``topk`` over
-    the keys has no ties."""
-    n = x.shape[-1]
-    bits = x.contiguous().view(torch.int32)
-    ordered = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits).long()
-    rev = (n - 1) - torch.arange(n, device=x.device)
-    keys, _ = torch.topk(ordered * (1 << 32) + rev, k, dim=-1)
-    idx = (n - 1) - (keys & 0xFFFFFFFF)
-    return x.gather(-1, idx), idx
+# beam search's ties (a dead beam's ``NEG`` every step) rank as in JAX
+_top_k = top_k
 
 
 def _prepare(params: Params, cfg, enc_states: torch.Tensor,

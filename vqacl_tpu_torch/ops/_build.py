@@ -58,6 +58,11 @@ SIGNATURES = {
         "fused_attention_keep_mask": ([_P] * 2 + [_I] * 3 + [_U, _P], _I),
         "fused_attention_bwd_error_string": ([_I], ctypes.c_char_p),
     },
+    "nms": {
+        # boxes, valid, thresholds, mask scratch, keep, N, T, stream
+        "greedy_nms": ([_P] * 5 + [_I] * 2 + [_P], _I),
+        "greedy_nms_error_string": ([_I], ctypes.c_char_p),
+    },
     "dw_splitk": {
         # x, g, out, K, D, F, dtype, stream
         "dw_splitk": ([_P] * 3 + [_I] * 4 + [_P], _I),
