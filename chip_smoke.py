@@ -168,6 +168,29 @@ Phases, each of which exits non-zero on failure:
    on ``P11_VIDEOS`` ``.npy`` videos of 224² frames with the RGB-difference
    motion half and with the 3D-ResNeXt-101 (16 clips x 16 x 112²): feat
    [16, 4096], finite, ms per video, peak memory.
+12. Data parallelism (``data_parallel``). (a) A one-rank NCCL mesh
+   (``make_mesh`` over a file store): ``P12_STEPS`` t5-base train steps
+   at batch 80, bf16, dropout 0.1 through the trainer's step path
+   (``shard_batch``, ``make_train_step(mesh_ctx=...)``) give the meshless
+   step's losses and parameters bit for bit, 12 K1′ + 12 K2 per step. (b)
+   ``P12_RANKS`` ranks on the one card over gloo (NCCL refuses two ranks
+   on one device), each this script in rank mode (``rank_main``): global
+   batch 80 (40 per rank), bf16, ``P12_STEPS`` steps from the same state
+   at dropout 0 (the ranks' parameters bit-equal, within phase 4's bound
+   of a one-process run from the same state) and 0.1; 12 K1′ + 12 K2 per
+   step per rank, the second rank's at its Philox row offset; the
+   all_reduce bytes per step and one gradient bucket's all_reduce ms
+   (staged through the host by gloo: a record, not a scaling number);
+   on the second rank K1′ and K2 at its offset equal bit for bit to the
+   same rows of one launch over the whole batch, the keep mask to the
+   plain version's and to the one launch's rows, the outputs to the plain
+   versions within the phase 2 tolerance. (c) The same steps under FSDP:
+   parameters within phase 4's bound of (b)'s, parameter + moment bytes
+   per rank half of (b)'s. (d) A tiny f32 ``VQACLTrainer`` ER run on the
+   two ranks with the row-sharded device cache, on the card and on the
+   CPU (the same gloo group): equal result matrices and answers, losses
+   within ``CL_LOSS_RTOL``, the lookups' all_reduce bytes. Nothing here
+   runs on more than one card.
 
 The second-to-last lines are a JSON object of per-kernel numbers and the
 card's name and power limit; the last line is the run's verdict as JSON.
@@ -3020,12 +3043,573 @@ def extraction(params, proto, counters, tok):
     return out, k1, n1_main
 
 
+# ---- 12. data parallelism ---------------------------------------------------
+
+P12_RANKS = 2
+P12_STEPS = 3
+P12_TIMEOUT = 900
+# (a)'s one-rank group; the ranks of (b)-(d) share the one card over gloo,
+# since NCCL refuses two ranks on one device
+P12_ONE_RANK_BACKEND = "nccl"
+P12_TINY_LR = 1e-4
+P12_TINY = CL_TINY           # (d)'s items per task and global batch
+P12_TINY_BATCH = CL_TINY_BATCH
+# the command that starts a rank of (b)-(d): this script in rank mode
+RANK_CMD = None
+
+
+def offset_counts():
+    """K1′ and K2 launches with a Philox row offset bh0 ≠ 0 (a
+    data-parallel rank past the first), counted by the wrappers."""
+    from vqacl_tpu_torch.ops import fused_attention as fa
+
+    return (fa.fused_attention_fwd_train.offset_launches,
+            fa.fused_attention_bwd.offset_launches)
+
+
+def _tree_diff(a, b, tree_leaves):
+    """‖a − b‖ over two trees of tensors, in f32."""
+    return float(sum(((x.float() - y.float()) ** 2).sum()
+                     for x, y in zip(tree_leaves(a), tree_leaves(b))) ** 0.5)
+
+
+def _digest(tree, tree_leaves):
+    import hashlib
+
+    h = hashlib.sha256()
+    for x in tree_leaves(tree):
+        h.update(x.detach().contiguous().view(-1).view(torch.uint8)
+                 .cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def check_offset_attention(fa, B, Tq, Sk, H, dk, L, dtype, rate, text_len):
+    """K1′ and K2 on the rows B … 2B − 1 of a batch of 2B with the row
+    offset bh0 = B·H (a second rank's share): each output equal bit for
+    bit to the same rows of one launch over all 2B rows at bh0 = 0, and
+    to the plain versions at bh0 within the phase 2 tolerance; the keep
+    mask the kernels draw at bh0 equal bit for bit to the plain version's
+    and to rows B … of the one-launch mask. → max errors vs plain."""
+    dt = getattr(torch, dtype)
+    q, k, v, do, bias, mask = train_attention_inputs(
+        2 * B, Tq, Sk, H, dk, L, dt, text_len, seed=7 + B)
+    seed = torch.tensor([31337], dtype=torch.int32, device="cuda")
+    bh0 = B * H
+    whole_o, whole_p = fa.fused_attention_fwd_train(q, k, v, bias, mask,
+                                                    seed, H, rate)
+    whole_g = fa.fused_attention_bwd(q, k, v, whole_p, seed, do, H, L, rate)
+    part = [t[B:] for t in (q, k, v, do, mask)]
+    qp, kp, vp, dop, mp = (t.contiguous() for t in part)
+    o, p = fa.fused_attention_fwd_train(qp, kp, vp, bias, mp, seed, H, rate,
+                                        bh0)
+    g = fa.fused_attention_bwd(qp, kp, vp, p, seed, dop, H, L, rate,
+                               bh0=bh0)
+    ro, rp = fa.fused_attention_fwd_train_reference(qp, kp, vp, bias, mp,
+                                                    seed, H, rate, bh0)
+    rg = fa.fused_attention_bwd_reference(qp, kp, vp, rp, seed, dop, H, L,
+                                          rate, bh0)
+    mine = fa.fused_attention_keep_mask(seed, B, H, Tq, Sk, rate, bh0)
+    whole_mask = fa.fused_attention_keep_mask(seed, 2 * B, H, Tq, Sk, rate)
+    plain = fa.philox_keep_mask(seed, B, H, Tq, Sk, rate, bh0)
+    torch.cuda.synchronize()
+    same = {"o": torch.equal(o, whole_o[B:]),
+            "p": torch.equal(p, whole_p[B:]),
+            "dq": torch.equal(g[0], whole_g[0][B:]),
+            "dk": torch.equal(g[1], whole_g[1][B:]),
+            "dv": torch.equal(g[2], whole_g[2][B:]),
+            "mask_rows": torch.equal(mine, whole_mask[B:]),
+            "mask_plain": torch.equal(mine, plain)}
+    errs, oks = {}, []
+    for key, a, b, tol_dt in (("o", o, ro, dtype), ("p", p, rp, "float32"),
+                              ("dq", g[0], rg[0], dtype),
+                              ("dk", g[1], rg[1], dtype),
+                              ("dv", g[2], rg[2], dtype)):
+        errs[key], ok = _close(a, b, tol_dt)
+        oks.append(ok)
+    log(f"offset_check: B={B} of {2 * B} Tq={Tq} Sk={Sk} H={H} dk={dk} "
+        f"L={L} {dtype} rate={rate} bh0={bh0}: bit-equal to rows {B}.. of "
+        f"the one launch {json.dumps(same)}; vs plain max_abs_err "
+        + " ".join(f"{k}={e:.3e}" for k, e in errs.items()))
+    if not all(same.values()) or not all(oks):
+        fail("K1'/K2 at a row offset differ from the one-launch rows or "
+             "their plain versions")
+    return {"same": same, "max_abs_err": errs, "kept": float(
+        mine.float().mean())}
+
+
+def p12_rank(ctx, spec):
+    """The work of one rank of (b)-(d) (``rank_main``): t5-base train
+    steps at the global batch over the mesh, replicated at dropout 0 and
+    0.1 and under FSDP, each from the same state; on the last rank the
+    kernels at its row offset; the tiny f32 CL run with the sharded device
+    cache on the card and on the CPU. → a JSON-able record."""
+    import numpy as np
+
+    from vqacl_tpu_torch.cl.trainer import VQACLTrainer
+    from vqacl_tpu_torch.data.synthetic import SyntheticVQA
+    from vqacl_tpu_torch.data.synthetic_module import SyntheticDataModule
+    from vqacl_tpu_torch.data.tokenizer import VLT5Tokenizer
+    from vqacl_tpu_torch.models import vlt5
+    from vqacl_tpu_torch.models.prototype import ProtoState
+    from vqacl_tpu_torch.ops import fused_attention as fa
+    from vqacl_tpu_torch.parallel.mesh import make_mesh, shard_batch
+    from vqacl_tpu_torch.parallel.multihost import barrier
+    from vqacl_tpu_torch.parallel.sharding import FsdpLayout
+    from vqacl_tpu_torch.train.optim import (make_transform, tree_leaves,
+                                             tree_map)
+    from vqacl_tpu_torch.train.state import TrainState
+    from vqacl_tpu_torch.train.step import make_train_step
+    from vqacl_tpu_torch.utils.config import Config, tiny_model_config
+
+    wrappers = (fa.fused_attention, fa.fused_attention_fwd_train,
+                fa.fused_attention_bwd)
+
+    def zero_counts():
+        for w in wrappers:
+            w.launches = w.strided_launches = 0
+        for w in wrappers[1:]:
+            w.offset_launches = 0
+
+    def read_counts():
+        return tuple(w.launches for w in wrappers)
+
+    dev = ctx.device
+    rec = {"rank": ctx.rank, "backend": ctx.backend}
+    base = Config()
+    m = base.model
+    params0 = vlt5.init_vlt5_params(0, m, device=dev)
+    proto0 = ProtoState.create(m.n_ques_types, m.n_categories, m.d_model,
+                               device=dev)
+    tx = make_transform(base.train)
+    tbatch = next(SyntheticVQA(2 * TRAIN_BATCH, seed=0).batches(
+        TRAIN_BATCH, seed=0))["tensors"]
+    nparams = sum(p.numel() for p in tree_leaves(params0))
+
+    def steps(dropout, mesh, layout=None):
+        cfg = Config()
+        cfg.model.dropout_rate = dropout
+        p = params0 if layout is None else layout.shard(params0)
+        state = TrainState.create(p, tx, proto0, seed=0, warmup_iters=1.0,
+                                  t_total=1000.0)
+        step = make_train_step(cfg, dtype=torch.bfloat16, device=dev,
+                               mesh_ctx=mesh, fsdp=layout)
+        stats0 = dict(ctx.stats)
+        zero_counts()
+        losses, times = [], []
+        for _ in range(P12_STEPS):
+            b = tbatch
+            if mesh is not None:
+                b = shard_batch(mesh, tbatch)
+                barrier("step")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, met = step(state, b)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(met["loss"]))
+        launches, offsets = read_counts(), offset_counts()
+        full = state.params if layout is None else layout.gather(state.params)
+        r = {"losses": losses, "step_ms": times, "launches": launches,
+             "offset_launches": offsets,
+             "all_reduce_bytes_per_step": (
+                 ctx.stats["all_reduce_bytes"]
+                 - stats0.get("all_reduce_bytes", 0)) / P12_STEPS,
+             "all_reduce_calls_per_step": (
+                 ctx.stats["all_reduce_calls"]
+                 - stats0.get("all_reduce_calls", 0)) / P12_STEPS,
+             "state_bytes": sum(x.numel() * x.element_size() for t in (
+                 state.params, state.opt_state.mu, state.opt_state.nu)
+                 for x in tree_leaves(t))}
+        if not all(np.isfinite(losses)):
+            fail(f"rank {ctx.rank}: a loss is not finite: {losses}")
+        return full, r
+
+    moved = lambda full: _tree_diff(full, params0, tree_leaves)  # noqa: E731
+    # (b) dropout 0: equal across ranks, near the one-process run
+    one, rec["one_process_d0"] = steps(0.0, None)
+    full, rec["dp_d0"] = steps(0.0, ctx)
+    rec["dp_d0"]["digest"] = _digest(full, tree_leaves)
+    rec["dp_d0"]["rel_to_one"] = _tree_diff(full, one, tree_leaves) \
+        / moved(one)
+    del one, full
+    # (b) dropout 0.1; its parameters are (c)'s reference
+    ref, rec["dp_d01"] = steps(DROPOUT, ctx)
+    rec["dp_d01"]["digest"] = _digest(ref, tree_leaves)
+    # the gradient bucket's all_reduce alone (one flat f32 buffer)
+    buf = torch.zeros(nparams, dtype=torch.float32, device=dev)
+    ar = []
+    for _ in range(3):
+        barrier("all_reduce")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ctx.all_reduce(buf)
+        torch.cuda.synchronize()
+        ar.append((time.perf_counter() - t0) * 1e3)
+    rec["all_reduce_ms"] = ar
+    rec["all_reduce_buffer_bytes"] = nparams * 4
+    del buf
+    # (c) FSDP at dropout 0.1 from the same state
+    layout = FsdpLayout(ctx, params0)
+    full, rec["fsdp_d01"] = steps(DROPOUT, ctx, layout)
+    rec["fsdp_d01"]["digest"] = _digest(full, tree_leaves)
+    rec["fsdp_d01"]["rel_to_replicated"] = _tree_diff(full, ref,
+                                                       tree_leaves) \
+        / moved(ref)
+    rec["fsdp_d01"]["sharded_leaves"] = sum(
+        "dp" in s for s in tree_leaves(layout.specs))
+    rec["fsdp_d01"]["leaves"] = len(tree_leaves(layout.specs))
+    # the state bytes of the sharded leaves (f32 params, two moments)
+    mom = 2 if base.train.adam_dtype in ("bfloat16", "bf16") else 4
+    rec["fsdp_d01"]["sharded_state_bytes"] = sum(
+        p.numel() * (4 + 2 * mom) for p, s in zip(
+            tree_leaves(params0), tree_leaves(layout.specs)) if "dp" in s)
+    del full, ref, layout
+    torch.cuda.empty_cache()
+    # the kernels at this rank's shapes and offset (comparison launches,
+    # outside the counted runs)
+    if ctx.rank == ctx.dp - 1 and ctx.rank > 0:
+        B = TRAIN_BATCH // ctx.dp
+        rec["offset_check"] = check_offset_attention(
+            fa, B, m.encoder_len, m.encoder_len, m.num_heads, m.d_kv,
+            m.max_text_length, "bfloat16", DROPOUT, m.max_text_length)
+    # (d) the tiny f32 CL loop with the row-sharded device cache, on the
+    # card and on the CPU (the same group: gloo takes both)
+    tok = VLT5Tokenizer()
+    tiny = {}
+    for where, out in (("cuda", spec["tiny_out_cuda"]),
+                       ("cpu", spec["tiny_out_cpu"])):
+        mesh = ctx if where == "cuda" else make_mesh(device="cpu")
+        tcl = Config()
+        tcl.model = tiny_model_config(vocab_size=32200, dropout_rate=0.0)
+        tcl.train.lr = P12_TINY_LR
+        tcl.train.batch_size = tcl.train.valid_batch_size = P12_TINY_BATCH
+        tcl.train.epochs = 1
+        tcl.train.m_size = 16
+        tcl.data.device_cache = tcl.data.device_cache_sharded = True
+        tcl.output = out
+        tcm = tcl.model
+        data = SyntheticDataModule(
+            tok, tasks=CL_TASKS, n_train_per_task=P12_TINY[0],
+            n_val_per_task=P12_TINY[1], n_test_per_task=P12_TINY[2],
+            feat_dim=tcm.feat_dim, n_boxes=tcm.n_boxes, answer_vocab=4,
+            seed=0)
+        trainer = VQACLTrainer(tcl, data, tok, verbose=False,
+                               init_params=vlt5.init_vlt5_params(
+                                   4, tcm, device="cpu"),
+                               dtype=torch.float32, mesh_ctx=mesh)
+        answers = []
+
+        def predict(loader, predict=trainer.predict):
+            answers.append(predict(loader))
+            return answers[-1]
+
+        trainer.predict = predict
+        r = drive_cl(trainer, f"dp_tiny_f32_{where}_rank{ctx.rank}",
+                     (zero_counts, read_counts, tcm.num_layers)
+                     if where == "cuda" else None)
+        c = trainer._cache
+        tiny[where] = {
+            "result_matrix": r["result_matrix"], "losses": r["losses"],
+            "answers": [{str(k): v for k, v in a.items()} for a in answers],
+            "launches": r["launches"], "counts": r["counts"],
+            "offset_launches": offset_counts() if where == "cuda"
+            else None, "cache_rows": c.rows, "cache_n": c.n,
+            "lookup_bytes": c.lookup_bytes, "lookups": c.lookups,
+            "table_bytes": c.nbytes, "wall_s": r["wall_s"]}
+        del trainer
+    rec["tiny"] = tiny
+    return rec
+
+
+def rank_main(args) -> int:
+    """Rank mode (``--rank``): join the group of ``--world`` ranks
+    through the file store ``--store`` over gloo on the card, run
+    ``p12_rank`` and write its record to ``--out`` as JSON."""
+    sys.path.insert(0, HERE)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import torch.distributed as dist
+
+    from vqacl_tpu_torch.parallel.mesh import make_mesh
+
+    with open(args.spec) as f:
+        spec = json.load(f)
+    ctx = make_mesh(dp=args.world, device="cuda:0", backend="gloo",
+                    init_method=f"file://{args.store}", rank=args.rank,
+                    world_size=args.world, timeout_s=P12_TIMEOUT)
+    rec = p12_rank(ctx, spec)
+    with open(args.out, "w") as f:
+        json.dump(rec, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def data_parallel(counters):
+    """Phase 12 → (record, [K1, K1′, K2] launches, [K1′, K2] offset
+    launches) of its main-path runs: (a) in this process, (b)-(d) summed
+    over the ranks."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from vqacl_tpu_torch.models import vlt5
+    from vqacl_tpu_torch.models.prototype import ProtoState
+    from vqacl_tpu_torch.data.synthetic import SyntheticVQA
+    from vqacl_tpu_torch.parallel.mesh import make_mesh, shard_batch
+    from vqacl_tpu_torch.train.optim import make_transform, tree_leaves
+    from vqacl_tpu_torch.train.state import TrainState
+    from vqacl_tpu_torch.train.step import make_train_step
+    from vqacl_tpu_torch.utils.config import Config
+
+    zero_counts, read_counts = counters
+    rec = {}
+    work = tempfile.mkdtemp(prefix="chip_smoke_p12_")
+    try:
+        # (a) a one-rank mesh through the trainer's step path: the same
+        # loss and parameters, bit for bit, as the meshless step
+        ctx1 = make_mesh(dp=1, device="cuda:0",
+                         backend=P12_ONE_RANK_BACKEND,
+                         init_method=f"file://{work}/one", rank=0,
+                         world_size=1, timeout_s=P12_TIMEOUT)
+        cfg = Config()
+        m = cfg.model
+        params0 = vlt5.init_vlt5_params(0, m, device="cuda")
+        proto0 = ProtoState.create(m.n_ques_types, m.n_categories,
+                                   m.d_model, device="cuda")
+        tx = make_transform(cfg.train)
+        tbatch = next(SyntheticVQA(2 * TRAIN_BATCH, seed=0).batches(
+            TRAIN_BATCH, seed=0))["tensors"]
+
+        def three(mesh):
+            state = TrainState.create(params0, tx, proto0, seed=0,
+                                      warmup_iters=1.0, t_total=1000.0)
+            step = make_train_step(cfg, dtype=torch.bfloat16,
+                                   device="cuda", mesh_ctx=mesh)
+            losses, times = [], []
+            for _ in range(P12_STEPS):
+                b = shard_batch(mesh, tbatch) if mesh is not None \
+                    else tbatch
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, met = step(state, b)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+                losses.append(float(met["loss"]))
+            return state, losses, times
+
+        zero_counts()
+        s_mesh, l_mesh, t_mesh = three(ctx1)
+        a_launches = list(read_counts())
+        s_one, l_one, t_one = three(None)
+        same = l_mesh == l_one and all(
+            torch.equal(a, b) for a, b in zip(tree_leaves(s_mesh.params),
+                                              tree_leaves(s_one.params)))
+        rec["one_rank"] = {"backend": ctx1.backend, "losses": l_mesh,
+                           "step_ms": t_mesh, "meshless_step_ms": t_one,
+                           "bit_equal": same, "launches": a_launches,
+                           "all_reduce_calls": ctx1.stats[
+                               "all_reduce_calls"]}
+        log(f"dp_one_rank: {ctx1.backend} mesh of 1, bs {TRAIN_BATCH} bf16 "
+            f"dropout {m.dropout_rate}, {P12_STEPS} steps: losses {l_mesh}, "
+            f"step ms {[round(t, 3) for t in t_mesh]} (meshless "
+            f"{[round(t, 3) for t in t_one]}); loss and parameters "
+            f"bit-equal to the meshless step: {same}; launches "
+            f"K1/K1'/K2 {a_launches}; all_reduce calls "
+            f"{ctx1.stats['all_reduce_calls']}")
+        if not same:
+            fail("the one-rank mesh's steps differ from the meshless steps")
+        want = [0, m.num_layers * P12_STEPS, m.num_layers * P12_STEPS]
+        if a_launches != want:
+            fail(f"dp_one_rank: launches {a_launches}, expected {want}")
+        del s_mesh, s_one, params0
+        dist.destroy_process_group()
+        torch.cuda.empty_cache()
+
+        # (b)-(d): the ranks, each a process of this script on the card
+        spec = {"tiny_out_cuda": os.path.join(work, "tiny_cuda"),
+                "tiny_out_cpu": os.path.join(work, "tiny_cpu")}
+        spec_path = os.path.join(work, "spec.json")
+        with open(spec_path, "w") as f:
+            json.dump(spec, f)
+        cmd = RANK_CMD or [sys.executable, os.path.abspath(__file__)]
+        procs, logs = [], []
+        t0 = time.time()
+        for r in range(P12_RANKS):
+            logs.append(open(os.path.join(work, f"rank{r}.log"), "w+"))
+            procs.append(subprocess.Popen(
+                cmd + ["--rank", str(r), "--world", str(P12_RANKS),
+                       "--store", os.path.join(work, "store"), "--spec",
+                       spec_path, "--out",
+                       os.path.join(work, f"rank{r}.json")],
+                cwd=HERE, stdout=logs[-1], stderr=subprocess.STDOUT))
+        deadline = time.time() + P12_TIMEOUT
+        for p in procs:
+            try:
+                p.wait(timeout=max(deadline - time.time(), 1))
+            except subprocess.TimeoutExpired:
+                pass
+        hung = [r for r, p in enumerate(procs) if p.poll() is None]
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        ranks_s = time.time() - t0
+        bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+        for r, f in enumerate(logs):
+            f.seek(0)
+            text = f.read()
+            f.close()
+            if bad or hung:
+                log(f"--- rank {r} (exit {procs[r].returncode}) ---\n"
+                    + text[-4000:])
+            else:
+                for line in text.splitlines():
+                    if line.startswith(("offset_check", "dp_tiny")):
+                        log(f"rank {r}: {line}")
+        if hung:
+            fail(f"ranks {hung} still running after {P12_TIMEOUT} s")
+        if bad:
+            fail(f"ranks {bad} failed")
+        ranks = []
+        for r in range(P12_RANKS):
+            with open(os.path.join(work, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    finally:
+        if dist.is_available() and dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(work, ignore_errors=True)
+
+    r0, r1 = ranks[0], ranks[-1]
+    L = m.num_layers
+    per_rank = [0, L * P12_STEPS, L * P12_STEPS]
+    # (b)
+    for key in ("dp_d0", "dp_d01", "fsdp_d01"):
+        digests = {r[key]["digest"] for r in ranks}
+        log(f"dp_{key}: {P12_RANKS} ranks on one card over "
+            f"{r0['backend']}, global batch {TRAIN_BATCH} "
+            f"({TRAIN_BATCH // P12_RANKS} per rank), bf16, {P12_STEPS} steps:"
+            f" losses {r0[key]['losses']}; step ms rank 0 "
+            f"{[round(t, 3) for t in r0[key]['step_ms']]}, rank 1 "
+            f"{[round(t, 3) for t in r1[key]['step_ms']]}; all_reduce "
+            f"{r0[key]['all_reduce_bytes_per_step']:.0f} B in "
+            f"{r0[key]['all_reduce_calls_per_step']:g} calls per step; "
+            f"params bit-equal across ranks: {len(digests) == 1}; launches "
+            f"per rank K1/K1'/K2 {[r[key]['launches'] for r in ranks]}, "
+            f"offset K1'/K2 {[r[key]['offset_launches'] for r in ranks]}")
+        if len(digests) != 1:
+            fail(f"dp_{key}: the ranks' parameters differ")
+        for r in ranks:
+            if list(r[key]["launches"]) != per_rank:
+                fail(f"dp_{key}: rank {r['rank']} launches "
+                     f"{r[key]['launches']}, expected {per_rank}")
+            want_off = per_rank[1] if r["rank"] > 0 else 0
+            if list(r[key]["offset_launches"]) != [want_off, want_off]:
+                fail(f"dp_{key}: rank {r['rank']} offset launches "
+                     f"{r[key]['offset_launches']}, expected {want_off}")
+        if r0[key]["losses"] != r1[key]["losses"] \
+                or not all(np.isfinite(r0[key]["losses"])):
+            fail(f"dp_{key}: the ranks' losses differ or are not finite")
+    rel = r0["dp_d0"]["rel_to_one"]
+    one = r0["one_process_d0"]
+    log(f"dp_d0: |p_dp - p_one| / |p_one - p_0| = {rel:.3e} (tol "
+        f"{GRAD_REL_TOL['bfloat16']:g}); one-process losses "
+        f"{one['losses']} vs {r0['dp_d0']['losses']}; one-process step ms "
+        f"{[round(t, 3) for t in one['step_ms']]}")
+    if not rel <= GRAD_REL_TOL["bfloat16"]:
+        fail("dp_d0: the two-rank parameters are not within phase 4's "
+             "bound of the one-process run's")
+    ar = sorted(r0["all_reduce_ms"])[1]
+    log(f"dp all_reduce: one flat f32 bucket of "
+        f"{r0['all_reduce_buffer_bytes']} B over {r0['backend']} between "
+        f"two ranks on one card: {ar:.3f} ms (all: "
+        f"{[round(t, 3) for t in r0['all_reduce_ms']]}); a record of the "
+        f"host-staged path, not a scaling number")
+    # the kernels at rank 1's offset
+    off = r1["offset_check"]
+    if not all(off["same"].values()):
+        fail("rank 1's kernels at its offset differ from the one launch")
+    # (c)
+    frel = r0["fsdp_d01"]["rel_to_replicated"]
+    ratio = r0["fsdp_d01"]["state_bytes"] / r0["dp_d01"]["state_bytes"]
+    halves = r0["dp_d01"]["state_bytes"] \
+        - r0["fsdp_d01"]["sharded_state_bytes"] // P12_RANKS
+    log(f"dp_fsdp: {r0['fsdp_d01']['sharded_leaves']} of "
+        f"{r0['fsdp_d01']['leaves']} leaves sharded; |p_fsdp - p_repl| / "
+        f"|p_repl - p_0| = {frel:.3e} (tol {GRAD_REL_TOL['bfloat16']:g}); "
+        f"param + moment bytes per rank {r0['fsdp_d01']['state_bytes']} vs "
+        f"replicated {r0['dp_d01']['state_bytes']} (ratio {ratio:.4f})")
+    if not frel <= GRAD_REL_TOL["bfloat16"]:
+        fail("dp_fsdp: parameters not within phase 4's bound of (b)'s")
+    # each sharded leaf and its moments by half, the rest whole: half of
+    # the state at t5-base, where all but ~0.1 % of it shards
+    if r0["fsdp_d01"]["state_bytes"] != halves or not ratio <= 0.52:
+        fail(f"dp_fsdp: per-rank state bytes {r0['fsdp_d01']['state_bytes']}"
+             f" (ratio {ratio:.4f}), expected {halves}")
+    # (d)
+    t_card, t_cpu = r0["tiny"]["cuda"], r0["tiny"]["cpu"]
+    tiny_err = max(abs(a - b) / abs(b) for a, b in zip(t_card["losses"],
+                                                        t_cpu["losses"]))
+    same_tiny = {"result_matrix": t_card["result_matrix"]
+                 == t_cpu["result_matrix"],
+                 "answers": t_card["answers"] == t_cpu["answers"],
+                 "ranks": all(r["tiny"]["cuda"]["result_matrix"]
+                              == t_card["result_matrix"] for r in ranks)}
+    per_lookup = t_card["lookup_bytes"] / max(t_card["lookups"], 1)
+    log(f"dp_tiny_f32: VQACLTrainer ER at dp {P12_RANKS}, sharded device "
+        f"cache ({t_card['cache_rows']} of {t_card['cache_n']} rows per "
+        f"rank, {t_card['table_bytes']} B), card vs CPU: "
+        f"{len(t_card['losses'])} / {len(t_cpu['losses'])} steps, loss max "
+        f"rel err {tiny_err:.3e} (tol {CL_LOSS_RTOL:g}); equal "
+        f"{json.dumps(same_tiny)}; lookup all_reduce {per_lookup:.0f} B per "
+        f"lookup ({t_card['lookups']} lookups); launches rank 0 "
+        f"{t_card['launches']}, rank 1 {r1['tiny']['cuda']['launches']}")
+    if len(t_card["losses"]) != len(t_cpu["losses"]) \
+            or not tiny_err <= CL_LOSS_RTOL or not all(same_tiny.values()):
+        fail("dp_tiny_f32: the dp run on the card differs from the CPU run")
+    launches = list(a_launches)
+    offsets = [0, 0]
+    for r in ranks:
+        for key in ("dp_d0", "dp_d01", "fsdp_d01"):
+            launches = [a + b for a, b in zip(launches, r[key]["launches"])]
+            offsets = [a + b for a, b in zip(offsets,
+                                             r[key]["offset_launches"])]
+        launches = [a + b for a, b in zip(launches,
+                                          r["tiny"]["cuda"]["launches"])]
+        offsets = [a + b for a, b in zip(
+            offsets, r["tiny"]["cuda"]["offset_launches"])]
+    rec.update({
+        "ranks_s": ranks_s, "backend": r0["backend"],
+        "one_process_step_ms": r0["one_process_d0"]["step_ms"],
+        "two_rank_step_ms": {k: [r[k]["step_ms"] for r in ranks]
+                             for k in ("dp_d0", "dp_d01", "fsdp_d01")},
+        "losses": {k: r0[k]["losses"] for k in ("dp_d0", "dp_d01",
+                                                 "fsdp_d01")},
+        "rel_to_one_process": rel, "fsdp_rel_to_replicated": frel,
+        "all_reduce_ms": r0["all_reduce_ms"],
+        "all_reduce_buffer_bytes": r0["all_reduce_buffer_bytes"],
+        "all_reduce_bytes_per_step": r0["dp_d01"][
+            "all_reduce_bytes_per_step"],
+        "state_bytes": {"replicated": r0["dp_d01"]["state_bytes"],
+                        "fsdp": r0["fsdp_d01"]["state_bytes"]},
+        "offset_check": off,
+        "tiny": {"loss_rel_err": tiny_err, "equal": same_tiny,
+                 "lookup_bytes_per_lookup": per_lookup,
+                 "lookups": t_card["lookups"],
+                 "cache_rows": t_card["cache_rows"],
+                 "launches": [r["tiny"]["cuda"]["launches"]
+                              for r in ranks]}})
+    return rec, launches, offsets
+
+
 def main(argv=None) -> int:
     global BASE_CSRC
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--base", metavar="DIR",
                     help="another checkout: time its kernels beside these "
                          "(phases 1-2 only)")
+    # rank mode: one rank of phase 12's group, started by the script itself
+    for name, kind in (("--rank", int), ("--world", int), ("--store", str),
+                       ("--spec", str), ("--out", str)):
+        ap.add_argument(name, type=kind, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3034,6 +3618,8 @@ def main(argv=None) -> int:
         print("chip_smoke: run from a checkout (vqacl_tpu_torch/ missing)",
               file=sys.stderr)
         return 2
+    if args.rank is not None:
+        return rank_main(args)
     if args.base:
         BASE_CSRC = os.path.join(os.path.abspath(args.base),
                                  "vqacl_tpu_torch", "csrc")
@@ -3073,6 +3659,8 @@ def main(argv=None) -> int:
         for c in counters:
             c.launches = 0
             c.strided_launches = 0
+        for c in counters[1:]:
+            c.offset_launches = 0
 
     def read_counts():
         return tuple(c.launches for c in counters)
@@ -3748,11 +4336,20 @@ def main(argv=None) -> int:
     ext11["phase_s"] = time.time() - t0
     log(f"phase 11 in {ext11['phase_s']:.1f} s")
 
-    def row(name, source, replaces, launches, r):
-        return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches,
-                **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                     "bound_ms", "bound_by", "library_ms")}}
+    # ---- 12. data parallelism ---------------------------------------------
+    t0 = time.time()
+    ext12, p12_k, p12_off = data_parallel((zero_counts, read_counts))
+    ext12["phase_s"] = time.time() - t0
+    log(f"phase 12 in {ext12['phase_s']:.1f} s")
+
+    def row(name, source, replaces, launches, r, offsets=None):
+        out = {"name": name, "route": "cuda", "source": source,
+               "replaces": replaces, "launches": launches,
+               **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                    "bound_ms", "bound_by", "library_ms")}}
+        if offsets is not None:     # phase 12's ranks past the first
+            out["offset_launches"] = offsets
+        return out
 
     fwd_src = "vqacl_tpu_torch/csrc/fused_attention_fwd.cu"
     # launches over the main paths' runs: K1 in the eval steps, the
@@ -3762,20 +4359,24 @@ def main(argv=None) -> int:
     # steps; K5 in the probe; phase 8's beam, cached, HTTP and pack runs;
     # phase 9's merged train steps, decodes and classifier head; phase 10's
     # CLI runs (VQA train and Test(), NExT-QA, the tiny card runs); phase
-    # 11's answers over the extracted pack. N1 in phase 11's extraction
+    # 11's answers over the extracted pack; phase 12's one-rank mesh and
+    # its two ranks' steps and tiny CL runs (K1′/K2 of the second rank at
+    # its row offset: ``offset_launches``). N1 in phase 11's extraction
     # runs (two per image) and CLI records
     kernels = [
         row("fused_attention_fwd", fwd_src,
             "vqacl_tpu/ops/fused_attention.py:159",
             eval_launches + loss_eval_k1 + cl_k[0] + p8_k[0] + p9_k[0]
-            + p10_k[0] + p11_k[0], k1),
+            + p10_k[0] + p11_k[0] + p12_k[0], k1),
         row("fused_attention_fwd_train", fwd_src,
             "vqacl_tpu/ops/fused_attention.py:199",
-            train_k1p + fd_k1p + cl_k[1] + p8_k[1] + p9_k[1] + p10_k[1], k1p),
+            train_k1p + fd_k1p + cl_k[1] + p8_k[1] + p9_k[1] + p10_k[1]
+            + p12_k[1], k1p, p12_off[0]),
         row("fused_attention_bwd",
             "vqacl_tpu_torch/csrc/fused_attention_bwd.cu",
             "vqacl_tpu/ops/fused_attention.py:272",
-            train_k2 + fd_k2 + cl_k[2] + p8_k[2] + p9_k[2] + p10_k[2], k2),
+            train_k2 + fd_k2 + cl_k[2] + p8_k[2] + p9_k[2] + p10_k[2]
+            + p12_k[2], k2, p12_off[1]),
         row("dw_splitk", "vqacl_tpu_torch/csrc/dw_splitk.cu",
             "scripts/mm_bench.py:121", dw_launches, k5),
         # not a Pallas kernel: the two greedy suppressions JAX runs as a
@@ -3830,6 +4431,8 @@ def main(argv=None) -> int:
         "model_extensions": ext9, "model_extensions_launches": p9_k,
         "training_cli": ext10, "training_cli_launches": p10_k,
         "extraction": ext11, "extraction_launches": list(p11_k),
+        "data_parallel": ext12, "data_parallel_launches": p12_k,
+        "data_parallel_offset_launches": p12_off,
         "extraction_n1_launches": n1_launches,
         "nms_kernel_times": {"rpn": pick(n1), "sweep": pick(n1_sweep)},
         "nextqa_kernel_times": {"K1": pick(nq_k1), "K1p": pick(nq_k1p),

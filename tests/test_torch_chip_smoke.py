@@ -32,9 +32,15 @@ sweep's; in phase 11 the detector and the 3D ResNeXt at reduced depth
 1024, res5 and the motion features 2048 wide), a 64-px resize, 40
 proposals and 32-px videos: the per-image stage times, two N1 launches
 per image, the CLI's record generator into a pack read back bit for bit
-and answered through K1, the f32 stage checks and both motion halves —
-and that without CUDA the real script prints no result and exits
-non-zero.
+and answered through K1, the f32 stage checks and both motion halves; in
+phase 12 the one-rank mesh (over gloo here, as NCCL needs a card) against
+the meshless steps, and its two ranks started by the script (each the
+rehearsal itself in rank mode, over gloo on the CPU): the replicated and
+FSDP steps, the kernels at the second rank's row offset (the plain
+versions here), the tiny CL run with the sharded cache on the "card" and
+on the CPU, and their launches and offset launches in the kernels line —
+2 steps per run and 16/8/8 items per task in the tiny run — and that
+without CUDA the real script prints no result and exits non-zero.
 """
 
 import json
@@ -49,7 +55,7 @@ pytest.importorskip("torch")
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 REHEARSAL = r"""
-import sys, time
+import os, sys, time
 import torch
 from torch.overrides import TorchFunctionMode
 
@@ -124,18 +130,19 @@ def rows(what, route, q, k, v, more=()):
 def route(q, k, v, H):   # the wrappers' validation, before any launch
     r = fa.fwd_route(q.dtype, q.shape[-1] // H, q.shape[1], k.shape[1])
     return rows("fused_attention", r, q, k, v)
-def counted(q, k, v, bias, mask, H, dropout_rate=0.0, seed=None):
+def counted(q, k, v, bias, mask, H, dropout_rate=0.0, seed=None, bh0=0):
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         fa.bwd_route(q.dtype, q.shape[-1] // H, q.shape[1], k.shape[1],
                      dropout_rate)
-        return dispatch(q, k, v, bias, mask, H, dropout_rate, seed)
+        return dispatch(q, k, v, bias, mask, H, dropout_rate, seed, bh0)
     counted.strided_launches += route(q, k, v, H)
     counted.launches += 1
     return fa.fused_attention_reference(q, k, v, bias, mask, H)
 def counted_fwd_train(*a):
     counted_fwd_train.strided_launches += route(a[0], a[1], a[2], a[6])
     counted_fwd_train.launches += 1
+    counted_fwd_train.offset_launches += len(a) > 8 and a[8] != 0
     return fwd_train(*a)             # the plain version on CPU tensors
 def counted_bwd(*a, **kw):
     q, k, v, do, H = a[0], a[1], a[2], a[5], a[6]
@@ -145,9 +152,10 @@ def counted_bwd(*a, **kw):
     res = bwd(*a, **kw)              # the plain version on CPU tensors
     counted_bwd.launches += 1
     counted_bwd.strided_launches += strided
+    counted_bwd.offset_launches += kw.get("bh0", 0) != 0
     return res
 for f in (counted, counted_fwd_train, counted_bwd):
-    f.launches = f.strided_launches = 0
+    f.launches = f.strided_launches = f.offset_launches = 0
 fa.fused_attention = counted
 fa.fused_attention_fwd_train = counted_fwd_train
 fa.fused_attention_bwd = counted_bwd
@@ -223,9 +231,17 @@ chip_smoke.P11_F32_IMAGE = ((64, 96), (56, 90))
 chip_smoke.P11_VIDEO_FRAMES = 20
 chip_smoke.P11_VIDEO_SIDE = 32
 chip_smoke.P11_MOTION_SIDE = 16
+# phase 12: the one-rank group over gloo (NCCL needs a card); each rank
+# this rehearsal again, in the script's rank mode
+chip_smoke.P12_ONE_RANK_BACKEND = "gloo"
+chip_smoke.P12_STEPS = 2
+chip_smoke.P12_TINY = (16, 8, 8)
+chip_smoke.RANK_CMD = [sys.executable, "-c",
+                       os.environ["CHIP_SMOKE_REHEARSAL"]]
 with CudaOnCpu():
     sys.exit(chip_smoke.main())
 """
+ENV = dict(os.environ, CHIP_SMOKE_REHEARSAL=REHEARSAL)
 
 
 def test_chip_smoke_base_rehearsal_on_cpu():
@@ -233,7 +249,8 @@ def test_chip_smoke_base_rehearsal_on_cpu():
     # base checkout's libraries (here the same checkout), then an "ab"
     # line and no verdict
     r = subprocess.run([sys.executable, "-c", REHEARSAL, "--base", REPO],
-                       cwd=REPO, capture_output=True, text=True, timeout=300)
+                       cwd=REPO, capture_output=True, text=True, timeout=300,
+                       env=ENV)
     assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
     lines = r.stdout.strip().splitlines()
     ab = json.loads(lines[-1][len("ab "):])
@@ -251,7 +268,7 @@ def test_chip_smoke_base_rehearsal_on_cpu():
 
 def test_chip_smoke_rehearsal_on_cpu():
     r = subprocess.run([sys.executable, "-c", REHEARSAL], cwd=REPO,
-                       capture_output=True, text=True, timeout=300)
+                       capture_output=True, text=True, timeout=400, env=ENV)
     assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
     lines = r.stdout.strip().splitlines()
     assert json.loads(lines[-1]) == {"ok": True, "device": {
@@ -260,7 +277,10 @@ def test_chip_smoke_rehearsal_on_cpu():
     kernels = json.loads(lines[-3])["kernels"]
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
-    assert [set(k) for k in kernels] == [keys] * 5
+    # K1′ and K2 also note phase 12's launches at a row offset
+    assert [set(k) for k in kernels] == [
+        keys, keys | {"offset_launches"}, keys | {"offset_launches"}, keys,
+        keys]
     assert [k["name"] for k in kernels] == [
         "fused_attention_fwd", "fused_attention_fwd_train",
         "fused_attention_bwd", "dw_splitk", "greedy_nms"]
@@ -385,13 +405,15 @@ def test_chip_smoke_rehearsal_on_cpu():
     # step (2 encoder + 2 x 2 decoder attentions), plus the CL loops
     p11 = summary["extraction"]
     p11_k = summary["extraction_launches"]
+    p12 = summary["data_parallel"]
+    p12_k = summary["data_parallel_launches"]
     assert k1["launches"] == 2 * 3 + 6 + cl_k[0] + p8_k[0] + p9_k[0] \
-        + p10_k[0] + p11_k[0]
+        + p10_k[0] + p11_k[0] + p12_k[0]
     assert "fused_attention launches=6 (2/step)" in r.stdout
     # K1'/K2: 4 train steps x 2 encoder layers, and 4 fused-decoder
     # steps x (2 encoder + 2 x 2 decoder) attentions, plus the CL loops
     assert k1p["launches"] == k2["launches"] == 2 * 4 + 6 * 4 + cl_k[1] \
-        + p8_k[1] + p9_k[1] + p10_k[1]
+        + p8_k[1] + p9_k[1] + p10_k[1] + p12_k[1]
     assert cl_k[1] == cl_k[2]
     assert "train_step: bs 8 bf16" in r.stdout
     assert "launches over 4 steps: K1=0 K1'=8 K2=8" in r.stdout
@@ -554,6 +576,38 @@ def test_chip_smoke_rehearsal_on_cpu():
     assert "phase 11: TF32 flags restored" in r.stdout
     assert not os.path.exists(os.path.join(REPO, "build", "chip_smoke",
                                            "phase11"))
+    # phase 12: (a) 2 steps of 2 layers on a one-rank mesh, bit-equal to
+    # the meshless steps; (b)-(c) 2 steps per rank of each of the three
+    # runs (dropout 0, 0.1, FSDP), the second rank's at its row offset;
+    # (d) the tiny runs' launches on the card
+    assert p12["one_rank"]["bit_equal"]
+    assert p12["one_rank"]["launches"] == [0, 4, 4]
+    tiny12 = p12["tiny"]["launches"]
+    assert p12_k == [sum(t[0] for t in tiny12),
+                     4 + 2 * 3 * 4 + sum(t[1] for t in tiny12),
+                     4 + 2 * 3 * 4 + sum(t[2] for t in tiny12)]
+    assert min(min(t) for t in tiny12) > 0
+    # rank 1 runs every step at its offset: 3 runs x 2 steps x 2 layers
+    # and its tiny run's train and replay steps
+    assert summary["data_parallel_offset_launches"] == [
+        3 * 4 + tiny12[1][1], 3 * 4 + tiny12[1][2]]
+    assert k1p["offset_launches"] == k2["offset_launches"] == \
+        summary["data_parallel_offset_launches"][0]
+    assert all(p12["offset_check"]["same"].values())
+    assert p12["rel_to_one_process"] <= 3e-2
+    assert p12["fsdp_rel_to_replicated"] <= 3e-2
+    assert p12["tiny"]["equal"] == {"result_matrix": True, "answers": True,
+                                    "ranks": True}
+    assert p12["tiny"]["loss_rel_err"] <= 1e-5
+    assert p12["tiny"]["lookups"] > 0
+    assert p12["all_reduce_bytes_per_step"] > 0
+    # the tiny model shards its embedding alone: 0.518 of the state here,
+    # ~0.500 at t5-base
+    assert p12["state_bytes"]["fsdp"] / p12["state_bytes"]["replicated"] \
+        <= 0.52
+    assert "bit-equal to the meshless step: True" in r.stdout
+    assert "dp all_reduce: one flat f32 bucket of" in r.stdout
+    assert sum(l.startswith("rank 1: offset_check:") for l in lines) == 1
 
 
 def test_chip_smoke_without_cuda_prints_no_result():

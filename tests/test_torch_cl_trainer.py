@@ -339,11 +339,13 @@ def test_reference_prototypes_load_as_in_jax(runs, tmp_path, bad):
 
 
 REFUSED = {
-    # the unsharded cache is taken since it was ported; the sharded one
-    # needs the parallel slice
-    "device_cache": ("data", "device_cache_sharded", True),
+    # both device caches are taken since the parallel slice (the sharded
+    # one over any dp); a table type the cache does not know is refused
+    "device_cache": ("data", "device_cache_dtype", "float16"),
     "param_layout_tp": ("mesh", "param_layout", "tp"),
-    "param_layout_fsdp": ("mesh", "param_layout", "fsdp"),
+    # fsdp is taken since the parallel slice; a layout nobody knows is not
+    "param_layout_fsdp": ("mesh", "param_layout", "fsdp_tp"),
+    # one process cannot run a dp of 2: no fallback to fewer ranks
     "dp2": ("mesh", "dp", 2),
     "tp2": ("mesh", "tp", 2),
     "pp2": ("mesh", "pp", 2),

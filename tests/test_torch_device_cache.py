@@ -10,7 +10,8 @@ eval, DER replay, DER capture) match JAX's cached steps in f32 at dropout
 with ``data.device_cache`` (bf16 with EWC, int8 with DER++) follows JAX's
 trainer with its cache as ``test_torch_cl_trainer.py`` holds the host
 path: the same batches (slots), losses within 1e-4 relative, the same
-answers and matrices. The sharded cache is refused.
+answers and matrices. The sharded cache needs a mesh (its runs are in
+``test_torch_dp_trainer.py``).
 """
 
 import dataclasses
@@ -366,11 +367,17 @@ def test_trainer_with_device_cache_follows_jax(tmp_path, cache_dtype, reg):
 
 
 def test_trainer_refuses_the_sharded_cache(tmp_path):
+    """The sharded cache is taken since the parallel slice: over the dp
+    of the trainer's mesh. Asked for dp = 2 in one process, the trainer
+    refuses (it never runs on fewer ranks than asked); an unknown table
+    type is refused too."""
     _, tc, params = _configs(tmp_path, tmp_path)
     tc.data.device_cache = True
     tc.data.device_cache_sharded = True
-    with pytest.raises(ValueError, match="device_cache_sharded"):
+    tc.mesh.dp = 2
+    with pytest.raises(ValueError, match="dp=1 ranks"):
         _port_trainer(TTrainer, tc, params)
+    tc.mesh.dp = -1
     tc.data.device_cache_sharded = False
     tc.data.device_cache_dtype = "float16"
     with pytest.raises(ValueError, match="device_cache_dtype"):

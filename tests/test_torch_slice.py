@@ -280,7 +280,8 @@ def test_port_imports_nothing_of_jax():
     blocked (a None entry in sys.modules makes any import of them raise);
     the weight files and the directory checkpoint are written and read
     with them blocked too, and so are the detector's weights (npz) and a
-    pack of extracted records made from a decoded array."""
+    pack of extracted records made from a decoded array. The parallel
+    modules are among them, and a one-process mesh starts."""
     code = r"""
 import importlib, os, pkgutil, runpy, sys, tempfile
 BLOCKED = ("jax", "jaxlib", "vqacl_tpu", "h5py", "ml_dtypes", "transformers",
@@ -293,6 +294,10 @@ mods = [m.name for m in pkgutil.walk_packages(vqacl_tpu_torch.__path__,
                                               "vqacl_tpu_torch.")]
 for m in mods:
     importlib.import_module(m)
+assert {"vqacl_tpu_torch.parallel.mesh", "vqacl_tpu_torch.parallel.multihost",
+        "vqacl_tpu_torch.parallel.sharding"} <= set(mods)
+from vqacl_tpu_torch import make_mesh
+assert make_mesh(device="cpu").dp == 1
 runpy.run_path("chip_smoke.py", run_name="chip_smoke_import_check")
 from vqacl_tpu_torch.models import hf_import, vlt5
 from vqacl_tpu_torch.models.prototype import ProtoState

@@ -35,7 +35,21 @@ export, VL-BART); and the training entry points, ``cli.vqacl_train`` and
 ``vision.frcnn`` (ResNet-101-C4, the RPN, RoIAlign, the 36-box NMS
 sweep; the greedy suppressions in ``csrc/nms.cu``), ``vision.resnext3d``
 and ``vision.video``, with ``vision.convert_weights`` and
-``cli.validate_features``.
+``cli.validate_features``; and data parallelism, multihost and FSDP,
+``parallel.mesh.make_mesh`` (a ``torch.distributed`` process group,
+one rank per card) with ``parallel.multihost`` and ``parallel.sharding``,
+wired through the CL trainer, the train steps and both training CLIs
+(``torchrun ... --mesh_dp N``), the kernels drawing each rank's dropout
+rows by a Philox row offset.
 """
 
 __version__ = "0.1.0"
+
+
+def __getattr__(name):
+    """Lazy top-level API, as ``vqacl_tpu``'s: ``make_mesh``."""
+    if name == "make_mesh":
+        from vqacl_tpu_torch.parallel.mesh import make_mesh
+        return make_mesh
+    raise AttributeError(f"module 'vqacl_tpu_torch' has no attribute "
+                         f"{name!r}")

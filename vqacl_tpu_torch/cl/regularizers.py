@@ -29,7 +29,7 @@ import torch
 
 from vqacl_tpu_torch.models import vlt5
 from vqacl_tpu_torch.models.prototype import ProtoState
-from vqacl_tpu_torch.train.optim import tree_leaves, tree_map
+from vqacl_tpu_torch.train.optim import tree_leaves, tree_map, tree_unflatten
 from vqacl_tpu_torch.utils.device import resolve_device
 
 KINDS = ("ewc", "mas")
@@ -69,7 +69,7 @@ def penalty(params, reg: RegState) -> torch.Tensor:
 
 
 def make_importance_step(cfg, kind: str, dtype=torch.bfloat16,
-                         device="cuda") -> Callable:
+                         device="cuda", mesh_ctx=None) -> Callable:
     """Returns ``(acc, params, proto, batch) -> acc`` adding one batch's
     importance estimate into ``acc`` (an f32 parameter-shaped tree on the
     device) in place.
@@ -79,13 +79,23 @@ def make_importance_step(cfg, kind: str, dtype=torch.bfloat16,
     state), deterministic. EWC differentiates the task's weighted NLL
     (empirical Fisher); MAS differentiates the squared L2 norm of the
     valid-token logits. ``batch`` holds input_ids, vis_feats, boxes,
-    target_ids and scores as numpy arrays or tensors."""
+    target_ids and scores as numpy arrays or tensors.
+
+    With ``mesh_ctx`` (data parallelism, ``batch`` this rank's rows) the
+    importance is that of the global batch, as JAX's global-batch
+    ``jax.grad`` gives it: each rank differentiates its share of the
+    objective (EWC's row mean over the global batch, MAS's masked mean
+    over the all-reduced count), the gradients are summed over the ranks,
+    and only then squared (EWC) or taken in magnitude (MAS)."""
     if kind not in KINDS:
         raise ValueError(f"unknown regularizer {kind!r}; pick from {KINDS}")
-    from vqacl_tpu_torch.train.step import _TRAIN_KEYS, _to_device
+    from vqacl_tpu_torch.train.step import (_TRAIN_KEYS, _dp, _to_device,
+                                            reduce_grads)
 
     dev = resolve_device(device)
     mcfg = cfg.model
+    ctx = _dp(mesh_ctx)
+    dp = ctx.dp if ctx is not None else 1
 
     def objective(params, proto: ProtoState, b: Dict) -> torch.Tensor:
         hidden, enc_mask = vlt5.encode(params, mcfg, b["input_ids"],
@@ -97,11 +107,15 @@ def make_importance_step(cfg, kind: str, dtype=torch.bfloat16,
         logits = vlt5.decode_train(params, mcfg, hidden, enc_mask,
                                    b["target_ids"], dtype=dtype)
         if kind == "ewc":
-            return vlt5.weighted_lm_loss(logits, b["target_ids"],
+            loss = vlt5.weighted_lm_loss(logits, b["target_ids"],
                                          b["scores"])
+            return loss / dp if dp > 1 else loss
         mask = (b["target_ids"] != -100).float()
         sq = torch.sum(logits.float() ** 2, dim=-1)               # [B,T]
-        return torch.sum(sq * mask) / mask.sum().clamp_min(1.0)
+        count = mask.sum()
+        if ctx is not None:
+            count = ctx.all_reduce(count.clone())
+        return torch.sum(sq * mask) / count.clamp_min(1.0)
 
     def step(acc, params, proto: ProtoState, batch: Dict):
         b = _to_device(batch, _TRAIN_KEYS, dev)
@@ -109,6 +123,10 @@ def make_importance_step(cfg, kind: str, dtype=torch.bfloat16,
         leaves = tree_leaves(live)
         grads = torch.autograd.grad(objective(live, proto, b), leaves,
                                     allow_unused=True)
+        if ctx is not None:
+            grads = tree_leaves(reduce_grads(ctx, tree_unflatten(params, [
+                torch.zeros_like(p) if g is None else g
+                for p, g in zip(leaves, grads)])))
         with torch.no_grad():
             for a, g in zip(tree_leaves(acc), grads):
                 if g is None:

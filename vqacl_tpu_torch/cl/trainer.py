@@ -2,7 +2,8 @@
 of ``vqacl_tpu/cl/trainer.py``).
 
 The reference's ``Trainer`` (``VL-T5/src/vqacl.py:54-635``) as host
-orchestration around the port's steps, which run on one device:
+orchestration around the port's steps, on one device or one rank of a
+data-parallel mesh:
 
   for task in 10 linguistic tasks:                (vqacl.py:165)
     rebuild exemplar buffer from prev task         (:170-203)
@@ -32,11 +33,21 @@ module's store goes to the device once (data/device_cache.py, in
 the train, replay, capture, importance and eval steps gather their
 features on the device, so batches carry int32 slots.
 
-One process on one device: the DDP barriers and answer all-gathers of a
-multi-process run have nothing to do. What the port does not take yet is
-refused with ``ValueError``: ``data.device_cache_sharded``, a
-``mesh.param_layout`` other than "replicated", and ``mesh.dp``/``tp``/
-``pp`` above 1.
+Data parallelism (``mesh_ctx``, default ``parallel.mesh.make_mesh()``:
+one process, or the ranks ``torchrun`` started): every rank builds the
+same global batches, exemplar buffer and group order from the same
+seeds, runs its rows of each batch (``shard_batch``, where JAX calls it)
+and takes part in the steps' collectives; ``predict`` merges the ranks'
+answers (``merge_quesid2ans``), the DER capture gathers the ranks'
+logits rows before they enter the buffer, and a barrier closes each
+task. Only the main process writes checkpoints, logs, the prototype
+banks and ``metrics.json``. ``mesh.param_layout="fsdp"`` keeps each
+rank's slices of the large parameters and their moments
+(``parallel.sharding.FsdpLayout``); ``data.device_cache_sharded``
+row-shards the device cache over dp. Refused with ``ValueError``:
+``mesh.tp``/``pp`` above 1 and the "tp" layout (not ported yet), a
+``mesh.dp`` other than the mesh's, and global batch sizes dp does not
+divide.
 
 ``wall_s`` sums host seconds by phase (``loader``: waiting for the next
 train or memory batch; ``train``: the step calls and the epoch-end loss
@@ -77,6 +88,11 @@ from vqacl_tpu_torch.data.partition import (BatchLoader, all_loader,
 from vqacl_tpu_torch.models.prototype import ProtoState
 from vqacl_tpu_torch.models.vlt5 import (cast_params_for_inference,
                                          init_vlt5_params)
+from vqacl_tpu_torch.parallel.mesh import make_mesh, replicate, shard_batch
+from vqacl_tpu_torch.parallel.multihost import (barrier, is_main_process,
+                                                merge_quesid2ans,
+                                                process_count)
+from vqacl_tpu_torch.parallel.sharding import FsdpLayout
 from vqacl_tpu_torch.train.checkpoint import (AsyncCheckpointer,
                                               load_checkpoint,
                                               load_reference_prototypes,
@@ -109,22 +125,35 @@ class LossMeter:
         return sum(self.vals) / len(self.vals) if self.vals else 0.0
 
 
-def _refuse_unported(cfg) -> None:
-    """ValueError for the options the port does not take yet."""
-    if cfg.data.device_cache_sharded:
-        raise ValueError("data.device_cache_sharded: the sharded device "
-                         "cache comes with the parallel slice")
+def _refuse_unported(cfg, ctx) -> None:
+    """ValueError for the options the port does not take (yet) and for a
+    configuration the mesh ``ctx`` cannot run."""
     if cfg.data.device_cache_dtype not in DC.DTYPES:
         raise ValueError(f"data.device_cache_dtype="
                          f"{cfg.data.device_cache_dtype!r}; pick from "
                          f"{tuple(DC.DTYPES)}")
-    if cfg.mesh.param_layout != "replicated":
-        raise ValueError(f"mesh.param_layout={cfg.mesh.param_layout!r}: "
-                         "the port runs on one device ('replicated')")
-    for axis in ("dp", "tp", "pp"):
+    if cfg.mesh.param_layout == "tp":
+        raise ValueError("mesh.param_layout='tp': the tensor-parallel layout "
+                         "is not ported yet")
+    if cfg.mesh.param_layout not in ("replicated", "fsdp"):
+        raise ValueError(f"mesh.param_layout={cfg.mesh.param_layout!r}; pick "
+                         f"from ('replicated', 'fsdp')")
+    for axis in ("tp", "pp"):
         if int(getattr(cfg.mesh, axis)) > 1:
-            raise ValueError(f"mesh.{axis}={getattr(cfg.mesh, axis)}: the "
-                             "port runs on one device")
+            raise ValueError(f"mesh.{axis}={getattr(cfg.mesh, axis)}: tensor "
+                             f"and pipeline parallelism are not ported yet")
+    if int(cfg.mesh.dp) not in (-1, ctx.dp):
+        raise ValueError(f"mesh.dp={cfg.mesh.dp}, but the mesh has "
+                         f"dp={ctx.dp} ranks")
+    accum = int(cfg.train.grad_accum)
+    for name, size, div in (("batch_size", cfg.train.batch_size,
+                             ctx.dp * accum),
+                            ("valid_batch_size", cfg.train.valid_batch_size,
+                             ctx.dp)):
+        if size % div:
+            raise ValueError(f"train.{name}={size} is not divisible by "
+                             f"dp={ctx.dp}" + (f" x grad_accum={accum}"
+                                                if div != ctx.dp else ""))
     if cfg.train.cl_reg not in CL_REGS:
         raise ValueError(f"train.cl_reg={cfg.train.cl_reg!r}; pick from "
                          f"{CL_REGS}")
@@ -135,16 +164,20 @@ def _refuse_unported(cfg) -> None:
 
 class VQACLTrainer:
     def __init__(self, cfg, data, tokenizer, verbose: bool = True,
-                 device="cuda", init_params=None, dtype=torch.bfloat16):
+                 device="cuda", init_params=None, dtype=torch.bfloat16,
+                 mesh_ctx=None):
         """``data``: a DataModule (``data/synthetic_module.py``);
         ``init_params``: the port's parameter tree to start from (else a
         seeded random init); ``dtype``: the compute dtype (f32 master
-        weights either way)."""
-        self.device = resolve_device(device)
-        _refuse_unported(cfg)
-        # "auto" → merged projections on the one device, as JAX's trainer
-        # resolves it
-        resolve_merged_qkv(cfg.model, n_devices=1)
+        weights either way); ``mesh_ctx``: this rank's mesh (default
+        ``make_mesh(device=device)``), whose device the trainer runs on."""
+        self.ctx = mesh_ctx if mesh_ctx is not None else \
+            make_mesh(device=device)
+        self.device = resolve_device(self.ctx.device)
+        _refuse_unported(cfg, self.ctx)
+        # "auto" → merged projections on one device, separate ones on a
+        # mesh of more, as JAX's trainer resolves it
+        resolve_merged_qkv(cfg.model, n_devices=self.ctx.world_size)
         self.cfg = cfg
         self.data = data
         self.tok = tokenizer
@@ -161,9 +194,20 @@ class VQACLTrainer:
         # the same transform as the train steps build: resetting the
         # optimizer per group goes through it
         self._tx = make_transform(cfg.train)
-        # dropout generator seeded as the JAX trainer seeds its key
-        self.state = TrainState.create(params, self._tx, proto,
-                                       seed=cfg.train.seed + 1)
+        # params placed per mesh.param_layout: rank 0's broadcast, then
+        # this rank's FSDP slices (the moments made from them follow)
+        self._fsdp = FsdpLayout(self.ctx, params) \
+            if cfg.mesh.param_layout == "fsdp" else None
+        params = self._place(params)
+        # dropout generator seeded as the JAX trainer seeds its key; the
+        # ranks' generators stay in step (models/t5.py::dropout)
+        state = TrainState.create(params, self._tx, proto,
+                                  seed=cfg.train.seed + 1)
+        self.state = state._replace(
+            step=replicate(self.ctx, state.step),
+            proto=replicate(self.ctx, state.proto),
+            generator=replicate(self.ctx, state.generator),
+            sched=replicate(self.ctx, state.sched))
         # the device feature cache: the whole table on the device,
         # batches carry slots (data/device_cache.py)
         self._cache = None
@@ -175,7 +219,8 @@ class VQACLTrainer:
             self._cache, self._slot_of = DC.DeviceFeatureCache.from_store(
                 data.features, sorted(data.cate_map.keys()),
                 device=self.device,
-                feat_dtype=DC.DTYPES[cfg.data.device_cache_dtype])
+                feat_dtype=DC.DTYPES[cfg.data.device_cache_dtype],
+                shard=cfg.data.device_cache_sharded, mesh_ctx=self.ctx)
             self._log(f"device feature cache: {self._cache.n} images "
                       f"({self._cache.nbytes / 1e9:.2f} GB)")
             self.eval_step = DC.make_cached_eval_step(
@@ -194,7 +239,7 @@ class VQACLTrainer:
         self._der_step_fn = None
         self._logits_step = None
         if cl_reg in ("ewc", "mas"):
-            self._reg = R.init_reg_state(self.state.params)
+            self._reg = R.init_reg_state(self._full_params())
             self._log(f"CL regularizer: {cl_reg} "
                       f"(λ={cfg.train.reg_lambda})")
         elif self._der:
@@ -248,6 +293,18 @@ class VQACLTrainer:
         self._spans.clear()
 
     # ------------------------------------------------------------------
+    def _place(self, params):
+        """Parameters as the layout keeps them: rank 0's values on every
+        rank (``replicate``), then this rank's FSDP slices."""
+        params = replicate(self.ctx, params)
+        return params if self._fsdp is None else self._fsdp.shard(params)
+
+    def _full_params(self):
+        """The whole parameter tree (gathered from the ranks' slices under
+        FSDP; every rank must call it together)."""
+        return self.state.params if self._fsdp is None else \
+            self._fsdp.gather(self.state.params)
+
     def _train_step(self, use_memory_loss: bool):
         key = bool(use_memory_loss)
         if key not in self._train_step_cache:
@@ -255,7 +312,8 @@ class VQACLTrainer:
                 if self._reg is not None else 0.0
             kw = dict(dtype=self.dtype, device=self.device,
                       use_memory_loss=use_memory_loss,
-                      remat=self.cfg.mesh.remat, reg_lambda=reg_lambda)
+                      remat=self.cfg.mesh.remat, reg_lambda=reg_lambda,
+                      mesh_ctx=self.ctx, fsdp=self._fsdp)
             fn = make_train_step(self.cfg, **kw) if self._cache is None \
                 else DC.make_cached_train_step(self.cfg, self._cache, **kw)
             if self._reg is not None:
@@ -274,7 +332,8 @@ class VQACLTrainer:
     def _der_replay_step(self):
         if self._der_step_fn is None:
             kw = dict(dtype=self.dtype, device=self.device,
-                      remat=self.cfg.mesh.remat)
+                      remat=self.cfg.mesh.remat, mesh_ctx=self.ctx,
+                      fsdp=self._fsdp)
             self._der_step_fn = make_der_replay_step(self.cfg, **kw) \
                 if self._cache is None else \
                 DC.make_cached_der_step(self.cfg, self._cache, **kw)
@@ -309,13 +368,17 @@ class VQACLTrainer:
                              with_targets=True, drop_last=False,
                              collate_kw=self._ck())
         off = 0
+        params = self._full_params()
         for batch in loader:
             with self._call("capture_batches"):
-                logits = self._logits_step(self.state.params,
-                                           self.state.proto, batch["tensors"])
+                logits = self._logits_step(
+                    params, self.state.proto,
+                    shard_batch(self.ctx, batch["tensors"]))
             # f32 → f16 rounds to nearest even on the device as numpy
-            # does on the host; half the bytes cross to the host
-            arr = logits.to(torch.float16).cpu().numpy()
+            # does on the host; half the bytes cross to the host. Each
+            # rank captured its rows: every rank's buffer gets them all
+            arr = self.ctx.gather_rows(
+                logits.to(torch.float16)).cpu().numpy()
             tgt = batch["tensors"]["target_ids"]
             sc = batch["tensors"]["scores"]
             n = batch["meta"]["n_real"]
@@ -340,15 +403,19 @@ class VQACLTrainer:
         self.state = self.state.reset_optimizer(self._tx, warmup, t_total)
 
     def _load(self, task: str):
-        """(params, proto) of ``{task}_LAST`` on the trainer's device."""
+        """(params, proto) of ``{task}_LAST`` on the trainer's device,
+        rank 0's broadcast, the params in this rank's layout."""
         params, proto, _ = load_checkpoint(
             os.path.join(self.cfg.output, f"{task}_LAST"),
-            device=self.device)
+            device=self.device, mesh_ctx=self.ctx, layout=self._fsdp)
         return params, proto
 
     def _save(self, saver, suffix: str, task: str) -> None:
+        """Every rank calls it (FSDP slices are gathered); only the main
+        process writes."""
         saver(os.path.join(self.cfg.output, f"{task}_{suffix}"),
-              self.state.params, self.state.proto, int(self.state.step))
+              self.state.params, self.state.proto, int(self.state.step),
+              layout=self._fsdp)
 
     # ------------------------------------------------------------------
     def train(self, resume_task: Optional[str] = None) -> Dict:
@@ -395,6 +462,8 @@ class VQACLTrainer:
 
             self.test(task)
             self._write_log()
+            # task-boundary sync of the ranks (identity in one process)
+            barrier(f"task_{task}")
             self.task_wall_s[task] = time.perf_counter() - t_task
 
         # drain the last background checkpoint write (and surface any
@@ -405,15 +474,17 @@ class VQACLTrainer:
         self._read_spans()
 
         # prototype export for reference parity (vqacl.py:420-426)
-        os.makedirs(self.cfg.output, exist_ok=True)
-        np.save(os.path.join(self.cfg.output, "Q_prototype.npy"),
-                self.state.proto.q_proto.cpu().numpy())
-        np.save(os.path.join(self.cfg.output, "V_prototype.npy"),
-                self.state.proto.v_proto.cpu().numpy())
         metrics = evaluate_metric(self.result_matrix.to_dict())
-        with open(os.path.join(self.cfg.output, "metrics.json"), "w") as f:
-            json.dump({k: v for k, v in metrics.items()}, f, indent=2,
-                      default=float)
+        if is_main_process():
+            os.makedirs(self.cfg.output, exist_ok=True)
+            np.save(os.path.join(self.cfg.output, "Q_prototype.npy"),
+                    self.state.proto.q_proto.cpu().numpy())
+            np.save(os.path.join(self.cfg.output, "V_prototype.npy"),
+                    self.state.proto.v_proto.cpu().numpy())
+            with open(os.path.join(self.cfg.output, "metrics.json"),
+                      "w") as f:
+                json.dump({k: v for k, v in metrics.items()}, f, indent=2,
+                          default=float)
         self._log(self.result_matrix.show())
         self._log(f"Avg_acc {metrics['Avg_acc']:.2f} "
                   f"Avg_forget {metrics['Avg_forget']:.2f}")
@@ -492,6 +563,9 @@ class VQACLTrainer:
             # DER replay distills against stored logits; ER (the
             # reference's replay) is a second CE step
             mem_fn = self._der_replay_step() if self._der else step_fn
+            # each rank's rows of every microbatch (train/step.py)
+            accum = int(cfg.train.grad_accum)
+            mem_accum = 1 if self._der else accum
             meter, meter_mem = LossMeter(), LossMeter()
             for epoch in range(cfg.train.epochs):
                 it = zip(tl, itertools.cycle(ml)) if ml.num_examples > 0 \
@@ -508,12 +582,13 @@ class VQACLTrainer:
                         break
                     batch, mem_batch = nxt
                     with self._call("train_steps"):
-                        self.state, m = step_fn(self.state, batch["tensors"])
+                        self.state, m = step_fn(self.state, shard_batch(
+                            self.ctx, batch["tensors"], accum))
                     pend.append(m["loss"])
                     if mem_batch is not None:
                         with self._call("replay_steps"):
-                            self.state, mm = mem_fn(self.state,
-                                                    mem_batch["tensors"])
+                            self.state, mm = mem_fn(self.state, shard_batch(
+                                self.ctx, mem_batch["tensors"], mem_accum))
                         pend_mem.append(mm["loss"])
                     self.wall_s["train"] += time.perf_counter() - t1
                 t0 = time.perf_counter()
@@ -544,7 +619,8 @@ class VQACLTrainer:
         cfg = self.cfg
         if self._imp_step is None:
             self._imp_step = R.make_importance_step(
-                cfg, cfg.train.cl_reg, dtype=self.dtype, device=self.device)
+                cfg, cfg.train.cl_reg, dtype=self.dtype, device=self.device,
+                mesh_ctx=self.ctx)
         bs = cfg.train.batch_size
         loader = BatchLoader(train_ds, np.arange(len(train_ds)), bs,
                              shuffle=True, seed=cfg.train.seed + 13,
@@ -552,24 +628,26 @@ class VQACLTrainer:
                              drop_last=(len(train_ds) >= bs),
                              collate_kw=self._ck())
         acc = tree_map(torch.zeros_like, self._reg.omega)
+        params = self._full_params()
         n = 0
         for batch in loader:
-            t = batch["tensors"]
+            t = shard_batch(self.ctx, batch["tensors"])
             with self._call("importance_batches"):
                 if self._cache is not None:
                     t = DC.with_features(self._cache, t)
-                acc = self._imp_step(acc, self.state.params,
-                                     self.state.proto, t)
+                acc = self._imp_step(acc, params, self.state.proto, t)
             n += 1
             if n >= cfg.train.fisher_batches:
                 break
-        self._reg = R.consolidate(self._reg, self.state.params, acc, n)
+        self._reg = R.consolidate(self._reg, params, acc, n)
         self._log(f"   {cfg.train.cl_reg} consolidated over {n} batches")
 
     # ------------------------------------------------------------------
     def predict(self, loader: BatchLoader) -> Dict[Any, str]:
         """Greedy generation over a loader → {question_id: answer string}
-        (vqacl.py:586-624).
+        (vqacl.py:586-624). Each rank answers its rows of every batch;
+        the ranks' dicts are then merged (``merge_quesid2ans``, the
+        reference's pickled all_gather at :613).
 
         Batch i+1 is dispatched before batch i's tokens are copied to the
         host. The parameters are cast to the compute dtype once per call
@@ -577,7 +655,7 @@ class VQACLTrainer:
         loader, and the eval step would otherwise cast every weight at
         each use. The outputs are the same."""
         t_start = time.perf_counter()
-        params = self.state.params
+        params = self._full_params()
         if self.dtype == torch.bfloat16:
             params = cast_params_for_inference(params, self.dtype)
         quesid2ans: Dict[Any, str] = {}
@@ -586,15 +664,18 @@ class VQACLTrainer:
         def drain(item):
             tokens, meta = item
             tokens = tokens.cpu().numpy()
-            n_real = meta["n_real"]
-            for qid, ans in zip(meta["question_ids"][:n_real],
+            # this rank's rows of the global batch, the real ones only
+            off = self.ctx.rank * len(tokens) if self.ctx.dp > 1 else 0
+            n_real = min(max(meta["n_real"] - off, 0), len(tokens))
+            for qid, ans in zip(meta["question_ids"][off:off + n_real],
                                 self.tok.batch_decode(tokens[:n_real])):
                 quesid2ans[qid] = ans
 
         for batch in loader:
             with self._call("predict_batches"):
-                tokens = self.eval_step(params, self.state.proto,
-                                        batch["tensors"])
+                tokens = self.eval_step(
+                    params, self.state.proto,
+                    shard_batch(self.ctx, batch["tensors"]))
             if pending is not None:
                 drain(pending)
             pending = (tokens, batch["meta"])
@@ -602,6 +683,8 @@ class VQACLTrainer:
             drain(pending)
         # the last copy waited for the card: every span so far has ended
         self._read_spans()
+        if process_count() > 1:
+            quesid2ans = merge_quesid2ans(quesid2ans)
         self.wall_s["predict"] += time.perf_counter() - t_start
         return quesid2ans
 
@@ -663,7 +746,9 @@ class VQACLTrainer:
 
     # ------------------------------------------------------------------
     def _write_log(self) -> None:
-        """Structured jsonl training log."""
+        """Structured jsonl training log (the main process's)."""
+        if not is_main_process():
+            return
         os.makedirs(self.cfg.output, exist_ok=True)
         path = os.path.join(self.cfg.output, "train_log.jsonl")
         with open(path, "w") as f:
@@ -681,5 +766,5 @@ class VQACLTrainer:
                     feat_dim=m.feat_dim)
 
     def _log(self, msg: str) -> None:
-        if self.verbose:
+        if self.verbose and is_main_process():
             print(msg, flush=True)

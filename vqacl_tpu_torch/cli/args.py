@@ -13,8 +13,10 @@ spelling and default. Two flags name the card instead of the TPU:
   on CUDA tensors, their plain versions on CPU tensors), ``off`` → False
   (the unfused attention).
 
-The mesh flags fill the config's placeholders; the trainer refuses
-values above one device.
+The mesh flags fill ``MeshConfig``: ``--mesh_dp`` (data parallel over
+the ranks ``torchrun`` starts), ``--param_layout`` ("replicated" or
+"fsdp"); tp and pp above 1 and the "tp" layout are refused (not ported
+yet).
 """
 
 from __future__ import annotations
@@ -47,7 +49,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="device feature-table storage: bf16 (bit-exact vs host pipeline), f32, or int8 (per-row symmetric quant, half the memory, <=0.4%% of row peak error)")
     p.add_argument("--device_cache_sharded", action="store_true",
                    help="row-shard the device feature table over the dp "
-                        "axis (refused: one device)")
+                        "ranks")
     # model
     p.add_argument("--backbone", default="t5-base")
     p.add_argument("--tokenizer", default=None,
@@ -136,7 +138,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--output", default="snap/vqacl")
     p.add_argument("--tiny_model", action="store_true",
                    help="scaled-down architecture (CI/e2e smoke)")
-    # placement (one device: values above 1 are refused by the trainer)
+    # placement (dp over the torchrun ranks; tp, pp > 1 are refused)
     p.add_argument("--mesh_dp", type=int, default=-1)
     p.add_argument("--mesh_tp", type=int, default=1)
     p.add_argument("--mesh_pp", type=int, default=1,

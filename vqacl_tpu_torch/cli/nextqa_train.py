@@ -7,9 +7,10 @@ nextqa/nextqa_CL.py).
         --seed 6666 --now_train --output snap/nextqa
 
 Runs on the CUDA card; ``--platform cpu`` runs the plain PyTorch path on
-the host. The CSV partitions and ``app_mot_*.h5`` features of
-``from_root`` need ``h5py``; ``NextQADataModule``'s constructor over
-tables does not.
+the host; ``torchrun --nproc_per_node=N ... --mesh_dp N`` runs data
+parallel, as ``cli/vqacl_train.py`` does. The CSV partitions and
+``app_mot_*.h5`` features of ``from_root`` need ``h5py``;
+``NextQADataModule``'s constructor over tables does not.
 """
 
 from __future__ import annotations
@@ -17,9 +18,8 @@ from __future__ import annotations
 import os
 import sys
 
-from vqacl_tpu_torch.cli.args import (install_cli_runtime, parse_config,
-                                      platform_device)
-from vqacl_tpu_torch.cli.vqacl_train import compute_dtype, run
+from vqacl_tpu_torch.cli.args import install_cli_runtime, parse_config
+from vqacl_tpu_torch.cli.vqacl_train import cli_mesh, compute_dtype, run
 from vqacl_tpu_torch.cl.comp_trainer import CompVQACLTrainer, comp_enabled
 from vqacl_tpu_torch.cl.trainer import VQACLTrainer
 from vqacl_tpu_torch.data.tokenizer import VLT5Tokenizer
@@ -49,7 +49,7 @@ def make_trainer(cfg, data=None):
     comp/noncomp tests per task iff comp_cate is a real group key
     (:421-423), so the shipped G-1 disables them."""
     cli = cfg._cli
-    device = platform_device(cli.platform)
+    ctx = cli_mesh(cfg)
     tok = VLT5Tokenizer(vocab_file=cli.tokenizer)
     if data is None:
         data = NextQADataModule.from_root(
@@ -58,7 +58,8 @@ def make_trainer(cfg, data=None):
                                             "add_reference_answer_test.json"))
     cls = CompVQACLTrainer if comp_enabled(cli.comp_cate, NEXTQA_SPLITS) \
         else VQACLTrainer
-    return cls(cfg, data, tok, device=device, dtype=compute_dtype(cfg))
+    return cls(cfg, data, tok, device=ctx.device, dtype=compute_dtype(cfg),
+               mesh_ctx=ctx)
 
 
 def main(argv=None):

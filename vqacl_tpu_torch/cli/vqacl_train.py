@@ -8,7 +8,11 @@ src/vqacl.py; comp variant: scripts/VQACL_COMP_train.sh → vqacl_comp.py).
 Runs on the CUDA card; ``--platform cpu`` runs the plain PyTorch path on
 the host. Eval-only (the reference's ``VQACL.sh`` without
 ``--now_train``): omit ``--now_train`` to run ``Test()`` over saved
-per-task checkpoints.
+per-task checkpoints. Data parallel over N ranks, one card each (NCCL;
+gloo on the CPU), as the reference's DDP launch:
+
+    torchrun --nproc_per_node=N -m vqacl_tpu_torch.cli.vqacl_train \
+        --mesh_dp N [--param_layout fsdp] [--device_cache_sharded] ...
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from vqacl_tpu_torch.cl.tasks import CATEGORY_SPLITS
 from vqacl_tpu_torch.cl.trainer import VQACLTrainer
 from vqacl_tpu_torch.data.tokenizer import VLT5Tokenizer
 from vqacl_tpu_torch.data.vqa_module import VQADataModule
+from vqacl_tpu_torch.parallel.mesh import make_mesh
 
 
 def compute_dtype(cfg) -> torch.dtype:
@@ -62,14 +67,23 @@ def load_backbone(cfg):
     return init_params
 
 
+def cli_mesh(cfg):
+    """The mesh of ``--mesh_dp/--mesh_tp/--mesh_pp`` (JAX's CLI calls
+    ``make_mesh`` the same way, vqacl_train.py:38) on the device of
+    ``--platform``: the card of this rank (``LOCAL_RANK``) or the CPU."""
+    device = platform_device(cfg._cli.platform)
+    return make_mesh(dp=cfg.mesh.dp, tp=cfg.mesh.tp, pp=cfg.mesh.pp,
+                     device=None if device.type == "cuda" else device)
+
+
 def make_trainer(cfg, data=None):
     """The trainer ``main`` runs, from a parsed config: the tokenizer of
     ``--tokenizer``, ``VQADataModule`` over ``--dataset_root`` (unless
     ``data`` is given), the backbone start, the class by
-    ``comp_enabled(comp_cate, CATEGORY_SPLITS)`` and the device of
-    ``--platform``."""
+    ``comp_enabled(comp_cate, CATEGORY_SPLITS)`` and the mesh
+    (``cli_mesh``) on the device of ``--platform``."""
     cli = cfg._cli
-    device = platform_device(cli.platform)
+    ctx = cli_mesh(cfg)
     tok = VLT5Tokenizer(vocab_file=cli.tokenizer)
     if data is None:
         data = VQADataModule(cfg.data.dataset_root, tok,
@@ -82,8 +96,8 @@ def make_trainer(cfg, data=None):
     init_params = load_backbone(cfg)
     cls = CompVQACLTrainer if comp_enabled(cli.comp_cate, CATEGORY_SPLITS) \
         else VQACLTrainer
-    return cls(cfg, data, tok, device=device, init_params=init_params,
-               dtype=compute_dtype(cfg))
+    return cls(cfg, data, tok, device=ctx.device, init_params=init_params,
+               dtype=compute_dtype(cfg), mesh_ctx=ctx)
 
 
 def run(trainer, cli):

@@ -174,7 +174,7 @@ bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
            T* __restrict__ dq, T* __restrict__ dk_out, T* __restrict__ dv,
            float* __restrict__ dbias_part, int Tq, int Sk, int H, int dk,
            int L, int ldq, int ldk, int ldv, int dropout, uint32_t thresh,
-           float keep_div) {
+           float keep_div, int bh0) {
   extern __shared__ float smem[];
   const int h = blockIdx.x;
   const int b = blockIdx.y;
@@ -214,7 +214,7 @@ bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float pij = pb[idx];
     sp[idx] = pij;
     if (dropout) {
-      const bool kp = philox::keep(s0, bh, i, j, thresh);
+      const bool kp = philox::keep(s0, bh0 + bh, i, j, thresh);
       skeep[idx] = kp;
       spd[idx] = kp ? pij / keep_div : 0.0f;
     } else {
@@ -298,7 +298,7 @@ cudaError_t launch_dbias_reduce(const float* part, float* dbias, int B,
 // The keep mask of every attention element, as K1' and K2 draw it.
 __global__ void keep_mask_kernel(const int* __restrict__ seed,
                                  uint8_t* __restrict__ out, int BH, int Tq,
-                                 int Sk, uint32_t thresh) {
+                                 int Sk, uint32_t thresh, int bh0) {
   const size_t n = (size_t)BH * Tq * Sk;
   const uint32_t s0 = (uint32_t)seed[0];
   for (size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x; idx < n;
@@ -306,7 +306,7 @@ __global__ void keep_mask_kernel(const int* __restrict__ seed,
     const int j = (int)(idx % Sk);
     const int i = (int)((idx / Sk) % Tq);
     const int bh = (int)(idx / ((size_t)Sk * Tq));
-    out[idx] = philox::keep(s0, bh, i, j, thresh);
+    out[idx] = philox::keep(s0, bh0 + bh, i, j, thresh);
   }
 }
 
@@ -316,7 +316,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    void* dq, void* dk_out, void* dv, float* dbias_part,
                    float* dbias, int B, int Tq, int Sk, int H, int dk, int L,
                    int ldq, int ldk, int ldv, int dropout, uint32_t thresh,
-                   float keep_div, cudaStream_t stream) {
+                   float keep_div, int bh0, cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * (2 * (size_t)Tq * (dk + 1) + 2 * (size_t)Sk * (dk + 1) +
                        2 * (size_t)Tq * Sk + (size_t)kWarps * Sk) +
@@ -332,7 +332,8 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), p, seed, static_cast<const T*>(dout),
       static_cast<T*>(dq), static_cast<T*>(dk_out), static_cast<T*>(dv),
-      dbias_part, Tq, Sk, H, dk, L, ldq, ldk, ldv, dropout, thresh, keep_div);
+      dbias_part, Tq, Sk, H, dk, L, ldq, ldk, ldv, dropout, thresh, keep_div,
+      bh0);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || L == 0) return err;
   return launch_dbias_reduce(dbias_part, dbias, B, H, L, stream);
@@ -396,6 +397,7 @@ struct BwdArgs {
   uint32_t thresh;
   float keep_div;     // 1 - rate: kept p and dp are divided by it
   float keep_rcp;     // 1 / keep_div, rounded to f32
+  int bh0;            // added to b*H + h in the Philox counter
   int heads;          // heads per unit, a divisor of H
   int groups;         // H / heads; unit u is batch row u / groups
   int kd;             // d / 16
@@ -557,7 +559,8 @@ bwd_mma_kernel(const __grid_constant__ BwdArgs a) {
       for (int nt = 0; nt < NT; ++nt) {
         if (n0 + nt * 8 >= a.Sk) continue;  // warp-uniform: p is 0 there
         const uint32_t keep =
-            philox::keep_nibble(s0, a.thresh, bh, r0, n0 + nt * 8 + c2);
+            philox::keep_nibble(s0, a.thresh, a.bh0 + bh, r0,
+                                n0 + nt * 8 + c2);
         kb |= keep << (4 * nt);
 #pragma unroll
         for (int e = 0; e < 4; ++e)
@@ -779,7 +782,8 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v,
                        void* dq, void* dk_out, void* dv, float* dbias_part,
                        float* dbias, int B, int Tq, int Sk, int H, int dk,
                        int L, int ldq, int ldk, int ldv, int dropout,
-                       uint32_t thresh, float keep_div, cudaStream_t stream) {
+                       uint32_t thresh, float keep_div, int bh0,
+                       cudaStream_t stream) {
   if (dk % 16 != 0 || dk < 16 || dk > 128 ||
       bwd_stage_bytes(1, Tq, Sk, dk) > kSmemLimit)
     return cudaErrorInvalidValue;
@@ -813,6 +817,7 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v,
   a.thresh = thresh;
   a.keep_div = keep_div;
   a.keep_rcp = 1.0f / keep_div;
+  a.bh0 = bh0;
   const bool one = Sk <= kKeyTile;
   const cudaError_t err =
       dk <= 64 ? (one ? launch_mma_instance<4, true>(a, B, stream)
@@ -831,13 +836,14 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v,
 // do is dense [B, Tq, H*dk]). p is f32 [B, H*Tq, Sk], seed a device int32
 // (read only when dropout is set), dbias_part f32 [B, H, L, L] scratch and
 // dbias f32 [H, L, L] (both unused when L == 0). Returns the first failing
-// cudaError_t of the two launches; 0 means both were accepted.
+// cudaError_t of the two launches; 0 means both were accepted. bh0, the
+// last argument, is added to b*H + h in the Philox counter, as K1' takes it.
 extern "C" int fused_attention_bwd_strided(
     const void* q, const void* k, const void* v, const void* p,
     const void* seed, const void* dout, void* dq, void* dk, void* dv,
     void* dbias_part, void* dbias, int B, int Tq, int Sk, int H, int dkv,
     int L, int ldq, int ldk, int ldv, int dtype, int dropout,
-    unsigned int thresh, float keep_div, void* stream) {
+    unsigned int thresh, float keep_div, void* stream, int bh0) {
   const float* p_f = static_cast<const float*>(p);
   const int* seed_i = static_cast<const int*>(seed);
   float* part = static_cast<float*>(dbias_part);
@@ -848,11 +854,11 @@ extern "C" int fused_attention_bwd_strided(
   if (dtype == 0)
     return (int)launch<float>(q, k, v, p_f, seed_i, dout, dq, dk, dv, part,
                               db, B, Tq, Sk, H, dkv, L, ldq, ldk, ldv,
-                              dropout, thresh, keep_div, s);
+                              dropout, thresh, keep_div, bh0, s);
   if (dtype == 1)
     return (int)launch_mma(q, k, v, p_f, seed_i, dout, dq, dk, dv, part, db,
                            B, Tq, Sk, H, dkv, L, ldq, ldk, ldv, dropout,
-                           thresh, keep_div, s);
+                           thresh, keep_div, bh0, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -865,22 +871,23 @@ extern "C" int fused_attention_bwd(const void* q, const void* k,
                                    int Tq, int Sk, int H, int dkv, int L,
                                    int dtype, int dropout,
                                    unsigned int thresh, float keep_div,
-                                   void* stream) {
+                                   void* stream, int bh0) {
   return fused_attention_bwd_strided(
       q, k, v, p, seed, dout, dq, dk, dv, dbias_part, dbias, B, Tq, Sk, H,
       dkv, L, H * dkv, H * dkv, H * dkv, dtype, dropout, thresh, keep_div,
-      stream);
+      stream, bh0);
 }
 
 // The Philox keep mask [BH, Tq, Sk] (uint8, 1 = kept) that K1' and K2
-// apply, for checking the PyTorch copy of the streams on the card.
+// apply, for checking the PyTorch copy of the streams on the card; row bh
+// takes the counter bh0 + bh.
 extern "C" int fused_attention_keep_mask(const void* seed, void* out, int BH,
                                          int Tq, int Sk, unsigned int thresh,
-                                         void* stream) {
+                                         void* stream, int bh0) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   keep_mask_kernel<<<1024, 256, 0, s>>>(static_cast<const int*>(seed),
                                         static_cast<uint8_t*>(out), BH, Tq, Sk,
-                                        thresh);
+                                        thresh, bh0);
   return (int)cudaGetLastError();
 }
 

@@ -193,7 +193,7 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
            const float* __restrict__ mask, T* __restrict__ o,
            int Tq, int Sk, int H, int dk, int L, int ldq, int ldk, int ldv,
            float* __restrict__ p_out, const int* __restrict__ seed,
-           int dropout, uint32_t thresh, float keep_div) {
+           int dropout, uint32_t thresh, float keep_div, int bh0) {
   extern __shared__ float smem[];
   const int h = blockIdx.x;
   const int b = blockIdx.y;
@@ -255,7 +255,8 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       if (kTrain) {
         p_out[((size_t)bh * Tq + i) * Sk + j] = pj;  // pre-dropout
         if (dropout)
-          pj = philox::keep(s0, bh, i, j, thresh) ? pj / keep_div : 0.0f;
+          pj = philox::keep(s0, bh0 + bh, i, j, thresh) ? pj / keep_div
+                                                        : 0.0f;
       }
       wp[j] = to_f32(from_f32<T>(pj));  // p cast to v's dtype
     }
@@ -276,7 +277,8 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    const float* bias, const float* mask, void* o, int B,
                    int Tq, int Sk, int H, int dk, int L, int ldq, int ldk,
                    int ldv, float* p, const int* seed, int dropout,
-                   uint32_t thresh, float keep_div, cudaStream_t stream) {
+                   uint32_t thresh, float keep_div, int bh0,
+                   cudaStream_t stream) {
   const size_t smem = sizeof(float) *
       ((size_t)Sk * (dk + 1) + (size_t)Sk * dk + Sk + (size_t)kWarps * dk +
        (size_t)kWarps * Sk);
@@ -290,7 +292,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   fwd_kernel<T, kTrain><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), bias, mask, static_cast<T*>(o), Tq, Sk, H, dk,
-      L, ldq, ldk, ldv, p, seed, dropout, thresh, keep_div);
+      L, ldq, ldk, ldv, p, seed, dropout, thresh, keep_div, bh0);
   return cudaGetLastError();
 }
 
@@ -331,6 +333,7 @@ struct MmaArgs {
   uint32_t thresh;
   float keep_div;     // 1 - rate: kept p is divided by it (`div_keep`)
   float keep_rcp;     // 1 / keep_div, rounded to f32
+  int bh0;            // added to b*H + h in the Philox counter
   int heads;          // heads per unit, a divisor of H
   int units;          // B * H / heads; unit u is batch row u / groups
   int groups;         // H / heads
@@ -456,7 +459,8 @@ fwd_mma_kernel(const __grid_constant__ MmaArgs a) {
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt)
       if (nt * 8 < a.Sk)
-        kb |= keep_nibble(s0, a.thresh, bh, r0, nt * 8 + c2) << (4 * nt);
+        kb |= keep_nibble(s0, a.thresh, a.bh0 + bh, r0, nt * 8 + c2)
+              << (4 * nt);
     return kb;
   };
 
@@ -610,7 +614,7 @@ fwd_mma_kernel(const __grid_constant__ MmaArgs a) {
           if (drop) {
             const uint32_t keep =
                 NT == 8 ? kb >> (4 * nt)
-                        : keep_nibble(s0, a.thresh, bh, r0, j);
+                        : keep_nibble(s0, a.thresh, a.bh0 + bh, r0, j);
 #pragma unroll
             for (int e = 0; e < 4; ++e)
               s[nt][e] = (keep >> e) & 1u
@@ -740,7 +744,8 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v,
                        const float* bias, const float* mask, void* o, int B,
                        int Tq, int Sk, int H, int dk, int L, int ldq, int ldk,
                        int ldv, float* p, const int* seed, int dropout,
-                       uint32_t thresh, float keep_div, cudaStream_t stream) {
+                       uint32_t thresh, float keep_div, int bh0,
+                       cudaStream_t stream) {
   if (dk % 16 != 0 || dk < 16 || dk > 128 ||
       mma_stage_bytes(1, Tq, Sk, dk) > kSmemLimit)
     return cudaErrorInvalidValue;
@@ -769,6 +774,7 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v,
   a.thresh = thresh;
   a.keep_div = keep_div;
   a.keep_rcp = 1.0f / keep_div;
+  a.bh0 = bh0;
   const bool wide = dk > 64;
   const bool long_keys = Sk > 64;
   if (!wide && !long_keys)
@@ -806,11 +812,11 @@ extern "C" int fused_attention_fwd_strided(const void* q, const void* k,
   if (dtype == 0)
     return (int)launch<float, false>(q, k, v, bias_f, mask_f, o, B, Tq, Sk, H,
                                      dk, L, ldq, ldk, ldv, nullptr, nullptr,
-                                     0, 0u, 1.0f, s);
+                                     0, 0u, 1.0f, 0, s);
   if (dtype == 1)
     return (int)launch_mma<false>(q, k, v, bias_f, mask_f, o, B, Tq, Sk, H,
                                   dk, L, ldq, ldk, ldv, nullptr, nullptr, 0,
-                                  0u, 1.0f, s);
+                                  0u, 1.0f, 0, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -828,12 +834,16 @@ extern "C" int fused_attention_fwd(const void* q, const void* k,
 // (pre-dropout). With dropout != 0, element (b, h, i, j) is kept when its
 // Philox bits (key seed[0], a device int32) are below `thresh`, and kept p
 // is divided by keep_div = 1 - rate (both computed by the wrapper as the
-// Pallas kernel does).
+// Pallas kernel does). bh0, the last argument, is added to b*H + h in the
+// Philox counter: a data-parallel rank passes rank * B * H, so its rows
+// draw the streams of rows rank*B .. rank*B + B-1 of a one-process call
+// over the whole batch (0: the one-process streams).
 extern "C" int fused_attention_fwd_train_strided(
     const void* q, const void* k, const void* v, const void* bias,
     const void* mask, const void* seed, void* o, void* p, int B, int Tq,
     int Sk, int H, int dk, int L, int ldq, int ldk, int ldv, int dtype,
-    int dropout, unsigned int thresh, float keep_div, void* stream) {
+    int dropout, unsigned int thresh, float keep_div, void* stream,
+    int bh0) {
   const float* bias_f = static_cast<const float*>(bias);
   const float* mask_f = static_cast<const float*>(mask);
   const int* seed_i = static_cast<const int*>(seed);
@@ -843,11 +853,11 @@ extern "C" int fused_attention_fwd_train_strided(
   if (dtype == 0)
     return (int)launch<float, true>(q, k, v, bias_f, mask_f, o, B, Tq, Sk, H,
                                     dk, L, ldq, ldk, ldv, p_f, seed_i,
-                                    dropout, thresh, keep_div, s);
+                                    dropout, thresh, keep_div, bh0, s);
   if (dtype == 1)
     return (int)launch_mma<true>(q, k, v, bias_f, mask_f, o, B, Tq, Sk, H, dk,
                                  L, ldq, ldk, ldv, p_f, seed_i, dropout,
-                                 thresh, keep_div, s);
+                                 thresh, keep_div, bh0, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -859,10 +869,10 @@ extern "C" int fused_attention_fwd_train(const void* q, const void* k,
                                          int Sk, int H, int dk, int L,
                                          int dtype, int dropout,
                                          unsigned int thresh, float keep_div,
-                                         void* stream) {
+                                         void* stream, int bh0) {
   return fused_attention_fwd_train_strided(
       q, k, v, bias, mask, seed, o, p, B, Tq, Sk, H, dk, L, H * dk, H * dk,
-      H * dk, dtype, dropout, thresh, keep_div, stream);
+      H * dk, dtype, dropout, thresh, keep_div, stream, bh0);
 }
 
 // Message for a cudaError_t returned above.

@@ -12,9 +12,13 @@ hierarchy.
 
 The gather is plain PyTorch (``index_select``): in the JAX package it is
 ``jnp.take`` under ``jit``, not a Pallas kernel. The table is converted
-on the host and copied to the device once. ``shard=True`` (the table
-row-sharded over a dp mesh) comes with the parallel slice and raises
-``ValueError`` until then.
+on the host and copied to the device once. ``shard=True`` row-shards the
+table over a data-parallel mesh, as JAX does: padded to a multiple of
+dp, rank r holds rows [r·n/dp, (r+1)·n/dp). A lookup then gathers the
+global batch's slots, fills the rows whose slots this rank holds (in the
+table's own type, with int8 scales and boxes), combines them over the
+ranks bit for bit in one ``all_reduce`` and keeps this rank's rows
+(``lookup_bytes`` counts that buffer's bytes over ``lookups`` calls).
 """
 
 from __future__ import annotations
@@ -72,10 +76,10 @@ class DeviceFeatureCache:
 
     def __init__(self, feats: np.ndarray, boxes: np.ndarray, device="cuda",
                  shard: bool = False, feat_dtype=torch.bfloat16,
-                 scales: Optional[np.ndarray] = None):
-        if shard:
-            raise ValueError("a sharded device cache needs a mesh: it comes "
-                             "with the parallel slice")
+                 scales: Optional[np.ndarray] = None, mesh_ctx=None):
+        if shard and mesh_ctx is None:
+            raise ValueError("a sharded device cache needs a mesh "
+                             "(mesh_ctx)")
         if feat_dtype not in DTYPES.values():
             raise ValueError(f"feat_dtype {feat_dtype}: pick from "
                              f"{list(DTYPES.values())}")
@@ -100,16 +104,40 @@ class DeviceFeatureCache:
                                 else _to_bf16_fast(feats))
         else:
             host = torch.from_numpy(np.ascontiguousarray(feats, np.float32))
+        boxes = torch.from_numpy(np.ascontiguousarray(boxes, np.float32))
+        if feat_dtype == torch.int8:
+            scales = torch.from_numpy(np.ascontiguousarray(scales,
+                                                           np.float32))
+        self.ctx = mesh_ctx if shard else None
+        self.row0, self.rows = 0, self.n
+        self.lookup_bytes = 0
+        self.lookups = 0
+        if shard:
+            # pad to a multiple of dp (zeros; scales 1), keep this rank's
+            # block of rows
+            dp = mesh_ctx.dp
+            pad = (-self.n) % dp
+            self.rows = (self.n + pad) // dp
+            self.row0 = mesh_ctx.rank * self.rows
+
+            def block(t, fill):
+                if pad:
+                    t = torch.cat([t, torch.full((pad,) + tuple(t.shape[1:]),
+                                                 fill, dtype=t.dtype)])
+                return t[self.row0:self.row0 + self.rows]
+
+            host, boxes = block(host, 0), block(boxes, 0)
+            if feat_dtype == torch.int8:
+                scales = block(scales, 1)
         self.feats = host.to(self.device)
-        self.boxes = torch.from_numpy(
-            np.ascontiguousarray(boxes, np.float32)).to(self.device)
+        self.boxes = boxes.to(self.device)
         self.scales = None if feat_dtype != torch.int8 else \
-            torch.from_numpy(np.ascontiguousarray(scales, np.float32)).to(
-                self.device)
+            scales.to(self.device)
 
     @property
     def nbytes(self) -> int:
-        """Bytes of the table on the device (features, scales, boxes)."""
+        """Bytes of the table on the device (features, scales, boxes): this
+    rank's block when sharded."""
         return sum(t.numel() * t.element_size()
                    for t in (self.feats, self.scales, self.boxes)
                    if t is not None)
@@ -117,10 +145,14 @@ class DeviceFeatureCache:
     def lookup(self, slots) -> Tuple[torch.Tensor, torch.Tensor]:
         """slots [B] int (numpy or tensor) → (feats [B, n_boxes,
         feat_dim] f32, boxes [B, n_boxes, 4] f32) on the device; slot −1
-        and out-of-range slots give zeros (the collator's pad rows)."""
+        and out-of-range slots give zeros (the collator's pad rows). On a
+        sharded table every rank must look up together (``slots`` its
+        rows of the global batch)."""
         if isinstance(slots, np.ndarray):
             slots = torch.from_numpy(slots)
         slots = slots.to(self.device, non_blocking=True)
+        if self.ctx is not None:
+            return self._lookup_sharded(slots)
         valid = ((slots >= 0) & (slots < self.n))[:, None, None]
         idx = slots.clamp(0, self.n - 1).long()
         f = self.feats.index_select(0, idx).float()
@@ -130,9 +162,37 @@ class DeviceFeatureCache:
         return (torch.where(valid, f, torch.zeros_like(f)),
                 torch.where(valid, b, torch.zeros_like(b)))
 
+    def _lookup_sharded(self, slots: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``lookup`` on a row-sharded table: every rank fills the
+        global batch's rows whose slots it holds, one ``combine_all``
+        joins them, each rank keeps its own rows."""
+        ctx = self.ctx
+        B = slots.shape[0]
+        g = ctx.gather_rows(slots.to(torch.int32))              # [dp·B]
+        local = g.long() - self.row0
+        own = ((g >= 0) & (g < self.n) & (local >= 0)
+               & (local < self.rows))[:, None, None]
+        idx = local.clamp(0, self.rows - 1)
+        parts = [self.feats.index_select(0, idx), self.boxes.index_select(0,
+                                                                          idx)]
+        if self.scales is not None:
+            parts.append(self.scales.index_select(0, idx)[..., None])
+        parts = [torch.where(own, t, torch.zeros_like(t)) for t in parts]
+        self.lookup_bytes += sum(-(-t.numel() * t.element_size() // 16) * 16
+                                 for t in parts)
+        self.lookups += 1
+        mine = slice(ctx.rank * B, (ctx.rank + 1) * B)
+        parts = [t[mine] for t in ctx.combine_all(parts)]
+        f = parts[0].float()
+        if self.scales is not None:
+            f = f * parts[2]
+        return f, parts[1]
+
     @classmethod
     def from_store(cls, store, img_ids: Sequence[str], device="cuda",
-                   shard: bool = False, feat_dtype=torch.bfloat16
+                   shard: bool = False, feat_dtype=torch.bfloat16,
+                   mesh_ctx=None
                    ) -> Tuple["DeviceFeatureCache", Dict[str, int]]:
         """Build from a host feature store → (cache, {img_id: slot}). The
         host table is allocated once in the table's type and filled per
@@ -157,7 +217,8 @@ class DeviceFeatureCache:
             boxes[i] = b
             slot_of[img] = i
         return cls(feats, boxes, device=device, shard=shard,
-                   feat_dtype=feat_dtype, scales=scales), slot_of
+                   feat_dtype=feat_dtype, scales=scales,
+                   mesh_ctx=mesh_ctx), slot_of
 
 
 def with_features(cache: DeviceFeatureCache, batch: Dict) -> Dict:

@@ -7,7 +7,11 @@ the JAX orientation ``[in, out]`` and applied as ``x @ W``.
 Dropout follows the JAX placement (attention weights, MLP hidden, each
 residual branch, stack input and output). A ``generator`` argument
 (``torch.Generator`` on the tensors' device) turns it on; ``None`` is
-the deterministic path, as JAX's ``deterministic=True``.
+the deterministic path, as JAX's ``deterministic=True``. Under a
+data-parallel mesh (``parallel.mesh.data_parallel``) each mask is drawn
+at the global batch's shape and this rank keeps its rows, and the fused
+attention takes this rank's Philox row offset, so every rank's generator
+stays in step and the ranks together draw a one-process step's masks.
 
 T5 specifics kept: RMS layer norm without mean or bias (variance in
 f32), unscaled dot-product attention with f32 scores and softmax, the
@@ -24,6 +28,8 @@ import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+
+from vqacl_tpu_torch.parallel.mesh import active, row_offset
 
 Params = Dict[str, Any]
 
@@ -42,11 +48,18 @@ def layer_norm(w: torch.Tensor, x: torch.Tensor, eps: float) -> torch.Tensor:
 def dropout(x: torch.Tensor, rate: float,
             generator: Optional[torch.Generator]) -> torch.Tensor:
     """Keep each element with probability 1 − rate and scale kept ones
-    by 1/(1 − rate); the identity without a generator or at rate 0."""
+    by 1/(1 − rate); the identity without a generator or at rate 0.
+    Under an active data-parallel mesh the draw covers the global batch
+    (x's rows on every rank) and this rank keeps its own rows."""
     if generator is None or rate == 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) \
+    ctx = active()
+    B = x.shape[0]
+    shape = x.shape if ctx is None else (ctx.dp * B,) + tuple(x.shape[1:])
+    keep = torch.rand(shape, generator=generator, device=x.device) \
         < (1.0 - rate)
+    if ctx is not None:
+        keep = keep[ctx.rank * B:(ctx.rank + 1) * B]
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
@@ -323,17 +336,19 @@ def encoder_block_fused(p: Params, cfg, x: torch.Tensor,
     h = layer_norm(p["ln1"], x, cfg.layer_norm_epsilon)
     dt = h.dtype
     B, S, _ = h.shape
+    bh0 = row_offset(B) * cfg.num_heads
     a = p["attn"]
     if merged_qkv(cfg):
         o = fused_encoder_attention_merged(
             qkv_proj_merged_flat(a, h), pos_bias, mask, cfg.num_heads,
-            dropout_rate=attn_rate, seed=seed)
+            dropout_rate=attn_rate, seed=seed, bh0=bh0)
     else:
         q = (h @ a["wq"].to(dt)).reshape(B, S, cfg.num_heads, cfg.d_kv)
         k = (h @ a["wk"].to(dt)).reshape(B, S, cfg.num_heads, cfg.d_kv)
         v = (h @ a["wv"].to(dt)).reshape(B, S, cfg.num_heads, cfg.d_kv)
         o = fused_encoder_attention(q, k, v, pos_bias, mask,
-                                    dropout_rate=attn_rate, seed=seed)
+                                    dropout_rate=attn_rate, seed=seed,
+                                    bh0=bh0)
     x = x + dropout(o @ a["wo"].to(dt), rate, generator)
     h = layer_norm(p["ln2"], x, cfg.layer_norm_epsilon)
     m = mlp_apply(p["mlp"], h, cfg.feed_forward_proj, rate, generator)
@@ -344,7 +359,8 @@ def _layer_seeds(n: int, generator: Optional[torch.Generator]
                  ) -> Optional[torch.Tensor]:
     """n int32 dropout seeds for the fused attention, drawn from
     ``generator`` on its device (no host round trip); None without a
-    generator."""
+    generator. Every data-parallel rank draws the same seeds: the ranks
+    differ by the kernels' Philox row offset, not by seed."""
     if generator is None:
         return None
     return torch.randint(0, 2 ** 31 - 1, (n,), generator=generator,
@@ -436,6 +452,7 @@ def decoder_block_fused(p: Params, cfg, x: torch.Tensor,
     merged = merged_qkv(cfg)
     H, dkv = cfg.num_heads, cfg.d_kv
     B, T, _ = x.shape
+    bh0 = row_offset(B) * H
     dt = x.dtype
     s_self = None if seeds is None else seeds[0:1]
     s_cross = None if seeds is None else seeds[1:2]
@@ -446,13 +463,14 @@ def decoder_block_fused(p: Params, cfg, x: torch.Tensor,
     if merged:
         o = fused_encoder_attention_merged(
             qkv_proj_merged_flat(a, h), self_bias, ones, H,
-            dropout_rate=attn_rate, seed=s_self)
+            dropout_rate=attn_rate, seed=s_self, bh0=bh0)
     else:
         q = (h @ a["wq"].to(dt)).reshape(B, T, H, dkv)
         k = (h @ a["wk"].to(dt)).reshape(B, T, H, dkv)
         v = (h @ a["wv"].to(dt)).reshape(B, T, H, dkv)
         o = fused_encoder_attention(q, k, v, self_bias, ones,
-                                    dropout_rate=attn_rate, seed=s_self)
+                                    dropout_rate=attn_rate, seed=s_self,
+                                    bh0=bh0)
     x = x + dropout(o @ a["wo"].to(dt), rate, generator)
 
     h = layer_norm(p["ln2"], x, cfg.layer_norm_epsilon)
@@ -462,12 +480,13 @@ def decoder_block_fused(p: Params, cfg, x: torch.Tensor,
     if merged:
         oc = fused_cross_attention_merged(
             qc, kv_proj_merged_flat(c, enc_states), enc_mask,
-            dropout_rate=attn_rate, seed=s_cross)
+            dropout_rate=attn_rate, seed=s_cross, bh0=bh0)
     else:
         kc = (enc_states @ c["wk"].to(dt)).reshape(B, S, H, dkv)
         vc = (enc_states @ c["wv"].to(dt)).reshape(B, S, H, dkv)
         oc = fused_cross_attention(qc, kc, vc, enc_mask,
-                                   dropout_rate=attn_rate, seed=s_cross)
+                                   dropout_rate=attn_rate, seed=s_cross,
+                                   bh0=bh0)
     x = x + dropout(oc @ c["wo"].to(dt), rate, generator)
 
     h = layer_norm(p["ln3"], x, cfg.layer_norm_epsilon)

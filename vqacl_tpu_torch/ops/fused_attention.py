@@ -32,8 +32,12 @@ the same stream in PyTorch) fall below ``uint32((1−rate)·(2³²−1))``, the
 Pallas kernel's rule, and scales kept p by 1/(1−rate). The TPU's own
 random bits cannot be reproduced, so parity with JAX holds at rate 0.
 
-``_FusedAttention`` is the custom VJP (K3, single device): its forward
-runs K1′ and saves p and the seed, its backward runs K2;
+``_FusedAttention`` is the custom VJP (K3): its forward runs K1′ and
+saves p, the seed and the Philox row offset ``bh0``, its backward runs
+K2. K3's mesh path is that offset: a data-parallel rank r over B rows
+passes bh0 = r·B·H, so its rows draw the dropout streams of rows
+r·B … r·B + B − 1 of a one-process call (JAX's shard_map path shifts the
+seed instead, ``vqacl_tpu/ops/fused_attention.py:490-495``);
 ``_FusedAttentionPacked`` is its variant over merged projection outputs
 (``fused_attention_packed``), whose backward returns one gradient buffer
 of the packed layout. Dispatch in
@@ -43,7 +47,8 @@ inference-only (``dropout_rate > 0`` raises there). Each wrapper takes
 its plain PyTorch version (``*_reference``) for CPU tensors, so the CPU
 tests run the same autograd logic; on CUDA tensors it launches its
 kernel or raises, and counts the launch in ``<wrapper>.launches`` (and,
-when an operand is strided, in ``<wrapper>.strided_launches``). Strided
+when an operand is strided, in ``<wrapper>.strided_launches``; K1′ and
+K2 launched with a row offset ``bh0`` ≠ 0 also in ``.offset_launches``). Strided
 calls go to the ``*_strided`` C entries; dense ones keep the original
 entries, which pass the stride H·dk.
 """
@@ -85,15 +90,18 @@ def philox4x32_10(c0, c1, c2, c3, k0, k1):
 
 
 def philox_keep_mask(seed: torch.Tensor, B: int, H: int, Tq: int, Sk: int,
-                     rate: float) -> torch.Tensor:
+                     rate: float, bh0: int = 0) -> torch.Tensor:
     """The keep mask [B,H,Tq,Sk] (bool) that K1′ and K2 apply: key
-    (seed, 0), counter (j // 4, i, b·H + h, 0), word j % 4."""
+    (seed, 0), counter (j // 4, i, bh0 + b·H + h, 0), word j % 4. A
+    data-parallel rank r of B rows passes bh0 = r·B·H and draws rows
+    r·B … r·B + B − 1 of the one-process mask."""
     dev = seed.device
     J = (Sk + 3) // 4
     i64 = torch.int64
     c0 = torch.arange(J, dtype=i64, device=dev).view(1, 1, J)
     c1 = torch.arange(Tq, dtype=i64, device=dev).view(1, Tq, 1)
-    c2 = torch.arange(B * H, dtype=i64, device=dev).view(B * H, 1, 1)
+    c2 = torch.arange(bh0, bh0 + B * H, dtype=i64,
+                      device=dev).view(B * H, 1, 1)
     shape = (B * H, Tq, J)
     c0, c1, c2 = (c.expand(shape) for c in (c0, c1, c2))
     c3 = torch.zeros(shape, dtype=i64, device=dev)
@@ -154,8 +162,8 @@ def fused_attention_reference(q: torch.Tensor, k: torch.Tensor,
 def fused_attention_fwd_train_reference(
         q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         bias: Optional[torch.Tensor], mask: torch.Tensor,
-        seed: torch.Tensor, num_heads: int, dropout_rate: float
-) -> Tuple[torch.Tensor, torch.Tensor]:
+        seed: torch.Tensor, num_heads: int, dropout_rate: float,
+        bh0: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of K1′ → (o [B,Tq,H·dk] in q's dtype,
     pre-dropout p [B,H·Tq,Sk] f32)."""
     B, Tq, _ = q.shape
@@ -164,7 +172,7 @@ def fused_attention_fwd_train_reference(
     p = _probs(q, k, bias, mask, H)
     pd = p
     if dropout_rate > 0.0:
-        keep = philox_keep_mask(seed, B, H, Tq, Sk, dropout_rate)
+        keep = philox_keep_mask(seed, B, H, Tq, Sk, dropout_rate, bh0)
         pd = torch.where(keep, p / _keep_div(dropout_rate, p.device), 0.0)
     o = pd.to(v.dtype).float() @ _heads(v, H).float()
     return _merge(o).to(q.dtype), p.reshape(B, H * Tq, Sk)
@@ -173,7 +181,7 @@ def fused_attention_fwd_train_reference(
 def fused_attention_bwd_reference(
         q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, p: torch.Tensor,
         seed: torch.Tensor, do: torch.Tensor, num_heads: int, L: int,
-        dropout_rate: float
+        dropout_rate: float, bh0: int = 0
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """Plain PyTorch version of K2 → (dq, dk, dv in q's dtype, dbias
     [H,L,L] f32, or None when L = 0)."""
@@ -184,7 +192,7 @@ def fused_attention_bwd_reference(
     p = p.reshape(B, H, Tq, Sk)
     pd = p
     if dropout_rate > 0.0:
-        keep = philox_keep_mask(seed, B, H, Tq, Sk, dropout_rate)
+        keep = philox_keep_mask(seed, B, H, Tq, Sk, dropout_rate, bh0)
         kd = _keep_div(dropout_rate, p.device)
         pd = torch.where(keep, p / kd, 0.0)
     dv = pd.transpose(-1, -2) @ doh
@@ -427,13 +435,15 @@ def _launch_k1(q, k, v, bias, mask, num_heads) -> torch.Tensor:
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     bias: Optional[torch.Tensor], mask: torch.Tensor,
                     num_heads: int, dropout_rate: float = 0.0,
-                    seed: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    seed: Optional[torch.Tensor] = None,
+                    bh0: int = 0) -> torch.Tensor:
     """q [B,Tq,H·dk], k/v [B,Sk,H·dk] (f32 or bf16, one dtype; dense, or
     column slices of a wider projection output, whose row stride the
     kernels take: ``_row_stride``); bias [H,L,L] f32 covering the first L
     positions, or None; mask [B,Sk] (1 = attend); seed int32 [1] on q's
-    device (the layer's dropout stream; zeros when None) → [B,Tq,H·dk] in
-    q's dtype.
+    device (the layer's dropout stream; zeros when None); bh0 the Philox
+    row offset of this call's first (batch, head) (``philox_keep_mask``;
+    a data-parallel rank's) → [B,Tq,H·dk] in q's dtype.
 
     Differentiable calls go through K1′/K2; others run K1 (counted in
     ``fused_attention.launches``, and those on strided operands also in
@@ -443,7 +453,7 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if seed is None:
             seed = torch.zeros((1,), dtype=torch.int32, device=q.device)
         return _FusedAttention.apply(q, k, v, bias, mask, seed, num_heads,
-                                     float(dropout_rate))
+                                     float(dropout_rate), int(bh0))
     if dropout_rate > 0.0:
         raise NotImplementedError(
             "fused_attention: the inference kernel takes no dropout; "
@@ -460,14 +470,15 @@ fused_attention.strided_launches = 0
 def fused_attention_fwd_train(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, bias: Optional[torch.Tensor],
                               mask: torch.Tensor, seed: torch.Tensor,
-                              num_heads: int, dropout_rate: float
+                              num_heads: int, dropout_rate: float,
+                              bh0: int = 0
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K1′ → (o [B,Tq,H·dk] in q's dtype, pre-dropout p [B,H·Tq,Sk] f32).
-    q, k and v as in ``fused_attention``; launches on strided operands
-    are also counted in ``strided_launches``."""
+    q, k, v and bh0 as in ``fused_attention``; launches on strided
+    operands are also counted in ``strided_launches``."""
     if q.device.type == "cpu":
         return fused_attention_fwd_train_reference(
-            q, k, v, bias, mask, seed, num_heads, dropout_rate)
+            q, k, v, bias, mask, seed, num_heads, dropout_rate, bh0)
     from vqacl_tpu_torch.ops import _build
 
     B, Tq, Sk, dk = _validate_fwd(q, k, v, num_heads, (seed,))
@@ -485,7 +496,7 @@ def fused_attention_fwd_train(q: torch.Tensor, k: torch.Tensor,
             o.data_ptr(), p.data_ptr(), B, Tq, Sk, num_heads, dk, L)
     tail = (_DTYPE_CODE[q.dtype], int(drop),
             dropout_threshold(dropout_rate) if drop else 0,
-            1.0 - dropout_rate, _stream(q))
+            1.0 - dropout_rate, _stream(q), int(bh0))
     if strided:
         err = lib.fused_attention_fwd_train_strided(*head, *lds, *tail)
     else:
@@ -494,11 +505,13 @@ def fused_attention_fwd_train(q: torch.Tensor, k: torch.Tensor,
               "fused_attention_error_string")
     fused_attention_fwd_train.launches += 1
     fused_attention_fwd_train.strided_launches += strided
+    fused_attention_fwd_train.offset_launches += bh0 != 0
     return o, p
 
 
 fused_attention_fwd_train.launches = 0
 fused_attention_fwd_train.strided_launches = 0
+fused_attention_fwd_train.offset_launches = 0
 
 
 def _rows_like(t: torch.Tensor, ld: int) -> torch.Tensor:
@@ -514,12 +527,13 @@ def fused_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         do: torch.Tensor, num_heads: int, L: int,
                         dropout_rate: float,
                         out: Optional[Tuple[torch.Tensor, torch.Tensor,
-                                            torch.Tensor]] = None
+                                            torch.Tensor]] = None,
+                        bh0: int = 0
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                                    Optional[torch.Tensor]]:
     """K2 → (dq, dk, dv in q's dtype, dbias [H,L,L] f32 or None if L=0).
 
-    q, k and v as in ``fused_attention`` (do dense [B,Tq,H·dk]); dq, dk
+    q, k, v and bh0 as in ``fused_attention`` (do dense [B,Tq,H·dk]); dq, dk
     and dv are written as rows of their input's stride: into ``out``
     (three tensors of that layout, e.g. the slices of one merged gradient
     buffer) or, without it, into new buffers of that layout. Launches on
@@ -534,7 +548,7 @@ def fused_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                  f"and row stride")
     if q.device.type == "cpu":
         dq, dk_, dv, dbias = fused_attention_bwd_reference(
-            q, k, v, p, seed, do, num_heads, L, dropout_rate)
+            q, k, v, p, seed, do, num_heads, L, dropout_rate, bh0)
         if out is None:
             return dq, dk_, dv, dbias
         for g, r in zip(out, (dq, dk_, dv)):
@@ -572,7 +586,7 @@ def fused_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             dbias.data_ptr() if L else None, B, Tq, Sk, H, dk, L)
     tail = (_DTYPE_CODE[q.dtype], int(drop),
             dropout_threshold(dropout_rate) if drop else 0,
-            1.0 - dropout_rate, _stream(q))
+            1.0 - dropout_rate, _stream(q), int(bh0))
     if strided:
         err = lib.fused_attention_bwd_strided(*head, *lds, *tail)
     else:
@@ -581,17 +595,21 @@ def fused_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               "fused_attention_bwd_error_string")
     fused_attention_bwd.launches += 1
     fused_attention_bwd.strided_launches += strided
+    fused_attention_bwd.offset_launches += bh0 != 0
     return dq, dk_, dv, dbias
 
 
 fused_attention_bwd.launches = 0
 fused_attention_bwd.strided_launches = 0
+fused_attention_bwd.offset_launches = 0
 
 
 def fused_attention_keep_mask(seed: torch.Tensor, B: int, H: int, Tq: int,
-                              Sk: int, rate: float) -> torch.Tensor:
-    """The keep mask [B,H,Tq,Sk] (bool) as the CUDA kernels draw it, for
-    holding ``philox_keep_mask`` against them on the card."""
+                              Sk: int, rate: float, bh0: int = 0
+                              ) -> torch.Tensor:
+    """The keep mask [B,H,Tq,Sk] (bool) as the CUDA kernels draw it, from
+    Philox row bh0 on, for holding ``philox_keep_mask`` against them on
+    the card."""
     from vqacl_tpu_torch.ops import _build
 
     if seed.device.type != "cuda":
@@ -602,27 +620,30 @@ def fused_attention_keep_mask(seed: torch.Tensor, B: int, H: int, Tq: int,
     err = lib.fused_attention_keep_mask(seed.data_ptr(), out.data_ptr(),
                                         B * H, Tq, Sk,
                                         dropout_threshold(rate),
-                                        _stream(seed))
+                                        _stream(seed), int(bh0))
     _raise_on(err, lib, "fused_attention_keep_mask",
               "fused_attention_bwd_error_string")
     return out.bool()
 
 
 class _FusedAttention(torch.autograd.Function):
-    """The custom VJP (K3 on one device): forward through K1′, which
-    saves p; backward through K2, which regenerates the keep mask from
-    the saved seed."""
+    """The custom VJP (K3): forward through K1′, which saves p; backward
+    through K2, which regenerates the keep mask from the saved seed and
+    Philox row offset ``bh0`` (K3's mesh path: a data-parallel rank's
+    ``rank·B·H``, so that its rows draw a one-process call's streams)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, mask, seed, num_heads, dropout_rate):
+    def forward(ctx, q, k, v, bias, mask, seed, num_heads, dropout_rate,
+                bh0=0):
         if q.device.type == "cuda":    # refuse before K1′ launches
             bwd_route(q.dtype, q.shape[-1] // num_heads, q.shape[1],
                       k.shape[1], dropout_rate)
         o, p = fused_attention_fwd_train(q, k, v, bias, mask, seed,
-                                         num_heads, dropout_rate)
+                                         num_heads, dropout_rate, bh0)
         ctx.save_for_backward(q, k, v, p, seed)
         ctx.num_heads = num_heads
         ctx.dropout_rate = dropout_rate
+        ctx.bh0 = bh0
         ctx.L = 0 if bias is None else bias.shape[-1]
         return o
 
@@ -631,8 +652,8 @@ class _FusedAttention(torch.autograd.Function):
         q, k, v, p, seed = ctx.saved_tensors
         dq, dk, dv, dbias = fused_attention_bwd(
             q, k, v, p, seed, do.contiguous(), ctx.num_heads, ctx.L,
-            ctx.dropout_rate)
-        return dq, dk, dv, dbias, None, None, None, None
+            ctx.dropout_rate, bh0=ctx.bh0)
+        return dq, dk, dv, dbias, None, None, None, None, None
 
 
 def _unpack(x: torch.Tensor, kv: Optional[torch.Tensor]):
@@ -663,16 +684,18 @@ class _FusedAttentionPacked(torch.autograd.Function):
     gradient from three zero-filled slice gradients summed.)"""
 
     @staticmethod
-    def forward(ctx, x, kv, bias, mask, seed, num_heads, dropout_rate):
+    def forward(ctx, x, kv, bias, mask, seed, num_heads, dropout_rate,
+                bh0=0):
         q, k, v = _unpack(x, kv)
         if q.device.type == "cuda":    # refuse before K1′ launches
             bwd_route(q.dtype, q.shape[-1] // num_heads, q.shape[1],
                       k.shape[1], dropout_rate)
         o, p = fused_attention_fwd_train(q, k, v, bias, mask, seed,
-                                         num_heads, dropout_rate)
+                                         num_heads, dropout_rate, bh0)
         ctx.save_for_backward(x, kv, p, seed)
         ctx.num_heads = num_heads
         ctx.dropout_rate = dropout_rate
+        ctx.bh0 = bh0
         ctx.L = 0 if bias is None else bias.shape[-1]
         return o
 
@@ -683,15 +706,15 @@ class _FusedAttentionPacked(torch.autograd.Function):
         dkv = None if kv is None else torch.empty_like(kv)   # checks x, kv
         *_, dbias = fused_attention_bwd(
             *_unpack(x, kv), p, seed, do.contiguous(), ctx.num_heads, ctx.L,
-            ctx.dropout_rate, out=_unpack(dx, dkv))
-        return dx, dkv, dbias, None, None, None, None
+            ctx.dropout_rate, out=_unpack(dx, dkv), bh0=ctx.bh0)
+        return dx, dkv, dbias, None, None, None, None, None
 
 
 def fused_attention_packed(x: torch.Tensor, kv: Optional[torch.Tensor],
                            bias: Optional[torch.Tensor], mask: torch.Tensor,
                            num_heads: int, dropout_rate: float = 0.0,
-                           seed: Optional[torch.Tensor] = None
-                           ) -> torch.Tensor:
+                           seed: Optional[torch.Tensor] = None,
+                           bh0: int = 0) -> torch.Tensor:
     """``fused_attention`` on packed projection outputs (``_unpack``: x =
     q|k|v [B,S,3·H·dk], or x = q [B,Tq,H·dk] with kv = k|v [B,Sk,2·H·dk];
     each dense) → [B,Tq,H·dk]. Differentiable calls go through
@@ -705,9 +728,10 @@ def fused_attention_packed(x: torch.Tensor, kv: Optional[torch.Tensor],
         if seed is None:
             seed = torch.zeros((1,), dtype=torch.int32, device=x.device)
         return _FusedAttentionPacked.apply(x, kv, bias, mask, seed,
-                                           num_heads, float(dropout_rate))
+                                           num_heads, float(dropout_rate),
+                                           int(bh0))
     return fused_attention(*_unpack(x, kv), bias, mask, num_heads,
-                           dropout_rate=dropout_rate, seed=seed)
+                           dropout_rate=dropout_rate, seed=seed, bh0=bh0)
 
 
 def _bias_block(pos_bias: Optional[torch.Tensor], q: torch.Tensor,
@@ -725,10 +749,11 @@ def _bias_block(pos_bias: Optional[torch.Tensor], q: torch.Tensor,
 def _fused_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                pos_bias: Optional[torch.Tensor], mask: torch.Tensor,
                dropout_rate: float = 0.0,
-               seed: Optional[torch.Tensor] = None) -> torch.Tensor:
+               seed: Optional[torch.Tensor] = None,
+               bh0: int = 0) -> torch.Tensor:
     """q [B,Tq,H,dk], k/v [B,Sk,H,dk] (the projection outputs, reshaped
     flat without a copy); pos_bias [H,L,L] or None; mask [B,Sk]; seed
-    int32 [1] → [B,Tq,H·dk]. The JAX wrapper pads to a multiple of 8 for
+    int32 [1]; bh0 the Philox row offset → [B,Tq,H·dk]. The JAX wrapper pads to a multiple of 8 for
     the TPU's tiling; the CUDA kernels handle ragged lengths themselves,
     so nothing is padded here (padded keys are masked, so the result is
     the same)."""
@@ -737,51 +762,53 @@ def _fused_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     bias = _bias_block(pos_bias, q, k)
     return fused_attention(q.reshape(B, Tq, H * dk), k.reshape(B, Sk, H * dk),
                            v.reshape(B, Sk, H * dk), bias, mask, H,
-                           dropout_rate=dropout_rate, seed=seed)
+                           dropout_rate=dropout_rate, seed=seed, bh0=bh0)
 
 
 def fused_encoder_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             pos_bias: torch.Tensor, mask: torch.Tensor,
                             dropout_rate: float = 0.0,
-                            seed: Optional[torch.Tensor] = None
-                            ) -> torch.Tensor:
+                            seed: Optional[torch.Tensor] = None,
+                            bh0: int = 0) -> torch.Tensor:
     """Self-attention: q/k/v [B,S,H,dk], pos_bias [H,L,L] f32 covering the
-    first L positions, mask [B,S], seed int32 [1] → [B,S,H·dk]."""
+    first L positions, mask [B,S], seed int32 [1], bh0 the Philox row
+    offset → [B,S,H·dk]."""
     return _fused_mha(q, k, v, pos_bias, mask, dropout_rate=dropout_rate,
-                      seed=seed)
+                      seed=seed, bh0=bh0)
 
 
 def fused_cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           mask: torch.Tensor, dropout_rate: float = 0.0,
-                          seed: Optional[torch.Tensor] = None
-                          ) -> torch.Tensor:
+                          seed: Optional[torch.Tensor] = None,
+                          bh0: int = 0) -> torch.Tensor:
     """Bias-free rectangular attention: q [B,Tq,H,dk], k/v [B,Sk,H,dk],
-    mask [B,Sk], seed int32 [1] → [B,Tq,H·dk]."""
+    mask [B,Sk], seed int32 [1], bh0 the Philox row offset →
+    [B,Tq,H·dk]."""
     return _fused_mha(q, k, v, None, mask, dropout_rate=dropout_rate,
-                      seed=seed)
+                      seed=seed, bh0=bh0)
 
 
 def fused_encoder_attention_merged(qkv: torch.Tensor, pos_bias: torch.Tensor,
                                    mask: torch.Tensor, num_heads: int,
                                    dropout_rate: float = 0.0,
-                                   seed: Optional[torch.Tensor] = None
-                                   ) -> torch.Tensor:
+                                   seed: Optional[torch.Tensor] = None,
+                                   bh0: int = 0) -> torch.Tensor:
     """Self-attention on the merged projection output qkv [B,S,3·H·dk]
     (``t5.qkv_proj_merged``'s GEMM), q, k and v reaching the kernels as
-    strided views; pos_bias [H,L,L] f32, mask [B,S], seed int32 [1] →
-    [B,S,H·dk]."""
+    strided views; pos_bias [H,L,L] f32, mask [B,S], seed int32 [1], bh0
+    the Philox row offset → [B,S,H·dk]."""
     return fused_attention_packed(qkv, None, _bias_block(pos_bias, qkv, qkv),
-                                  mask, num_heads, dropout_rate, seed)
+                                  mask, num_heads, dropout_rate, seed, bh0)
 
 
 def fused_cross_attention_merged(q: torch.Tensor, kv: torch.Tensor,
                                  mask: torch.Tensor,
                                  dropout_rate: float = 0.0,
-                                 seed: Optional[torch.Tensor] = None
-                                 ) -> torch.Tensor:
+                                 seed: Optional[torch.Tensor] = None,
+                                 bh0: int = 0) -> torch.Tensor:
     """Bias-free rectangular attention: q [B,Tq,H,dk] and the merged k|v
     projection kv [B,Sk,2·H·dk] (``t5.kv_proj_merged``'s GEMM), mask
-    [B,Sk], seed int32 [1] → [B,Tq,H·dk]."""
+    [B,Sk], seed int32 [1], bh0 the Philox row offset → [B,Tq,H·dk]."""
     B, Tq, H, dk = q.shape
     return fused_attention_packed(q.reshape(B, Tq, H * dk), kv, None, mask,
-                                  H, dropout_rate, seed)
+                                  H, dropout_rate, seed, bh0)

@@ -9,6 +9,13 @@ the port wrote. ``AsyncCheckpointer`` writes in a background thread;
 banks. ``save_checkpoint_dcp``/``load_checkpoint_dcp`` keep the same tree
 as a ``torch.distributed.checkpoint`` directory, the counterpart of JAX's
 orbax pair.
+
+Under data parallelism every rank calls the savers: with an FSDP
+``layout`` (parallel/sharding.py::FsdpLayout) the sharded leaves are
+gathered first, and only the main process writes, so the archive keeps
+the flat keys and full shapes of a one-process run. The loaders read the
+file, then broadcast rank 0's values (``mesh_ctx``) and keep this rank's
+slices (``layout``).
 """
 
 from __future__ import annotations
@@ -25,6 +32,8 @@ import torch
 
 from vqacl_tpu_torch.models.convert import from_jax_params, to_jax_params
 from vqacl_tpu_torch.models.prototype import ProtoState
+from vqacl_tpu_torch.parallel.mesh import replicate
+from vqacl_tpu_torch.parallel.multihost import is_main_process
 
 SEP = "::"
 
@@ -79,10 +88,18 @@ def _atomic_savez(path: str, flat: Dict[str, np.ndarray]) -> None:
     os.replace(tmp, path)
 
 
+def _whole(params: Any, layout) -> Any:
+    """The full parameter tree (FSDP slices gathered over the ranks)."""
+    return params if layout is None else layout.gather(params)
+
+
 def save_checkpoint(path: str, params: Any, proto: ProtoState,
                     step: int = 0,
-                    extra: Optional[Dict[str, np.ndarray]] = None) -> None:
-    _atomic_savez(path, _build_flat(params, proto, step, extra))
+                    extra: Optional[Dict[str, np.ndarray]] = None,
+                    layout=None) -> None:
+    params = _whole(params, layout)
+    if is_main_process():
+        _atomic_savez(path, _build_flat(params, proto, step, extra))
 
 
 class AsyncCheckpointer:
@@ -103,8 +120,12 @@ class AsyncCheckpointer:
 
     def save(self, path: str, params: Any, proto: ProtoState,
              step: int = 0,
-             extra: Optional[Dict[str, np.ndarray]] = None) -> None:
+             extra: Optional[Dict[str, np.ndarray]] = None,
+             layout=None) -> None:
         self.wait()
+        params = _whole(params, layout)
+        if not is_main_process():
+            return
         flat = _build_flat(params, proto, step, extra)
 
         def _write() -> None:
@@ -128,9 +149,17 @@ class AsyncCheckpointer:
             raise err
 
 
-def load_checkpoint(path: str, device="cpu"
+def _placed(params, proto, mesh_ctx, layout):
+    """Rank 0's loaded values on every rank, params in ``layout``."""
+    if mesh_ctx is not None:
+        params, proto = replicate(mesh_ctx, (params, proto))
+    return (params if layout is None else layout.shard(params)), proto
+
+
+def load_checkpoint(path: str, device="cpu", mesh_ctx=None, layout=None
                     ) -> Tuple[Dict[str, Any], ProtoState, int]:
-    """→ (params as f32 tensors, ProtoState, step), on ``device``."""
+    """→ (params as f32 tensors, ProtoState, step), on ``device``; with
+    ``mesh_ctx``/``layout``, rank 0's values in this rank's layout."""
     with np.load(_npz_path(path), allow_pickle=False) as z:
         flat = {k: z[k] for k in z.files}
     pre, ppre = "params" + SEP, "proto" + SEP
@@ -141,7 +170,9 @@ def load_checkpoint(path: str, device="cpu"
     proto = ProtoState(**{name: torch.from_numpy(np.array(fields[name]))
                           .to(device) for name in ProtoState._fields})
     step = int(flat.get(f"meta{SEP}step", np.asarray(0)))
-    return from_jax_params(params, device=device), proto, step
+    params, proto = _placed(from_jax_params(params, device=device), proto,
+                            mesh_ctx, layout)
+    return params, proto, step
 
 
 # ---------------------------------------------------------------------------
@@ -176,12 +207,16 @@ def _flat_tensors(tree: Any, prefix: str = "") -> Dict[str, torch.Tensor]:
 
 
 def save_checkpoint_dcp(directory: str, params: Any, proto: ProtoState,
-                        step: int = 0) -> None:
+                        step: int = 0, layout=None) -> None:
     """Write {"params", "proto", "step"} as a ``torch.distributed.checkpoint``
     directory (created, or overwritten), the tree's paths joined with
-    ``::`` as its keys. Tensors may lie on any device."""
+    ``::`` as its keys. Tensors may lie on any device. Every rank calls
+    it; the main process writes the whole tree, alone (``no_dist``)."""
     import torch.distributed.checkpoint as dcp
 
+    params = _whole(params, layout)
+    if not is_main_process():
+        return
     directory = os.path.abspath(directory)
     os.makedirs(directory, exist_ok=True)
     tree = {"params": params, "proto": dict(proto._asdict()),
@@ -192,11 +227,13 @@ def save_checkpoint_dcp(directory: str, params: Any, proto: ProtoState,
                                                      overwrite=True))
 
 
-def load_checkpoint_dcp(directory: str
+def load_checkpoint_dcp(directory: str, mesh_ctx=None, layout=None
                         ) -> Tuple[Dict[str, Any], ProtoState, int]:
     """→ (params, ProtoState, step) from a ``save_checkpoint_dcp``
-    directory, on the CPU in the saved dtypes. No template is needed: the
-    targets are built from the directory's own metadata."""
+    directory, on the CPU in the saved dtypes (with ``mesh_ctx``, rank 0's
+    values on its device; with ``layout``, this rank's slices). No
+    template is needed: the targets are built from the directory's own
+    metadata."""
     import torch.distributed.checkpoint as dcp
     from torch.distributed.checkpoint import FileSystemReader
     from torch.distributed.checkpoint.metadata import TensorStorageMetadata
@@ -213,7 +250,8 @@ def load_checkpoint_dcp(directory: str
         dcp.load(targets, checkpoint_id=directory, no_dist=True)
     tree = _unflatten(targets)
     proto = ProtoState(**{k: tree["proto"][k] for k in ProtoState._fields})
-    return tree["params"], proto, int(tree["step"])
+    params, proto = _placed(tree["params"], proto, mesh_ctx, layout)
+    return params, proto, int(tree["step"])
 
 
 def load_reference_prototypes(proto: ProtoState, q_path: str,

@@ -23,7 +23,7 @@ The train step multiplies the direction by ``dynamic_lr`` and subtracts:
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, NamedTuple, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -117,10 +117,13 @@ def global_norm(tree: Tree) -> torch.Tensor:
                           for x in tree_leaves(tree)))
 
 
-def clip_by_global_norm(grads: Tree, max_norm: float) -> Tree:
+def clip_by_global_norm(grads: Tree, max_norm: float,
+                        g_norm: Optional[torch.Tensor] = None) -> Tree:
     """optax's rule: unchanged when ‖g‖ < max_norm, else (g/‖g‖)·max_norm;
-    decided on the device (no host read)."""
-    g_norm = global_norm(grads)
+    decided on the device (no host read). ``g_norm``: the norm of the
+    whole gradient when ``grads`` holds only this rank's FSDP slices."""
+    if g_norm is None:
+        g_norm = global_norm(grads)
     trigger = g_norm < max_norm
     return tree_map(lambda t: torch.where(
         trigger, t, (t / g_norm.to(t.dtype)) * max_norm), grads)
@@ -194,7 +197,10 @@ def add_decayed_weights(updates: Tree, params: Tree, weight_decay: float,
 
 class Transform(NamedTuple):
     """LR-less AdamW direction: ``init(params) → state`` and
-    ``update(grads, state, params) → (direction, state)``."""
+    ``update(grads, state, params, g_norm=None) → (direction, state)``.
+    Every rule but the clip is elementwise, so under FSDP the transform
+    runs on this rank's slices of grads, moments and parameters, given
+    the whole gradient's norm (``g_norm``)."""
     init: Callable
     update: Callable
 
@@ -219,10 +225,12 @@ def make_transform(cfg_train, with_clip: bool = True) -> Transform:
                          mu=tree_map(zeros, params),
                          nu=tree_map(zeros, params))
 
-    def update(grads: Tree, state: AdamState, params: Tree
+    def update(grads: Tree, state: AdamState, params: Tree,
+               g_norm: Optional[torch.Tensor] = None
                ) -> Tuple[Tree, AdamState]:
         if with_clip:
-            grads = clip_by_global_norm(grads, cfg_train.clip_grad_norm)
+            grads = clip_by_global_norm(grads, cfg_train.clip_grad_norm,
+                                        g_norm)
         updates, state = scale(grads, state, b1, b2, eps)
         updates = add_decayed_weights(updates, params,
                                       cfg_train.weight_decay,

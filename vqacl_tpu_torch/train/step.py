@@ -13,6 +13,21 @@ card unless its caller reads one.
 update → greedy decode or beam search. ``make_loss_eval_step``: the
 teacher-forced validation loss with retrieval-only prototypes (with
 ``cfg.model.fused_decoder`` its decoder attention runs in K1 too).
+
+Data parallelism (``mesh_ctx`` with a process group; parallel/mesh.py):
+each rank runs its rows of the global batch (``shard_batch``) and
+differentiates its share of the global batch's loss (row means divide by
+the global batch, masked means by the all-reduced count, a global term
+such as the EWC/MAS penalty by dp), so the SUM of the ranks' gradients,
+one ``all_reduce`` of one flat buffer per step, is the global batch's
+gradient. That sum lands between the backward and the optimizer, so the
+clip sees the global norm; the returned loss and metrics are global.
+The forward runs under ``data_parallel`` (global-shape dropout draws,
+the kernels' Philox row offset, summed prototype statistics). With an
+``fsdp`` layout (parallel/sharding.py::FsdpLayout) the parameters and
+moments in the state are this rank's slices: the step gathers them
+before the forward, keeps its slice of the summed gradient, and the
+optimizer runs on the slices with the global norm.
 """
 
 from __future__ import annotations
@@ -26,6 +41,7 @@ from vqacl_tpu_torch.cl.regularizers import penalty
 from vqacl_tpu_torch.models import vlt5
 from vqacl_tpu_torch.models.generate import beam_search, greedy_decode
 from vqacl_tpu_torch.models.prototype import ProtoState
+from vqacl_tpu_torch.parallel.mesh import data_parallel
 from vqacl_tpu_torch.train.optim import (dynamic_lr, global_norm,
                                          make_transform, tree_leaves,
                                          tree_map, tree_unflatten)
@@ -61,16 +77,57 @@ def _grads_of(loss_fn: Callable, params) -> Tuple[torch.Tensor, object, Dict]:
     return loss.detach(), aux, grads
 
 
-def _apply_update(tx, tcfg, state: TrainState, grads, proto: ProtoState
+def _dp(mesh_ctx):
+    """The mesh whose collectives a step runs (one with a process group),
+    or None."""
+    return mesh_ctx if mesh_ctx is not None and mesh_ctx.distributed \
+        else None
+
+
+def reduce_grads(ctx, grads):
+    """The sum over the ranks of a gradient tree: its leaves flattened
+    into one buffer, one ``all_reduce`` (one bucket), split back as
+    views of that buffer."""
+    leaves = tree_leaves(grads)
+    if len({g.dtype for g in leaves}) != 1:
+        raise ValueError("reduce_grads: the gradient leaves must share a "
+                         "dtype")
+    flat = ctx.all_reduce(torch.cat([g.reshape(-1) for g in leaves]))
+    out, off = [], 0
+    for g in leaves:
+        out.append(flat[off:off + g.numel()].view(g.shape))
+        off += g.numel()
+    return tree_unflatten(grads, out)
+
+
+def _global(ctx, *vals: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Scalars summed over the ranks (one ``all_reduce``); unchanged
+    without a mesh."""
+    if ctx is None:
+        return vals
+    return tuple(ctx.all_reduce(torch.stack([v.float() for v in vals])))
+
+
+def _apply_update(tx, tcfg, state: TrainState, grads, proto: ProtoState,
+                  ctx=None, fsdp=None
                   ) -> Tuple[TrainState, torch.Tensor, torch.Tensor]:
-    """The optimizer half of a step: AdamW direction, lr from the
-    schedule, ``p − lr·u`` → (new state, lr, grad norm)."""
+    """The optimizer half of a step: the ranks' gradients summed (with
+    a mesh ``ctx``, ``_dp``'s), this rank's slices kept (with ``fsdp``),
+    AdamW direction, lr from the schedule, ``p − lr·u`` → (new state, lr,
+    grad norm)."""
     with torch.no_grad():
-        updates, opt_state = tx.update(grads, state.opt_state, state.params)
+        if ctx is not None:
+            grads = reduce_grads(ctx, grads)
+        if fsdp is not None:
+            grads = fsdp.slice(grads)
+            gnorm = torch.sqrt(fsdp.global_sq_norm(grads))
+        else:
+            gnorm = global_norm(grads)
+        updates, opt_state = tx.update(grads, state.opt_state, state.params,
+                                       gnorm)
         lr = dynamic_lr(state.step.float(), state.sched, tcfg.lr,
                         tcfg.schedule)
         params = tree_map(lambda p, u: p - lr * u, state.params, updates)
-        gnorm = global_norm(grads)
     return state._replace(step=state.step + 1, params=params,
                           opt_state=opt_state, proto=proto), lr, gnorm
 
@@ -78,7 +135,8 @@ def _apply_update(tx, tcfg, state: TrainState, grads, proto: ProtoState
 def make_train_step(cfg, dtype=torch.bfloat16, device="cuda",
                     use_prototype: Optional[bool] = None,
                     use_memory_loss: bool = False,
-                    remat=False, reg_lambda: float = 0.0) -> Callable:
+                    remat=False, reg_lambda: float = 0.0,
+                    mesh_ctx=None, fsdp=None) -> Callable:
     """Returns ``(state, batch, reg=None) -> (state, metrics)``.
 
     ``state`` is a ``TrainState`` on ``device`` (made with the transform
@@ -95,13 +153,17 @@ def make_train_step(cfg, dtype=torch.bfloat16, device="cuda",
     state, less activation memory. A ``reg``
     (``cl.regularizers.RegState``) adds the EWC/MAS anchor penalty
     ``reg_lambda/2 · Σ ω (θ−θ*)²`` to every microbatch's loss (and so to
-    the ``loss`` metric), differentiated with it."""
+    the ``loss`` metric), differentiated with it. ``mesh_ctx`` and
+    ``fsdp``: data parallelism and FSDP (the module's note); ``batch`` is
+    then this rank's rows (``parallel.mesh.shard_batch``)."""
     dev = resolve_device(device)
     mcfg, tcfg = cfg.model, cfg.train
     if use_prototype is None:
         use_prototype = mcfg.use_prototype
     tx = make_transform(tcfg)
     accum = int(tcfg.grad_accum)
+    ctx = _dp(mesh_ctx)
+    dp = ctx.dp if ctx is not None else 1
 
     def loss_and_grads(params, proto, batch, generator, reg):
         def loss_fn(live):
@@ -114,6 +176,8 @@ def make_train_step(cfg, dtype=torch.bfloat16, device="cuda",
             loss = out.loss
             if reg is not None:
                 loss = loss + 0.5 * reg_lambda * penalty(live, reg)
+            if dp > 1:      # this rank's share of the global loss
+                loss = loss / dp
             return loss, out
 
         loss, out, grads = _grads_of(loss_fn, params)
@@ -143,12 +207,19 @@ def make_train_step(cfg, dtype=torch.bfloat16, device="cuda",
     def train_step(state: TrainState, batch: Dict, reg=None
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         batch = _to_device(batch, _TRAIN_KEYS, dev)
-        if accum > 1:
-            loss, proto, aux, grads = accum_grads(state, batch, reg)
-        else:
-            loss, proto, aux, grads = loss_and_grads(
-                state.params, state.proto, batch, state.generator, reg)
-        new_state, lr, gnorm = _apply_update(tx, tcfg, state, grads, proto)
+        full = state if fsdp is None else \
+            state._replace(params=fsdp.gather(state.params))
+        with data_parallel(ctx):
+            if accum > 1:
+                loss, proto, aux, grads = accum_grads(full, batch, reg)
+            else:
+                loss, proto, aux, grads = loss_and_grads(
+                    full.params, state.proto, batch, state.generator, reg)
+        new_state, lr, gnorm = _apply_update(tx, tcfg, state, grads, proto,
+                                             ctx, fsdp)
+        if ctx is not None:
+            loss, *aux = _global(ctx, loss, *aux)
+            aux = [a / dp for a in aux]
         metrics = {
             "loss": loss, "grad_norm": gnorm, "lr": lr,
             "loss_memory_Q": aux[0], "loss_memory_V": aux[1],
@@ -161,7 +232,7 @@ def make_train_step(cfg, dtype=torch.bfloat16, device="cuda",
 
 def make_der_replay_step(cfg, dtype=torch.bfloat16, device="cuda",
                          use_prototype: Optional[bool] = None,
-                         remat=False) -> Callable:
+                         remat=False, mesh_ctx=None, fsdp=None) -> Callable:
     """Dark-Experience-Replay step (Buzzega et al. 2020) for memory
     batches, ``(state, batch) -> (state, metrics)``; a Table-1 comparison
     method the reference repo does not implement (its replay is plain
@@ -175,7 +246,10 @@ def make_der_replay_step(cfg, dtype=torch.bfloat16, device="cuda",
     (``cl_reg='derpp'``) adds β·CE on the replay ground truth
     (β = ``train.der_beta``). The optimizer, clip and schedule are
     ``make_train_step``'s, and the prototype banks update as in a normal
-    replay step. Metrics: loss, der_mse, grad_norm, lr."""
+    replay step. Metrics: loss, der_mse, grad_norm, lr. ``mesh_ctx`` and
+    ``fsdp`` as in ``make_train_step``: the MSE's masked mean divides by
+    the all-reduced count of valid positions, the CE's row mean by the
+    global batch."""
     dev = resolve_device(device)
     mcfg, tcfg = cfg.model, cfg.train
     alpha = float(tcfg.reg_lambda)
@@ -183,11 +257,14 @@ def make_der_replay_step(cfg, dtype=torch.bfloat16, device="cuda",
     if use_prototype is None:
         use_prototype = mcfg.use_prototype
     tx = make_transform(tcfg)
+    ctx = _dp(mesh_ctx)
+    dp = ctx.dp if ctx is not None else 1
 
     def der_step(state: TrainState, batch: Dict
                  ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         b = _to_device(batch, _TRAIN_KEYS + ("der_logits",), dev)
         gen = state.generator
+        params = state.params if fsdp is None else fsdp.gather(state.params)
 
         def loss_fn(live):
             hidden, enc_mask = vlt5.encode(
@@ -206,15 +283,21 @@ def make_der_replay_step(cfg, dtype=torch.bfloat16, device="cuda",
             mask = (b["target_ids"] != -100).float()                # [B,T]
             se = torch.mean((logits.float() - b["der_logits"].float()) ** 2,
                             dim=-1)
-            mse = torch.sum(se * mask) / mask.sum().clamp_min(1.0)
+            count = mask.sum()
+            if ctx is not None:
+                count = ctx.all_reduce(count.clone())
+            mse = torch.sum(se * mask) / count.clamp_min(1.0)
             loss = alpha * mse
             if beta > 0.0:
                 loss = loss + beta * vlt5.weighted_lm_loss(
-                    logits, b["target_ids"], b["scores"])
+                    logits, b["target_ids"], b["scores"]) / dp
             return loss, (proto, mse.detach())
 
-        loss, (proto, mse), grads = _grads_of(loss_fn, state.params)
-        new_state, lr, gnorm = _apply_update(tx, tcfg, state, grads, proto)
+        with data_parallel(ctx):
+            loss, (proto, mse), grads = _grads_of(loss_fn, params)
+        new_state, lr, gnorm = _apply_update(tx, tcfg, state, grads, proto,
+                                             ctx, fsdp)
+        loss, mse = _global(ctx, loss, mse)
         return new_state, {"loss": loss, "der_mse": mse, "grad_norm": gnorm,
                            "lr": lr}
 

@@ -132,15 +132,20 @@ class TrainConfig:
 
 @dataclass
 class MeshConfig:
-    """Placement. ``remat`` is the train steps' block recompute (False,
-    True/"full", "dots"); ``dtype`` the compute dtype the CLI hands the
-    trainer. The port runs on one device: ``dp``, ``tp``, ``pp`` and
-    ``param_layout`` are placeholders with the JAX package's defaults,
-    read only by the trainer to refuse any other value, until the
-    parallel slice gives them their behaviour; ``pp_micro`` and
-    ``param_dtype`` are read by nothing yet."""
+    """Placement. ``dp`` is the data-parallel size, one process per card
+    (the reference's DDP; parallel/mesh.py): the CLIs build the mesh with
+    ``make_mesh(dp=dp)``, -1 taking every rank ``torchrun`` started, and
+    the trainer refuses a dp other than its mesh's. ``param_layout``
+    "replicated" keeps the whole parameters and Adam moments on every
+    rank; "fsdp" keeps each rank's slice of every leaf of at least 2^14
+    elements (parallel/sharding.py::fsdp_rules; the step gathers them
+    before its forward); "tp" is refused (not ported yet), as are
+    ``tp`` and ``pp`` above 1. ``remat`` is the train steps' block
+    recompute (False, True/"full", "dots"); ``dtype`` the compute dtype
+    the CLI hands the trainer; ``pp_micro`` and ``param_dtype`` are read
+    by nothing yet."""
 
-    dp: int = -1                     # -1: all devices (here: one)
+    dp: int = -1                     # -1: every rank of the mesh
     tp: int = 1
     pp: int = 1
     pp_micro: int = 4                # pipeline microbatches (placeholder)
@@ -155,8 +160,8 @@ class DataConfig:
     """Loader policy. ``device_cache`` keeps the whole region-feature
     table on the device (data/device_cache.py) in ``device_cache_dtype``
     ("bfloat16", "float32" or "int8"); batches then carry int32 slots.
-    ``device_cache_sharded`` (the table row-sharded over a dp mesh) needs
-    the parallel slice: the trainer refuses it."""
+    ``device_cache_sharded`` row-shards the table over the dp ranks (each
+    holds 1/dp of it; a lookup combines the rows in one all_reduce)."""
 
     dataset_root: str = "datasets"
     feature_files: Dict[str, str] = field(default_factory=dict)
@@ -216,9 +221,13 @@ class Config:
 
 
 def resolve_merged_qkv(model_cfg: ModelConfig, n_devices: int = 1) -> None:
-    """Resolve ``merged_qkv="auto"`` in place: True on one device (the
-    part of JAX's ``resolve_fused_attention`` that applies to the port;
-    a multi-device mesh keeps separate projections there)."""
+    """Resolve ``merged_qkv="auto"`` in place from the mesh's world size
+    ``n_devices``: True on one device, False on more (the part of JAX's
+    ``resolve_fused_attention`` that applies to the port, config.py:282-
+    283). ``fused_attention`` is not resolved here: the CLI's "auto" is
+    True on the card at any dp, each rank running K1/K1′/K2 on its rows
+    (JAX's explicit ``fused_attention=True`` shard_map path; its "auto"
+    would turn the kernels off on a mesh — ROADMAP §3)."""
     if model_cfg.merged_qkv == "auto":
         model_cfg.merged_qkv = n_devices == 1
 
