@@ -191,6 +191,29 @@ Phases, each of which exits non-zero on failure:
    CPU (the same gloo group): equal result matrices and answers, losses
    within ``CL_LOSS_RTOL``, the lookups' all_reduce bytes. Nothing here
    runs on more than one card.
+13. Tensor and pipeline parallelism (``tensor_pipeline``), each part a
+   group of ranks of this script on the one card over gloo, against the
+   same steps run in one process from the same init and batch (global
+   batch 80, bf16, f32 master weights): (a) tp = 2 with the "tp" layout
+   (6 heads and d_ff 1536 per rank), ``P13_TP_STEPS`` steps at dropout 0
+   and 0.1; (b) pp = 2 over ``P13_PP_MICRO`` microbatches of 20,
+   replicated, ``P13_PP_STEPS`` steps at dropout 0; (c) tp = 2 x pp = 2
+   on four ranks, "tp" layout, dropout 0. Each: losses within
+   ``P13_LOSS_RTOL`` and parameters within phase 4's bound of one
+   process's, bit-equal across the ranks; K1′ and K2 per step per rank
+   (a stage's layers once per microbatch), the second tp rank's over its
+   heads (``head_offset_launches``); the all_reduce bytes per step per
+   group, step ms beside one process's; (a) parameter + moment bytes per
+   rank against one process's (the tp-sliced leaves by half); (b) ticks
+   per stack, hand-off bytes per tick and the dp x pp gradient bucket's
+   bytes and ms. (d) A tiny f32 ER run of two tasks at tp = 2 and at pp
+   = 2, on the card and on the CPU, with the one-process run's result
+   matrix and answers, and rank 0's checkpoint loaded by the one-process
+   trainer with the mesh run's parameters. (e) In phase 2: K1′ and K2
+   over heads 6-11 with ``(Hc = 12, h0 = 6)`` at the train shape equal
+   bit for bit to those heads of one launch over all 12 (o, p, dq, dk,
+   dv, the dbias panel, the keep mask) and within the phase 2 tolerance
+   of the plain versions.
 
 The second-to-last lines are a JSON object of per-kernel numbers and the
 card's name and power limit; the last line is the run's verdict as JSON.
@@ -3137,6 +3160,69 @@ def check_offset_attention(fa, B, Tq, Sk, H, dk, L, dtype, rate, text_len):
         mine.float().mean())}
 
 
+def check_head_offset_attention(fa, B, Tq, Sk, H, dk, L, dtype, rate,
+                                text_len):
+    """K1′ and K2 over heads H/2 … H − 1 with ``(Hc = H, h0 = H/2)`` (a
+    second tensor-parallel rank's heads): o, p, dq, dk, dv, the dbias
+    panel and the keep mask equal bit for bit to those heads of one launch
+    over all H, and within the phase 2 tolerance of the plain versions at
+    the same ``(Hc, h0)``; the mask also equal to the plain one. → the
+    record (max errors vs plain)."""
+    dt = getattr(torch, dtype)
+    q, k, v, do, bias, mask = train_attention_inputs(
+        B, Tq, Sk, H, dk, L, dt, text_len, seed=11 + B)
+    seed = torch.tensor([271828], dtype=torch.int32, device="cuda")
+    n = h0 = H // 2
+    whole_o, whole_p = fa.fused_attention_fwd_train(q, k, v, bias, mask,
+                                                    seed, H, rate)
+    whole_g = fa.fused_attention_bwd(q, k, v, whole_p, seed, do, H, L, rate)
+    cols = lambda t: t[..., h0 * dk:].contiguous()  # noqa: E731
+    qp, kp, vp, dop = (cols(t) for t in (q, k, v, do))
+    bp = bias[h0:].contiguous()
+    o, p = fa.fused_attention_fwd_train(qp, kp, vp, bp, mask, seed, n, rate,
+                                        Hc=H, h0=h0)
+    g = fa.fused_attention_bwd(qp, kp, vp, p, seed, dop, n, L, rate, Hc=H,
+                               h0=h0)
+    ro, rp = fa.fused_attention_fwd_train_reference(qp, kp, vp, bp, mask,
+                                                    seed, n, rate, Hc=H,
+                                                    h0=h0)
+    rg = fa.fused_attention_bwd_reference(qp, kp, vp, rp, seed, dop, n, L,
+                                          rate, Hc=H, h0=h0)
+    mine = fa.fused_attention_keep_mask(seed, B, n, Tq, Sk, rate, Hc=H,
+                                        h0=h0)
+    whole_mask = fa.fused_attention_keep_mask(seed, B, H, Tq, Sk, rate)
+    plain = fa.philox_keep_mask(seed, B, n, Tq, Sk, rate, Hc=H, h0=h0)
+    torch.cuda.synchronize()
+    heads = lambda t: t.reshape(B, H, Tq, Sk)[:, h0:].reshape(  # noqa: E731
+        B, n * Tq, Sk)
+    same = {"o": torch.equal(o, cols(whole_o)),
+            "p": torch.equal(p, heads(whole_p)),
+            "dq": torch.equal(g[0], cols(whole_g[0])),
+            "dk": torch.equal(g[1], cols(whole_g[1])),
+            "dv": torch.equal(g[2], cols(whole_g[2])),
+            "dbias": torch.equal(g[3], whole_g[3][h0:]),
+            "mask_heads": torch.equal(mine, whole_mask[:, h0:]),
+            "mask_plain": torch.equal(mine, plain)}
+    errs, oks = {}, []
+    for key, a, b, tol_dt in (("o", o, ro, dtype), ("p", p, rp, "float32"),
+                              ("dq", g[0], rg[0], dtype),
+                              ("dk", g[1], rg[1], dtype),
+                              ("dv", g[2], rg[2], dtype),
+                              ("dbias", g[3], rg[3], "float32")):
+        errs[key], ok = _close(a, b, tol_dt)
+        oks.append(ok)
+    log(f"head_offset_check: heads {h0}..{H - 1} of {H} (Hc={H}, h0={h0}) "
+        f"B={B} Tq={Tq} Sk={Sk} dk={dk} L={L} {dtype} rate={rate}: "
+        f"bit-equal to those heads of the one launch {json.dumps(same)}; "
+        f"vs plain max_abs_err "
+        + " ".join(f"{k}={e:.3e}" for k, e in errs.items()))
+    if not all(same.values()) or not all(oks):
+        fail("K1'/K2 over a head slice differ from the one launch's heads "
+             "or their plain versions")
+    return {"same": same, "max_abs_err": errs, "heads": [h0, H],
+            "kept": float(mine.float().mean())}
+
+
 def p12_rank(ctx, spec):
     """The work of one rank of (b)-(d) (``rank_main``): t5-base train
     steps at the global batch over the mesh, replicated at dropout 0 and
@@ -3323,8 +3409,9 @@ def p12_rank(ctx, spec):
 
 def rank_main(args) -> int:
     """Rank mode (``--rank``): join the group of ``--world`` ranks
-    through the file store ``--store`` over gloo on the card, run
-    ``p12_rank`` and write its record to ``--out`` as JSON."""
+    through the file store ``--store`` over gloo on the card (as the
+    spec's mesh, phase 12's dp by default), run ``p12_rank`` or phase
+    13's ``p13_rank`` and write its record to ``--out`` as JSON."""
     sys.path.insert(0, HERE)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3334,14 +3421,70 @@ def rank_main(args) -> int:
 
     with open(args.spec) as f:
         spec = json.load(f)
-    ctx = make_mesh(dp=args.world, device="cuda:0", backend="gloo",
+    ctx = make_mesh(**spec.get("mesh", {"dp": args.world}),
+                    device="cuda:0", backend="gloo",
                     init_method=f"file://{args.store}", rank=args.rank,
                     world_size=args.world, timeout_s=P12_TIMEOUT)
-    rec = p12_rank(ctx, spec)
+    rec = p13_rank(ctx, spec) if spec.get("phase") == 13 else \
+        p12_rank(ctx, spec)
     with open(args.out, "w") as f:
         json.dump(rec, f)
     dist.destroy_process_group()
     return 0
+
+
+def run_ranks(work, tag, n, spec, echo=()):
+    """Start ``n`` ranks of this script in rank mode (``RANK_CMD``) over
+    one file store under ``work``, each with ``spec``; wait for them
+    within ``P12_TIMEOUT`` (killing any still running), echo their log
+    lines that start with ``echo`` (every log's tail when one failed) →
+    (the ranks' records in rank order, seconds)."""
+    spec_path = os.path.join(work, f"{tag}_spec.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    cmd = RANK_CMD or [sys.executable, os.path.abspath(__file__)]
+    procs, logs = [], []
+    t0 = time.time()
+    for r in range(n):
+        logs.append(open(os.path.join(work, f"{tag}_rank{r}.log"), "w+"))
+        procs.append(subprocess.Popen(
+            cmd + ["--rank", str(r), "--world", str(n), "--store",
+                   os.path.join(work, f"{tag}_store"), "--spec", spec_path,
+                   "--out", os.path.join(work, f"{tag}_rank{r}.json")],
+            cwd=HERE, stdout=logs[-1], stderr=subprocess.STDOUT))
+    deadline = time.time() + P12_TIMEOUT
+    for p in procs:
+        try:
+            p.wait(timeout=max(deadline - time.time(), 1))
+        except subprocess.TimeoutExpired:
+            pass
+    hung = [r for r, p in enumerate(procs) if p.poll() is None]
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    secs = time.time() - t0
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    for r, f in enumerate(logs):
+        f.seek(0)
+        text = f.read()
+        f.close()
+        if bad or hung:
+            log(f"--- {tag} rank {r} (exit {procs[r].returncode}) ---\n"
+                + text[-4000:])
+        else:
+            for line in text.splitlines():
+                if line.startswith(tuple(echo)):
+                    log(f"rank {r}: {line}")
+    if hung:
+        fail(f"{tag}: ranks {hung} still running after {P12_TIMEOUT} s")
+    if bad:
+        fail(f"{tag}: ranks {bad} failed")
+    ranks = []
+    for r in range(n):
+        with open(os.path.join(work, f"{tag}_rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    return ranks, secs
 
 
 def data_parallel(counters):
@@ -3427,52 +3570,8 @@ def data_parallel(counters):
         # (b)-(d): the ranks, each a process of this script on the card
         spec = {"tiny_out_cuda": os.path.join(work, "tiny_cuda"),
                 "tiny_out_cpu": os.path.join(work, "tiny_cpu")}
-        spec_path = os.path.join(work, "spec.json")
-        with open(spec_path, "w") as f:
-            json.dump(spec, f)
-        cmd = RANK_CMD or [sys.executable, os.path.abspath(__file__)]
-        procs, logs = [], []
-        t0 = time.time()
-        for r in range(P12_RANKS):
-            logs.append(open(os.path.join(work, f"rank{r}.log"), "w+"))
-            procs.append(subprocess.Popen(
-                cmd + ["--rank", str(r), "--world", str(P12_RANKS),
-                       "--store", os.path.join(work, "store"), "--spec",
-                       spec_path, "--out",
-                       os.path.join(work, f"rank{r}.json")],
-                cwd=HERE, stdout=logs[-1], stderr=subprocess.STDOUT))
-        deadline = time.time() + P12_TIMEOUT
-        for p in procs:
-            try:
-                p.wait(timeout=max(deadline - time.time(), 1))
-            except subprocess.TimeoutExpired:
-                pass
-        hung = [r for r, p in enumerate(procs) if p.poll() is None]
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-        ranks_s = time.time() - t0
-        bad = [r for r, p in enumerate(procs) if p.returncode != 0]
-        for r, f in enumerate(logs):
-            f.seek(0)
-            text = f.read()
-            f.close()
-            if bad or hung:
-                log(f"--- rank {r} (exit {procs[r].returncode}) ---\n"
-                    + text[-4000:])
-            else:
-                for line in text.splitlines():
-                    if line.startswith(("offset_check", "dp_tiny")):
-                        log(f"rank {r}: {line}")
-        if hung:
-            fail(f"ranks {hung} still running after {P12_TIMEOUT} s")
-        if bad:
-            fail(f"ranks {bad} failed")
-        ranks = []
-        for r in range(P12_RANKS):
-            with open(os.path.join(work, f"rank{r}.json")) as f:
-                ranks.append(json.load(f))
+        ranks, ranks_s = run_ranks(work, "p12", P12_RANKS, spec,
+                                   ("offset_check", "dp_tiny"))
     finally:
         if dist.is_available() and dist.is_initialized():
             dist.destroy_process_group()
@@ -3600,6 +3699,423 @@ def data_parallel(counters):
     return rec, launches, offsets
 
 
+# ---- 13. tensor and pipeline parallelism -----------------------------------
+
+P13_TP_STEPS = 3
+P13_PP_STEPS = 2
+P13_PP_MICRO = 4
+# the parts, each a group of ranks on the one card over gloo: name →
+# mesh axes
+P13_PARTS = (("tp", {"tp": 2}), ("pp", {"pp": 2}),
+             ("tppp", {"tp": 2, "pp": 2}))
+# a mesh step's loss vs one process's from the same state, relative: in
+# bf16 the tp partial sums are rounded to bf16 before their all_reduce
+# and the one process rounds the whole product once; the pipelined
+# stacks add the same terms in the same order
+P13_LOSS_RTOL = 1e-2
+# the parameters after the steps, as |p_mesh − p_one| / |p_one − p_0|:
+# phase 4's gradient bound, as phase 12 holds its ranks (Adam divides
+# each gradient entry by its own scale, so an entry near zero that the
+# bf16 roundings move turns into a whole update of its parameter)
+P13_PARAM_RTOL = GRAD_REL_TOL["bfloat16"]
+P13_TINY = P12_TINY          # (d)'s items per task
+
+
+def head_offset_counts():
+    """K1′ and K2 launches with a first head h0 ≠ 0 (a tensor-parallel
+    rank past the first), counted by the wrappers."""
+    from vqacl_tpu_torch.ops import fused_attention as fa
+
+    return (fa.fused_attention_fwd_train.head_offset_launches,
+            fa.fused_attention_bwd.head_offset_launches)
+
+
+def p13_tiny_trainer(mesh, out):
+    """Phase 13's tiny f32 ER trainer (phase 12's settings) on ``mesh``:
+    its tp and pp, the "tp" layout at tp > 1, ``P13_PP_MICRO``
+    microbatches; ``out`` its output → (trainer, the list its predicts
+    append their answers to)."""
+    from vqacl_tpu_torch.cl.trainer import VQACLTrainer
+    from vqacl_tpu_torch.data.synthetic_module import SyntheticDataModule
+    from vqacl_tpu_torch.data.tokenizer import VLT5Tokenizer
+    from vqacl_tpu_torch.models import vlt5
+    from vqacl_tpu_torch.utils.config import Config, tiny_model_config
+
+    tok = VLT5Tokenizer()
+    tcl = Config()
+    tcl.model = tiny_model_config(vocab_size=32200, dropout_rate=0.0)
+    tcl.train.lr = P12_TINY_LR
+    tcl.train.batch_size = tcl.train.valid_batch_size = P12_TINY_BATCH
+    tcl.train.epochs = 1
+    tcl.train.m_size = 16
+    tcl.mesh.tp, tcl.mesh.pp = mesh.tp, mesh.pp
+    tcl.mesh.pp_micro = P13_PP_MICRO
+    tcl.mesh.param_layout = "tp" if mesh.tp > 1 else "replicated"
+    tcl.output = out
+    tcm = tcl.model
+    data = SyntheticDataModule(
+        tok, tasks=CL_TASKS, n_train_per_task=P13_TINY[0],
+        n_val_per_task=P13_TINY[1], n_test_per_task=P13_TINY[2],
+        feat_dim=tcm.feat_dim, n_boxes=tcm.n_boxes, answer_vocab=4, seed=0)
+    trainer = VQACLTrainer(tcl, data, tok, verbose=False,
+                           init_params=vlt5.init_vlt5_params(4, tcm,
+                                                             device="cpu"),
+                           dtype=torch.float32, mesh_ctx=mesh)
+    answers = []
+
+    def predict(loader, predict=trainer.predict):
+        answers.append(predict(loader))
+        return answers[-1]
+
+    trainer.predict = predict
+    return trainer, answers
+
+
+def p13_rank(ctx, spec):
+    """The work of one rank of phase 13's part ``spec["part"]``: t5-base
+    train steps at the global batch over the mesh (``ctx``: tp, pp or
+    both) from the same state as a one-process run (rank 0 runs that
+    too); with tp the "tp" layout (each rank its Megatron slices of the
+    parameters and moments), with pp ``P13_PP_MICRO`` microbatches; in
+    the tp and pp parts a tiny f32 ER run on the mesh, on the card and
+    on the CPU (``tensor_pipeline`` holds it to one process's). → a
+    JSON-able record."""
+    import collections
+
+    import numpy as np
+
+    from vqacl_tpu_torch.data.synthetic import SyntheticVQA
+    from vqacl_tpu_torch.models import vlt5
+    from vqacl_tpu_torch.models.prototype import ProtoState
+    from vqacl_tpu_torch.ops import fused_attention as fa
+    from vqacl_tpu_torch.parallel.mesh import (MeshContext, make_mesh,
+                                               shard_batch)
+    from vqacl_tpu_torch.parallel.multihost import barrier
+    from vqacl_tpu_torch.parallel.sharding import TpLayout
+    from vqacl_tpu_torch.train.optim import make_transform, tree_leaves
+    from vqacl_tpu_torch.train.state import TrainState
+    from vqacl_tpu_torch.train.step import make_train_step
+    from vqacl_tpu_torch.utils.config import Config
+
+    wrappers = (fa.fused_attention, fa.fused_attention_fwd_train,
+                fa.fused_attention_bwd)
+
+    def zero_counts():
+        for w in wrappers:
+            w.launches = w.strided_launches = 0
+        for w in wrappers[1:]:
+            w.offset_launches = w.head_offset_launches = 0
+
+    def read_counts():
+        return tuple(w.launches for w in wrappers)
+
+    part, dev = spec["part"], ctx.device
+    rec = {"rank": ctx.rank, "part": part, "backend": ctx.backend,
+           "mesh": [ctx.dp, ctx.tp, ctx.pp],
+           "index": [ctx.dp_index, ctx.tp_index, ctx.pp_stage]}
+    base = Config()
+    m = base.model
+    params0 = vlt5.init_vlt5_params(0, m, device=dev)
+    proto0 = ProtoState.create(m.n_ques_types, m.n_categories, m.d_model,
+                               device=dev)
+    tx = make_transform(base.train)
+    tbatch = next(SyntheticVQA(2 * TRAIN_BATCH, seed=0).batches(
+        TRAIN_BATCH, seed=0))["tensors"]
+    mom = 2 if base.train.adam_dtype in ("bfloat16", "bf16") else 4
+    one_rank = MeshContext(device=dev)       # no group: one process
+
+    def steps(dropout, mesh, n):
+        """``n`` steps → (full parameters, record)."""
+        cfg = Config()
+        cfg.model.dropout_rate = dropout
+        if mesh.pp > 1:
+            cfg.model.pp_mesh, cfg.model.pp_micro = mesh, P13_PP_MICRO
+        tpl = TpLayout(mesh, params0) if mesh.tp > 1 else None
+        p = params0 if tpl is None else tpl.shard(params0)
+        state = TrainState.create(p, tx, proto0, seed=0, warmup_iters=1.0,
+                                  t_total=1000.0)
+        step = make_train_step(cfg, dtype=torch.bfloat16, device=dev,
+                               mesh_ctx=mesh if mesh.distributed else None,
+                               tp=tpl)
+        stats0 = collections.Counter(ctx.stats)
+        zero_counts()
+        losses, times = [], []
+        for _ in range(n):
+            b = tbatch
+            if mesh.distributed:
+                b = shard_batch(mesh, tbatch)
+                barrier("step")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, met = step(state, b)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(met["loss"]))
+        delta = {k: (ctx.stats[k] - stats0.get(k, 0)) / n
+                 for k in ctx.stats if k.startswith("all_reduce_")}
+        full = state.params if tpl is None else tpl.gather(state.params)
+        r = {"losses": losses, "step_ms": times, "launches": read_counts(),
+             "offset_launches": offset_counts(),
+             "head_offset_launches": head_offset_counts(),
+             "all_reduce_per_step": delta,
+             "state_bytes": sum(x.numel() * x.element_size() for t in (
+                 state.params, state.opt_state.mu, state.opt_state.nu)
+                 for x in tree_leaves(t))}
+        if tpl is not None:     # the tp-sliced leaves' params and moments
+            r["sharded_state_bytes"] = sum(
+                x.numel() * (4 + 2 * mom) for x, d in zip(
+                    tree_leaves(params0), tpl.dims) if d is not None)
+        if not all(np.isfinite(losses)):
+            fail(f"{part} rank {ctx.rank}: a loss is not finite: {losses}")
+        return full, r
+
+    n = P13_TP_STEPS if part == "tp" else P13_PP_STEPS
+    rates = (0.0, DROPOUT) if part == "tp" else (0.0,)
+    moved = lambda full: _tree_diff(full, params0, tree_leaves)  # noqa: E731
+    for rate in rates:
+        key = f"d{rate:g}"
+        one = None
+        if ctx.rank == 0:
+            one, rec[f"one_{key}"] = steps(rate, one_rank, n)
+        full, rec[key] = steps(rate, ctx, n)
+        rec[key]["digest"] = _digest(full, tree_leaves)
+        if one is not None:
+            rec[key]["rel_to_one"] = _tree_diff(full, one, tree_leaves) \
+                / moved(one)
+        del one, full
+        torch.cuda.empty_cache()
+    if part == "pp":
+        # the gradient bucket's all_reduce alone over dp × pp (one flat f32
+        # buffer of every parameter)
+        nparams = sum(p.numel() for p in tree_leaves(params0))
+        buf = torch.zeros(nparams, dtype=torch.float32, device=dev)
+        ar = []
+        for _ in range(3):
+            barrier("all_reduce")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ctx.all_reduce(buf, "dpp")
+            torch.cuda.synchronize()
+            ar.append((time.perf_counter() - t0) * 1e3)
+        rec["bucket_ms"], rec["bucket_bytes"] = ar, nparams * 4
+        mb = TRAIN_BATCH // P13_PP_MICRO
+        rec["handoff_bytes"] = {
+            "encoder": ctx.pp * mb * m.encoder_len * m.d_model * 2,
+            "decoder": ctx.pp * mb * m.target_max_length * m.d_model * 2}
+        rec["ticks"] = P13_PP_MICRO + ctx.pp - 1
+        del buf
+    del params0
+    torch.cuda.empty_cache()
+    if part == "tppp":
+        return rec
+    # (d) the tiny f32 ER run on the mesh, on the card and on the CPU (the
+    # one-process run it is held to runs in the script's own process: a
+    # trainer here would take part in the group's collectives)
+    tiny = {}
+    for where in ("cuda", "cpu"):
+        mesh = ctx if where == "cuda" else make_mesh(tp=ctx.tp, pp=ctx.pp,
+                                                     device="cpu")
+        trainer, answers = p13_tiny_trainer(
+            mesh, os.path.join(spec["work"], f"{part}_tiny_{where}"))
+        # K1′/K2 per step (and K1 per predict batch) on a rank: its
+        # stage's layers once per microbatch
+        per = trainer.cfg.model.num_layers // mesh.pp \
+            * (P13_PP_MICRO if mesh.pp > 1 else 1)
+        r = drive_cl(trainer, f"p13_tiny_{part}_{where}_rank{ctx.rank}",
+                     (zero_counts, read_counts, per)
+                     if where == "cuda" else None)
+        tiny[where] = {
+            "result_matrix": r["result_matrix"], "losses": r["losses"],
+            "answers": [{str(k): v for k, v in a.items()} for a in answers],
+            "launches": r["launches"], "counts": r["counts"],
+            "head_offset_launches": head_offset_counts()
+            if where == "cuda" else None,
+            "offset_launches": offset_counts() if where == "cuda"
+            else None,
+            "digest": _digest(trainer._full_params(), tree_leaves),
+            "wall_s": r["wall_s"]}
+        del trainer
+    rec["tiny"] = tiny
+    return rec
+
+
+def tensor_pipeline():
+    """Phase 13 → (record, [K1, K1′, K2] launches, [K1′, K2] offset
+    launches, [K1′, K2] head-offset launches) of its main-path runs (the
+    ranks' mesh steps and tiny mesh runs on the card), summed over the
+    ranks of the three parts."""
+    from vqacl_tpu_torch.parallel.mesh import MeshContext
+    from vqacl_tpu_torch.train.optim import tree_leaves
+    from vqacl_tpu_torch.utils.config import Config
+
+    m = Config().model
+    L = m.num_layers
+    work = tempfile.mkdtemp(prefix="chip_smoke_p13_")
+    parts = {}
+    try:
+        for part, mesh in P13_PARTS:
+            n = 1
+            for v in mesh.values():
+                n *= v
+            ranks, secs = run_ranks(
+                work, f"p13_{part}", n,
+                {"phase": 13, "part": part, "mesh": mesh, "work": work},
+                ("p13_tiny",))
+            parts[part] = {"ranks": ranks, "s": secs}
+        # (d)'s one-process run on the card, and each mesh run's last
+        # checkpoint (rank 0's) loaded by that trainer
+        trainer, answers = p13_tiny_trainer(
+            MeshContext(device=torch.device("cuda")),
+            os.path.join(work, "tiny_one"))
+        r = drive_cl(trainer, "p13_tiny_one")
+        one_tiny = {"result_matrix": r["result_matrix"],
+                    "losses": r["losses"],
+                    "answers": [{str(k): v for k, v in a.items()}
+                                for a in answers], "ckpt": {}}
+        for part in ("tp", "pp"):
+            trainer.cfg.output = os.path.join(work, f"{part}_tiny_cuda")
+            loaded, _ = trainer._load(CL_TASKS[-1])
+            one_tiny["ckpt"][part] = (_digest(loaded, tree_leaves),
+                                      sorted(os.listdir(trainer.cfg.output)))
+        del trainer
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    launches, offsets, heads = [0, 0, 0], [0, 0], [0, 0]
+    rec = {}
+    for part, mesh in P13_PARTS:
+        ranks = parts[part]["ranks"]
+        tp, pp = mesh.get("tp", 1), mesh.get("pp", 1)
+        n = P13_TP_STEPS if part == "tp" else P13_PP_STEPS
+        r0 = ranks[0]
+        out = {"ranks_s": parts[part]["s"]}
+        for key in [k for k in ("d0", f"d{DROPOUT:g}") if k in r0]:
+            one = r0[f"one_{key}"]
+            digests = {r[key]["digest"] for r in ranks}
+            loss_err = max(abs(a - b) / abs(b) for a, b in zip(
+                r0[key]["losses"], one["losses"]))
+            rel = r0[key]["rel_to_one"]
+            # K1′ and K2 per step on a rank: its stage's layers once per
+            # microbatch (K1 only in eval)
+            k = L // pp * (P13_PP_MICRO if pp > 1 else 1)
+            per_step = [0, k, k]
+            ar = r0[key]["all_reduce_per_step"]
+            log(f"p13_{part}_{key}: {len(ranks)} ranks (tp {tp}, pp {pp}) "
+                f"on one card over {r0['backend']}, global batch "
+                f"{TRAIN_BATCH}, bf16, {n} steps"
+                + (f", pp_micro {P13_PP_MICRO}" if pp > 1 else "")
+                + f": losses {r0[key]['losses']} (one process "
+                f"{one['losses']}, max rel err {loss_err:.3e}, tol "
+                f"{P13_LOSS_RTOL:g}); |p_mesh - p_one| / |p_one - p_0| = "
+                f"{rel:.3e} (tol {P13_PARAM_RTOL:g}); params "
+                f"bit-equal across ranks: {len(digests) == 1}; step ms rank 0 "
+                f"{[round(t, 3) for t in r0[key]['step_ms']]} (one process "
+                f"{[round(t, 3) for t in one['step_ms']]}); all_reduce per "
+                f"step rank 0: "
+                + ", ".join(f"{g} {ar.get(f'all_reduce_{g}_bytes', 0):.0f} B "
+                            f"in {ar.get(f'all_reduce_{g}_calls', 0):g}"
+                            for g in ("tp", "pp", "dpp", "dp"))
+                + f"; launches per rank K1/K1'/K2 "
+                f"{[r[key]['launches'] for r in ranks]}, head offset "
+                f"K1'/K2 {[r[key]['head_offset_launches'] for r in ranks]}, "
+                f"row offset {[r[key]['offset_launches'] for r in ranks]}")
+            if len(digests) != 1:
+                fail(f"p13_{part}_{key}: the ranks' parameters differ")
+            if not loss_err <= P13_LOSS_RTOL or not rel <= P13_PARAM_RTOL:
+                fail(f"p13_{part}_{key}: not within the bounds of the "
+                     f"one-process run")
+            for r in ranks:
+                t_idx = r["index"][1]
+                want = [x * n for x in per_step]
+                want_head = [per_step[1] * n] * 2 if t_idx > 0 else [0, 0]
+                # under pp every microbatch past the first starts at a
+                # Philox row offset
+                off = per_step[1] * n * (P13_PP_MICRO - 1) // P13_PP_MICRO \
+                    if pp > 1 else 0
+                if list(r[key]["launches"]) != want \
+                        or list(r[key]["head_offset_launches"]) != want_head \
+                        or list(r[key]["offset_launches"]) != [off, off]:
+                    fail(f"p13_{part}_{key}: rank {r['rank']} launches "
+                         f"{r[key]['launches']}, head offsets "
+                         f"{r[key]['head_offset_launches']}, offsets "
+                         f"{r[key]['offset_launches']}; expected {want}, "
+                         f"{want_head}, {[off, off]}")
+                launches = [a + b for a, b in zip(launches,
+                                                  r[key]["launches"])]
+                offsets = [a + b for a, b in zip(offsets,
+                                                 r[key]["offset_launches"])]
+                heads = [a + b for a, b in zip(
+                    heads, r[key]["head_offset_launches"])]
+            out[key] = {"losses": r0[key]["losses"],
+                        "one_losses": one["losses"], "loss_rel_err": loss_err,
+                        "rel_to_one": rel,
+                        "step_ms": [r[key]["step_ms"] for r in ranks],
+                        "one_step_ms": one["step_ms"],
+                        "all_reduce_per_step": ar,
+                        "state_bytes": r0[key]["state_bytes"],
+                        "one_state_bytes": one["state_bytes"]}
+            if tp > 1:
+                want_bytes = one["state_bytes"] \
+                    - r0[key]["sharded_state_bytes"] // tp
+                ratio = r0[key]["state_bytes"] / one["state_bytes"]
+                log(f"p13_{part}_{key}: param + moment bytes per rank "
+                    f"{r0[key]['state_bytes']} vs one process "
+                    f"{one['state_bytes']} (ratio {ratio:.4f})")
+                if r0[key]["state_bytes"] != want_bytes:
+                    fail(f"p13_{part}_{key}: per-rank state bytes "
+                         f"{r0[key]['state_bytes']}, expected {want_bytes}")
+                out[key]["state_ratio"] = ratio
+        if pp > 1 and "bucket_ms" in r0:
+            bms = sorted(r0["bucket_ms"])[1]
+            log(f"p13_{part}: {r0['ticks']} ticks per stack, hand-off bytes "
+                f"per tick {json.dumps(r0['handoff_bytes'])}; the dp x pp "
+                f"gradient bucket {r0['bucket_bytes']} B over "
+                f"{r0['backend']}: {bms:.3f} ms (all "
+                f"{[round(t, 3) for t in r0['bucket_ms']]}); a record of "
+                f"the host-staged path, not a scaling number")
+            out.update(ticks=r0["ticks"], handoff_bytes=r0["handoff_bytes"],
+                       bucket_ms=r0["bucket_ms"],
+                       bucket_bytes=r0["bucket_bytes"])
+        if "tiny" in r0:
+            t_card, t_cpu = r0["tiny"]["cuda"], r0["tiny"]["cpu"]
+            t_one = one_tiny
+            ckpt_digest, ckpt_files = one_tiny["ckpt"][part]
+            same = {"card_cpu": t_card["result_matrix"]
+                    == t_cpu["result_matrix"]
+                    and t_card["answers"] == t_cpu["answers"],
+                    "card_one": t_card["result_matrix"]
+                    == t_one["result_matrix"]
+                    and t_card["answers"] == t_one["answers"],
+                    "ranks": all(r["tiny"]["cuda"]["result_matrix"]
+                                 == t_card["result_matrix"] for r in ranks),
+                    "checkpoint": ckpt_digest == t_card["digest"]}
+            err = max(abs(a - b) / abs(b) for a, b in zip(t_card["losses"],
+                                                          t_one["losses"]))
+            log(f"p13_tiny_{part}: VQACLTrainer ER at tp {tp}, pp {pp} (f32, "
+                f"{len(t_card['losses'])} steps) vs the CPU run and one "
+                f"process on the card: loss max rel err {err:.3e} (tol "
+                f"{CL_LOSS_RTOL:g}); equal {json.dumps(same)}; rank 0's "
+                f"checkpoint files {ckpt_files}; "
+                f"launches per rank "
+                f"{[r['tiny']['cuda']['launches'] for r in ranks]}, head "
+                f"offset {[r['tiny']['cuda']['head_offset_launches'] for r in ranks]}")
+            if not all(same.values()) or not err <= CL_LOSS_RTOL:
+                fail(f"p13_tiny_{part}: the mesh run differs from the CPU "
+                     f"or the one-process run")
+            for r in ranks:
+                t = r["tiny"]["cuda"]
+                launches = [a + b for a, b in zip(launches, t["launches"])]
+                offsets = [a + b for a, b in zip(offsets,
+                                                 t["offset_launches"])]
+                heads = [a + b for a, b in zip(heads,
+                                               t["head_offset_launches"])]
+            out["tiny"] = {"equal": same, "loss_rel_err": err,
+                           "launches": [r["tiny"]["cuda"]["launches"]
+                                        for r in ranks]}
+        rec[part] = out
+    return rec, launches, offsets, heads
+
+
 def main(argv=None) -> int:
     global BASE_CSRC
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -3660,7 +4176,7 @@ def main(argv=None) -> int:
             c.launches = 0
             c.strided_launches = 0
         for c in counters[1:]:
-            c.offset_launches = 0
+            c.offset_launches = c.head_offset_launches = 0
 
     def read_counts():
         return tuple(c.launches for c in counters)
@@ -3727,6 +4243,9 @@ def main(argv=None) -> int:
     for (name, *shape, L_) in BF16_EDGES:
         check_attention(fa, name, *shape, L_, "bfloat16", text_len=L_)
     check_refused(fa)
+    # a second tensor-parallel rank's heads at the train shape (phase 13)
+    head_off = check_head_offset_attention(fa, TRAIN_BATCH, S, S, H, dk, L,
+                                           "bfloat16", DROPOUT, text_len=L)
     # NExT-QA's encoder (phase 10): 23 text + 16 clip positions, a
     # [H,23,23] bias; K1 at the eval batch, K1′ and K2 at the train batch,
     # dense and on merged q|k|v views (the trainer runs merged)
@@ -4342,13 +4861,22 @@ def main(argv=None) -> int:
     ext12["phase_s"] = time.time() - t0
     log(f"phase 12 in {ext12['phase_s']:.1f} s")
 
-    def row(name, source, replaces, launches, r, offsets=None):
+    # ---- 13. tensor and pipeline parallelism -----------------------------
+    t0 = time.time()
+    ext13, p13_k, p13_off, p13_head = tensor_pipeline()
+    ext13["phase_s"] = time.time() - t0
+    ext13["head_offset_check"] = head_off
+    log(f"phase 13 in {ext13['phase_s']:.1f} s")
+
+    def row(name, source, replaces, launches, r, offsets=None, heads=None):
         out = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces, "launches": launches,
                **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
                                     "bound_ms", "bound_by", "library_ms")}}
-        if offsets is not None:     # phase 12's ranks past the first
-            out["offset_launches"] = offsets
+        if offsets is not None:     # the dp ranks past the first, and the
+            out["offset_launches"] = offsets    # pipeline's microbatches
+        if heads is not None:       # phase 13's tp ranks past the first
+            out["head_offset_launches"] = heads
         return out
 
     fwd_src = "vqacl_tpu_torch/csrc/fused_attention_fwd.cu"
@@ -4361,22 +4889,27 @@ def main(argv=None) -> int:
     # CLI runs (VQA train and Test(), NExT-QA, the tiny card runs); phase
     # 11's answers over the extracted pack; phase 12's one-rank mesh and
     # its two ranks' steps and tiny CL runs (K1′/K2 of the second rank at
-    # its row offset: ``offset_launches``). N1 in phase 11's extraction
+    # its row offset: ``offset_launches``); phase 13's tp, pp and tp x pp
+    # ranks' steps and tiny CL runs (K1′/K2 of the second tp rank over
+    # its heads: ``head_offset_launches``; a pipeline's microbatches past
+    # the first at their row offsets). N1 in phase 11's extraction
     # runs (two per image) and CLI records
     kernels = [
         row("fused_attention_fwd", fwd_src,
             "vqacl_tpu/ops/fused_attention.py:159",
             eval_launches + loss_eval_k1 + cl_k[0] + p8_k[0] + p9_k[0]
-            + p10_k[0] + p11_k[0] + p12_k[0], k1),
+            + p10_k[0] + p11_k[0] + p12_k[0] + p13_k[0], k1),
         row("fused_attention_fwd_train", fwd_src,
             "vqacl_tpu/ops/fused_attention.py:199",
             train_k1p + fd_k1p + cl_k[1] + p8_k[1] + p9_k[1] + p10_k[1]
-            + p12_k[1], k1p, p12_off[0]),
+            + p12_k[1] + p13_k[1], k1p, p12_off[0] + p13_off[0],
+            p13_head[0]),
         row("fused_attention_bwd",
             "vqacl_tpu_torch/csrc/fused_attention_bwd.cu",
             "vqacl_tpu/ops/fused_attention.py:272",
             train_k2 + fd_k2 + cl_k[2] + p8_k[2] + p9_k[2] + p10_k[2]
-            + p12_k[2], k2, p12_off[1]),
+            + p12_k[2] + p13_k[2], k2, p12_off[1] + p13_off[1],
+            p13_head[1]),
         row("dw_splitk", "vqacl_tpu_torch/csrc/dw_splitk.cu",
             "scripts/mm_bench.py:121", dw_launches, k5),
         # not a Pallas kernel: the two greedy suppressions JAX runs as a
@@ -4433,6 +4966,9 @@ def main(argv=None) -> int:
         "extraction": ext11, "extraction_launches": list(p11_k),
         "data_parallel": ext12, "data_parallel_launches": p12_k,
         "data_parallel_offset_launches": p12_off,
+        "tensor_pipeline": ext13, "tensor_pipeline_launches": p13_k,
+        "tensor_pipeline_offset_launches": p13_off,
+        "tensor_pipeline_head_offset_launches": p13_head,
         "extraction_n1_launches": n1_launches,
         "nms_kernel_times": {"rpn": pick(n1), "sweep": pick(n1_sweep)},
         "nextqa_kernel_times": {"K1": pick(nq_k1), "K1p": pick(nq_k1p),

@@ -39,8 +39,13 @@ rehearsal itself in rank mode, over gloo on the CPU): the replicated and
 FSDP steps, the kernels at the second rank's row offset (the plain
 versions here), the tiny CL run with the sharded cache on the "card" and
 on the CPU, and their launches and offset launches in the kernels line —
-2 steps per run and 16/8/8 items per task in the tiny run — and that
-without CUDA the real script prints no result and exits non-zero.
+2 steps per run and 16/8/8 items per task in the tiny run —; in phase
+13 the tp, pp and tp x pp groups (two, two and four ranks of the
+rehearsal in rank mode) against their one-process steps, the tiny tp
+and pp ER runs (8/8/8 items) against the CPU's and one process's, the
+head-offset check of phase 2, and their launches in the kernels line;
+and that without CUDA the real script prints no result and exits
+non-zero.
 """
 
 import json
@@ -58,6 +63,8 @@ REHEARSAL = r"""
 import os, sys, time
 import torch
 from torch.overrides import TorchFunctionMode
+if "--rank" in sys.argv:   # the script's ranks share the host's cores
+    torch.set_num_threads(1)
 
 def to_cpu(x):
     if isinstance(x, str) and x.startswith("cuda"):
@@ -130,20 +137,25 @@ def rows(what, route, q, k, v, more=()):
 def route(q, k, v, H):   # the wrappers' validation, before any launch
     r = fa.fwd_route(q.dtype, q.shape[-1] // H, q.shape[1], k.shape[1])
     return rows("fused_attention", r, q, k, v)
-def counted(q, k, v, bias, mask, H, dropout_rate=0.0, seed=None, bh0=0):
+def counted(q, k, v, bias, mask, H, dropout_rate=0.0, seed=None, bh0=0,
+            Hc=None, h0=0):
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         fa.bwd_route(q.dtype, q.shape[-1] // H, q.shape[1], k.shape[1],
                      dropout_rate)
-        return dispatch(q, k, v, bias, mask, H, dropout_rate, seed, bh0)
+        return dispatch(q, k, v, bias, mask, H, dropout_rate, seed, bh0, Hc,
+                        h0)
     counted.strided_launches += route(q, k, v, H)
     counted.launches += 1
     return fa.fused_attention_reference(q, k, v, bias, mask, H)
-def counted_fwd_train(*a):
+def counted_fwd_train(*a, **kw):
     counted_fwd_train.strided_launches += route(a[0], a[1], a[2], a[6])
     counted_fwd_train.launches += 1
-    counted_fwd_train.offset_launches += len(a) > 8 and a[8] != 0
-    return fwd_train(*a)             # the plain version on CPU tensors
+    bh0 = a[8] if len(a) > 8 else kw.get("bh0", 0)
+    h0 = a[10] if len(a) > 10 else kw.get("h0", 0)
+    counted_fwd_train.offset_launches += bh0 != 0
+    counted_fwd_train.head_offset_launches += h0 != 0
+    return fwd_train(*a, **kw)       # the plain version on CPU tensors
 def counted_bwd(*a, **kw):
     q, k, v, do, H = a[0], a[1], a[2], a[5], a[6]
     r = fa.bwd_route(q.dtype, q.shape[-1] // H, q.shape[1], k.shape[1], a[8])
@@ -153,9 +165,11 @@ def counted_bwd(*a, **kw):
     counted_bwd.launches += 1
     counted_bwd.strided_launches += strided
     counted_bwd.offset_launches += kw.get("bh0", 0) != 0
+    counted_bwd.head_offset_launches += kw.get("h0", 0) != 0
     return res
 for f in (counted, counted_fwd_train, counted_bwd):
     f.launches = f.strided_launches = f.offset_launches = 0
+    f.head_offset_launches = 0
 fa.fused_attention = counted
 fa.fused_attention_fwd_train = counted_fwd_train
 fa.fused_attention_bwd = counted_bwd
@@ -238,6 +252,12 @@ chip_smoke.P12_STEPS = 2
 chip_smoke.P12_TINY = (16, 8, 8)
 chip_smoke.RANK_CMD = [sys.executable, "-c",
                        os.environ["CHIP_SMOKE_REHEARSAL"]]
+# phase 13: the same ranks; a smaller tiny run. The tiny bf16 model here
+# (d_model 32, lr 1e-2) turns the tp partial sums' bf16 roundings into
+# up to ~0.14 of an update through Adam (2.4-2.6e-2 at t5-base on the
+# card): the bound of this control-flow rehearsal is 0.25
+chip_smoke.P13_TINY = (8, 8, 8)
+chip_smoke.P13_PARAM_RTOL = 0.25
 with CudaOnCpu():
     sys.exit(chip_smoke.main())
 """
@@ -277,10 +297,11 @@ def test_chip_smoke_rehearsal_on_cpu():
     kernels = json.loads(lines[-3])["kernels"]
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
-    # K1′ and K2 also note phase 12's launches at a row offset
+    # K1′ and K2 also note phase 12's and 13's launches at a row offset
+    # and phase 13's over a tp rank's heads
+    offs = {"offset_launches", "head_offset_launches"}
     assert [set(k) for k in kernels] == [
-        keys, keys | {"offset_launches"}, keys | {"offset_launches"}, keys,
-        keys]
+        keys, keys | offs, keys | offs, keys, keys]
     assert [k["name"] for k in kernels] == [
         "fused_attention_fwd", "fused_attention_fwd_train",
         "fused_attention_bwd", "dw_splitk", "greedy_nms"]
@@ -407,13 +428,14 @@ def test_chip_smoke_rehearsal_on_cpu():
     p11_k = summary["extraction_launches"]
     p12 = summary["data_parallel"]
     p12_k = summary["data_parallel_launches"]
+    p13_k = summary["tensor_pipeline_launches"]
     assert k1["launches"] == 2 * 3 + 6 + cl_k[0] + p8_k[0] + p9_k[0] \
-        + p10_k[0] + p11_k[0] + p12_k[0]
+        + p10_k[0] + p11_k[0] + p12_k[0] + p13_k[0]
     assert "fused_attention launches=6 (2/step)" in r.stdout
     # K1'/K2: 4 train steps x 2 encoder layers, and 4 fused-decoder
     # steps x (2 encoder + 2 x 2 decoder) attentions, plus the CL loops
     assert k1p["launches"] == k2["launches"] == 2 * 4 + 6 * 4 + cl_k[1] \
-        + p8_k[1] + p9_k[1] + p10_k[1] + p12_k[1]
+        + p8_k[1] + p9_k[1] + p10_k[1] + p12_k[1] + p13_k[1]
     assert cl_k[1] == cl_k[2]
     assert "train_step: bs 8 bf16" in r.stdout
     assert "launches over 4 steps: K1=0 K1'=8 K2=8" in r.stdout
@@ -591,8 +613,11 @@ def test_chip_smoke_rehearsal_on_cpu():
     # and its tiny run's train and replay steps
     assert summary["data_parallel_offset_launches"] == [
         3 * 4 + tiny12[1][1], 3 * 4 + tiny12[1][2]]
-    assert k1p["offset_launches"] == k2["offset_launches"] == \
-        summary["data_parallel_offset_launches"][0]
+    p13_off = summary["tensor_pipeline_offset_launches"]
+    assert k1p["offset_launches"] == \
+        summary["data_parallel_offset_launches"][0] + p13_off[0]
+    assert k2["offset_launches"] == \
+        summary["data_parallel_offset_launches"][1] + p13_off[1]
     assert all(p12["offset_check"]["same"].values())
     assert p12["rel_to_one_process"] <= 3e-2
     assert p12["fsdp_rel_to_replicated"] <= 3e-2
@@ -608,6 +633,46 @@ def test_chip_smoke_rehearsal_on_cpu():
     assert "bit-equal to the meshless step: True" in r.stdout
     assert "dp all_reduce: one flat f32 bucket of" in r.stdout
     assert sum(l.startswith("rank 1: offset_check:") for l in lines) == 1
+    # phase 13 (2 layers of 2 heads here): (a) tp = 2, 3 steps at dropout
+    # 0 and 0.1, 2 K1′ + 2 K2 per step per rank, rank 1's over its head;
+    # (b) pp = 2, 2 steps, one layer per stage x 4 microbatches; (c) tp x
+    # pp on four ranks; (d) the tiny runs equal the CPU's and one
+    # process's, rank 0's checkpoint loaded; (e) phase 2's head offset
+    p13 = summary["tensor_pipeline"]
+    assert all(p13["head_offset_check"]["same"].values())
+    assert p13["head_offset_check"]["heads"] == [1, 2]
+    for part, keys_ in (("tp", ("d0", "d0.1")), ("pp", ("d0",)),
+                        ("tppp", ("d0",))):
+        for key in keys_:
+            run = p13[part][key]
+            assert run["rel_to_one"] <= 0.25 and run["loss_rel_err"] <= 1e-2
+            assert len(run["step_ms"]) == (4 if part == "tppp" else 2)
+    assert p13["tp"]["d0"]["all_reduce_per_step"]["all_reduce_tp_bytes"] > 0
+    assert "all_reduce_dpp_bytes" not in p13["tp"]["d0"][
+        "all_reduce_per_step"]
+    assert p13["tp"]["d0"]["state_ratio"] < 1
+    assert p13["pp"]["ticks"] == 5 and p13["pp"]["bucket_bytes"] > 0
+    assert p13["pp"]["d0"]["all_reduce_per_step"][
+        "all_reduce_dpp_bytes"] == p13["pp"]["bucket_bytes"]
+    for part in ("tp", "pp"):
+        assert all(p13[part]["tiny"]["equal"].values()), part
+    tiny13 = p13["tp"]["tiny"]["launches"] + p13["pp"]["tiny"]["launches"]
+    # per rank: tp 2 x 3 steps x 2 layers; pp 2 steps x 4 microbatches;
+    # tp x pp 2 steps x 4 microbatches on four ranks
+    assert p13_k == [sum(t[0] for t in tiny13),
+                     2 * 12 + 2 * 8 + 4 * 8 + sum(t[1] for t in tiny13),
+                     2 * 12 + 2 * 8 + 4 * 8 + sum(t[2] for t in tiny13)]
+    head13 = summary["tensor_pipeline_head_offset_launches"]
+    assert head13[0] == head13[1] == k1p["head_offset_launches"] == \
+        k2["head_offset_launches"] == 12 + 2 * 8 + p13["tp"]["tiny"][
+            "launches"][1][1]
+    for part in ("tp", "pp"):
+        for where in ("cuda", "cpu"):
+            assert any(l.startswith(f"rank 0: p13_tiny_{part}_{where}_rank0:"
+                                    f" wall ") for l in lines), (part, where)
+    assert any(l.startswith("p13_tiny_one: wall ") for l in lines)
+    assert any(l.startswith("head_offset_check: heads 1..1 of 2")
+               for l in lines)
 
 
 def test_chip_smoke_without_cuda_prints_no_result():

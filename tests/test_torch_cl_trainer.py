@@ -342,7 +342,9 @@ REFUSED = {
     # both device caches are taken since the parallel slice (the sharded
     # one over any dp); a table type the cache does not know is refused
     "device_cache": ("data", "device_cache_dtype", "float16"),
-    "param_layout_tp": ("mesh", "param_layout", "tp"),
+    # the "tp" layout is taken since the tp/pp slice (whole leaves at
+    # tp = 1); a misspelt one is refused
+    "param_layout_tp": ("mesh", "param_layout", "Tp"),
     # fsdp is taken since the parallel slice; a layout nobody knows is not
     "param_layout_fsdp": ("mesh", "param_layout", "fsdp_tp"),
     # one process cannot run a dp of 2: no fallback to fewer ranks

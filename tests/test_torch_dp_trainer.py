@@ -11,8 +11,9 @@ trainer's within 1e-6 (as ``tests/test_cl_trainer_mesh.py`` holds its
 layouts), every predict's answers must be the same, and the final
 parameters must be the one-process run's up to reduction order. The
 checkpoints rank 0 writes (replicated and FSDP) load in JAX with those
-parameters. A global batch dp does not divide raises on the ranks; tp,
-pp and the "tp" layout still raise. ``cli.vqacl_train.main`` at
+parameters. A global batch dp does not divide raises on the ranks; so
+do mesh sizes other than the mesh's, an unknown layout, and a microbatch
+count, heads or layers the mesh does not divide. ``cli.vqacl_train.main`` at
 ``--mesh_dp 2`` on the two ranks writes the one-process CLI run's files
 and metrics.
 """
@@ -182,14 +183,31 @@ def test_rank0_checkpoint_loads_in_jax(runs, layout):
 
 
 def test_indivisible_batch_and_tp_pp_raise(runs, tmp_path):
+    from vqacl_tpu_torch.parallel.mesh import MeshContext
+
     assert "valid_batch_size=15 is not divisible by dp=2" in \
         runs["ranks"][0]["bad"]
-    for part, name, value in (("mesh", "tp", 2), ("mesh", "pp", 2),
-                              ("mesh", "param_layout", "tp")):
+    # tp, pp and the "tp" layout are taken since the tp/pp slice; what
+    # still raises: sizes other than the mesh's, a layout nobody knows,
+    # and a microbatch count, heads or layers the mesh does not divide
+    # (refused before any collective: a context without a group here)
+    for mesh, sets, msg in (
+            (None, {"mesh.tp": 2}, "mesh.tp=2, but the mesh has tp=1"),
+            (None, {"mesh.pp": 2}, "mesh.pp=2, but the mesh has pp=1"),
+            (None, {"mesh.param_layout": "tp_fsdp"}, "pick from"),
+            ({"pp": 2}, {"mesh.pp": 2, "mesh.pp_micro": 3},
+             "batch_size=16 is not divisible by dp=1 x pp_micro=3"),
+            ({"tp": 3}, {"mesh.tp": 3},
+             "model.num_heads=4 is not divisible by tp=3"),
+            ({"pp": 2}, {"mesh.pp": 2, "model.num_layers": 3},
+             "model.num_layers=3 is not divisible by pp=2")):
         _, tc, params = _configs(tmp_path, tmp_path)
-        setattr(getattr(tc, part), name, value)
-        with pytest.raises(ValueError, match="not ported yet"):
-            trainer_run(tc, params, DATA)
+        for key, value in sets.items():
+            part, name = key.split(".")
+            setattr(getattr(tc, part), name, value)
+        ctx = None if mesh is None else MeshContext(**mesh)
+        with pytest.raises(ValueError, match=msg):
+            trainer_run(tc, params, DATA, ctx=ctx)
 
 
 def test_cli_at_mesh_dp_2_matches_one_process(runs, cli_root, tmp_path,

@@ -9,7 +9,9 @@ faked as ``tests/test_multihost.py`` fakes it); ``gather_rows`` gives
 every rank's rows bit for bit (a -0.0 and a NaN payload survive the
 int32-word sum); ``replicate`` gives rank 0's tensors and generator
 state on every rank; ``make_mesh`` on a group of two takes dp -1 or 2
-and raises, with JAX's message, for another dp and for tp or pp above 1.
+and raises, with JAX's message, for another dp or a tp·pp the ranks do
+not divide; tp = 2 or pp = 2 over two ranks take JAX's (dp, tp, pp)
+order.
 """
 
 import pickle
@@ -114,5 +116,11 @@ def test_make_mesh_on_two_ranks_follows_jax_arithmetic(two_ranks):
     assert errs["{'dp': 3}"] == "dp*tp*pp=3 != n_devices=2"
     with pytest.raises(AssertionError, match=r"dp\*tp\*pp=3 != n_devices=2"):
         jax_make_mesh(dp=3, devices=jax.devices()[:2])
-    for k in ("{'tp': 2}", "{'pp': 2}"):
-        assert "not ported yet" in errs[k]
+    # tp and pp take the two ranks as JAX's (dp, tp, pp) reshape does;
+    # a tp the world does not divide still raises with JAX's message
+    for k, r in (("{'tp': 2}", 0), ("{'pp': 2}", 0), ("{'tp': 2}", 1),
+                 ("{'pp': 2}", 1)):
+        shape = (1, 2, 1) if "tp" in k else (1, 1, 2)
+        idx = (0, r, 0) if "tp" in k else (0, 0, r)
+        assert two_ranks[r]["mesh_errors"][k] == shape + idx
+    assert errs["{'tp': 3}"] == "2 devices not divisible by tp*pp=3"

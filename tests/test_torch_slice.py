@@ -295,7 +295,8 @@ mods = [m.name for m in pkgutil.walk_packages(vqacl_tpu_torch.__path__,
 for m in mods:
     importlib.import_module(m)
 assert {"vqacl_tpu_torch.parallel.mesh", "vqacl_tpu_torch.parallel.multihost",
-        "vqacl_tpu_torch.parallel.sharding"} <= set(mods)
+        "vqacl_tpu_torch.parallel.sharding",
+        "vqacl_tpu_torch.parallel.pipeline"} <= set(mods)
 from vqacl_tpu_torch import make_mesh
 assert make_mesh(device="cpu").dp == 1
 runpy.run_path("chip_smoke.py", run_name="chip_smoke_import_check")

@@ -5,7 +5,8 @@ data-parallel tests.
 start method), each of which joins a process group through a file store
 under ``tmp_path`` (no TCP port, so parallel test workers cannot
 collide), builds its ``MeshContext`` with ``make_mesh(dp=n,
-device="cpu", init_method=...)`` and calls ``fn(ctx, **kw)``. Each
+device="cpu", init_method=...)`` (or, with ``mesh={"tp": 2, ...}``,
+those axes and dp taking the rest) and calls ``fn(ctx, **kw)``. Each
 rank's return value comes back through a file, in rank order. A rank
 that raises fails the call with its traceback; ranks still running after
 ``timeout`` seconds are killed and fail it, so a deadlock fails a test
@@ -23,14 +24,14 @@ import traceback
 import numpy as np
 
 
-def _entry(rank, n, tmp, fn, kw):
+def _entry(rank, n, tmp, fn, kw, mesh):
     out = os.path.join(tmp, f"rank{rank}.pkl")
     try:
         import torch
         torch.set_num_threads(1)
         from vqacl_tpu_torch.parallel.mesh import make_mesh
 
-        ctx = make_mesh(dp=n, device="cpu", backend="gloo",
+        ctx = make_mesh(**(mesh or {"dp": n}), device="cpu", backend="gloo",
                         init_method=f"file://{os.path.join(tmp, 'store')}",
                         rank=rank, world_size=n, timeout_s=120)
         result = ("ok", fn(ctx, **kw))
@@ -46,15 +47,16 @@ def _entry(rank, n, tmp, fn, kw):
         pass
 
 
-def spawn(fn, n, tmp_path, timeout=240, **kw):
+def spawn(fn, n, tmp_path, timeout=240, mesh=None, **kw):
     """[fn(ctx_rank, **kw) for each rank], or AssertionError naming the
-    rank that failed, timed out or died."""
+    rank that failed, timed out or died. ``mesh``: ``make_mesh``'s axis
+    sizes (default ``{"dp": n}``)."""
     import multiprocessing as mp
 
     tmp = str(tmp_path)
     os.makedirs(tmp, exist_ok=True)
     ctx = mp.get_context("spawn")
-    procs = [ctx.Process(target=_entry, args=(r, n, tmp, fn, kw))
+    procs = [ctx.Process(target=_entry, args=(r, n, tmp, fn, kw, mesh))
              for r in range(n)]
     for p in procs:
         p.start()
@@ -115,10 +117,11 @@ def w_multihost(ctx, dicts, rows):
                replicated=tree["a"].numpy(),
                gen=torch.rand(4, generator=tree["gen"]).numpy())
     errs = {}
-    for kw in ({"dp": 3}, {"dp": 1}, {"tp": 2}, {"pp": 2}):
+    for kw in ({"dp": 3}, {"dp": 1}, {"tp": 2}, {"pp": 2}, {"tp": 3}):
         try:
-            make_mesh(device="cpu", **kw)
-            errs[str(kw)] = None
+            m = make_mesh(device="cpu", **kw)
+            errs[str(kw)] = (m.dp, m.tp, m.pp, m.dp_index, m.tp_index,
+                             m.pp_stage)
         except ValueError as e:
             errs[str(kw)] = str(e)
     out.update(mesh_errors=errs, auto_dp=make_mesh(device="cpu").dp,
@@ -149,11 +152,13 @@ def _step_state(tc, params, seed=1):
 
 
 def run_steps(tc, params, batches, kind, ctx=None, fsdp_layout=False,
-              reg_lambda=0.0):
+              reg_lambda=0.0, tp_layout=False):
     """3 steps of ``kind`` ("train", "der", "ewc", "mas") from the same
     state: per-step metrics, then the final params, proto and (EWC/MAS)
     importance as numpy. With ``ctx``, each rank runs its rows
-    (``shard_batch``) on the mesh; ``fsdp_layout`` keeps FSDP slices."""
+    (``shard_batch``) on the mesh (the pipelined stacks over its pp group
+    in ``tc.mesh.pp_micro`` microbatches when pp > 1); ``fsdp_layout``
+    keeps FSDP slices, ``tp_layout`` the rank's tp slices."""
     import torch
 
     from vqacl_tpu_torch.cl import regularizers as R
@@ -163,15 +168,22 @@ def run_steps(tc, params, batches, kind, ctx=None, fsdp_layout=False,
                                             make_train_step)
 
     state = _step_state(tc, params)
-    layout = None
-    if fsdp_layout:
-        layout = FsdpLayout(ctx, state.params)
+    if ctx is not None and ctx.pp > 1:
+        tc.model.pp_mesh, tc.model.pp_micro = ctx, int(tc.mesh.pp_micro)
+    layout = tpl = None
+    if fsdp_layout or tp_layout:
+        from vqacl_tpu_torch.parallel.sharding import TpLayout
         from vqacl_tpu_torch.train.optim import make_transform
+        if tp_layout:
+            tpl = layout = TpLayout(ctx, state.params)
+        else:
+            layout = FsdpLayout(ctx, state.params)
         state = state._replace(params=layout.shard(state.params))
         state = state._replace(opt_state=make_transform(tc.train).init(
             state.params))
     accum = int(tc.train.grad_accum)
-    kw = dict(dtype=torch.float32, device="cpu", mesh_ctx=ctx, fsdp=layout)
+    kw = dict(dtype=torch.float32, device="cpu", mesh_ctx=ctx,
+              fsdp=None if tpl is not None else layout, tp=tpl)
     out = {"metrics": []}
     if kind in ("ewc", "mas"):
         step = R.make_importance_step(tc, kind, dtype=torch.float32,
@@ -200,7 +212,7 @@ def run_steps(tc, params, batches, kind, ctx=None, fsdp_layout=False,
     out["proto"] = {k: getattr(state.proto, k).numpy()
                     for k in state.proto._fields}
     out["generator"] = state.generator.get_state().numpy()
-    if layout is not None:
+    if layout is not None and tpl is None:
         out["fsdp_bytes"] = _nbytes(state.params, state.opt_state.mu,
                                     state.opt_state.nu)
         from vqacl_tpu_torch.train.optim import tree_leaves
@@ -213,10 +225,12 @@ def run_steps(tc, params, batches, kind, ctx=None, fsdp_layout=False,
 
 def w_steps(ctx, cases):
     """``run_steps`` for every case {name: (tc, params, batches, kind,
-    fsdp)} on this rank's mesh."""
+    fsdp[, tp])} on this rank's mesh."""
     return {name: run_steps(tc, params, batches, kind, ctx=ctx,
-                            fsdp_layout=fsdp)
-            for name, (tc, params, batches, kind, fsdp) in cases.items()}
+                            fsdp_layout=fsdp, tp_layout=bool(tp[:1] and
+                                                             tp[0]))
+            for name, (tc, params, batches, kind, fsdp, *tp)
+            in cases.items()}
 
 
 def trainer_run(tc, params, data_kw, ctx=None, record=False):

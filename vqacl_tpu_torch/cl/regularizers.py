@@ -57,15 +57,29 @@ def init_reg_state(params) -> RegState:
     return RegState(omega=tree_map(torch.zeros_like, f32), anchor=f32)
 
 
-def penalty(params, reg: RegState) -> torch.Tensor:
+def penalty(params, reg: RegState, sliced=None) -> torch.Tensor:
     """``Σ_i ω_i (θ_i − θ*_i)²`` in f32 over every leaf (the λ/2 scaling
-    lives in the caller); differentiable in ``params``."""
-    total = torch.zeros((), dtype=torch.float32,
-                        device=tree_leaves(params)[0].device)
-    for p, w, a in zip(tree_leaves(params), tree_leaves(reg.omega),
-                       tree_leaves(reg.anchor)):
-        total = total + torch.sum(w * (p.float() - a) ** 2)
-    return total
+    lives in the caller); differentiable in ``params``. Under tensor
+    parallelism (``params`` and ``reg`` the rank's tp slices; ``sliced``
+    the leaves' tp dimensions, None where whole) the sum over the sliced
+    leaves is summed over the tp group (``reduce_from_tp``: each rank's
+    gradient stays its slice's), the whole leaves' added once."""
+    from vqacl_tpu_torch.parallel.mesh import reduce_from_tp
+
+    dev = tree_leaves(params)[0].device
+    total = torch.zeros((), dtype=torch.float32, device=dev)
+    cut = torch.zeros((), dtype=torch.float32, device=dev)
+    leaves = tree_leaves(params)
+    sliced = [None] * len(leaves) if sliced is None else sliced
+    for p, w, a, d in zip(leaves, tree_leaves(reg.omega),
+                          tree_leaves(reg.anchor), sliced):
+        term = torch.sum(w * (p.float() - a) ** 2)
+        if d is None:
+            total = total + term
+        else:
+            cut = cut + term
+    return total if all(d is None for d in sliced) else \
+        total + reduce_from_tp(cut)
 
 
 def make_importance_step(cfg, kind: str, dtype=torch.bfloat16,
@@ -85,8 +99,11 @@ def make_importance_step(cfg, kind: str, dtype=torch.bfloat16,
     importance is that of the global batch, as JAX's global-batch
     ``jax.grad`` gives it: each rank differentiates its share of the
     objective (EWC's row mean over the global batch, MAS's masked mean
-    over the all-reduced count), the gradients are summed over the ranks,
-    and only then squared (EWC) or taken in magnitude (MAS)."""
+    over the count all-reduced over dp, both divided by pp), the
+    gradients are summed over dp × pp (train/step.py's rule), and only
+    then squared (EWC) or taken in magnitude (MAS). ``params`` is the full
+    tree: the forward runs as on one device (under pp, through the
+    pipelined stacks of ``cfg.model.pp_mesh``)."""
     if kind not in KINDS:
         raise ValueError(f"unknown regularizer {kind!r}; pick from {KINDS}")
     from vqacl_tpu_torch.train.step import (_TRAIN_KEYS, _dp, _to_device,
@@ -96,6 +113,7 @@ def make_importance_step(cfg, kind: str, dtype=torch.bfloat16,
     mcfg = cfg.model
     ctx = _dp(mesh_ctx)
     dp = ctx.dp if ctx is not None else 1
+    pp = ctx.pp if ctx is not None else 1
 
     def objective(params, proto: ProtoState, b: Dict) -> torch.Tensor:
         hidden, enc_mask = vlt5.encode(params, mcfg, b["input_ids"],
@@ -109,13 +127,14 @@ def make_importance_step(cfg, kind: str, dtype=torch.bfloat16,
         if kind == "ewc":
             loss = vlt5.weighted_lm_loss(logits, b["target_ids"],
                                          b["scores"])
-            return loss / dp if dp > 1 else loss
+            return loss / (dp * pp) if dp * pp > 1 else loss
         mask = (b["target_ids"] != -100).float()
         sq = torch.sum(logits.float() ** 2, dim=-1)               # [B,T]
         count = mask.sum()
         if ctx is not None:
-            count = ctx.all_reduce(count.clone())
-        return torch.sum(sq * mask) / count.clamp_min(1.0)
+            count = ctx.all_reduce(count.clone(), "dp")
+        obj = torch.sum(sq * mask) / count.clamp_min(1.0)
+        return obj / pp if pp > 1 else obj
 
     def step(acc, params, proto: ProtoState, batch: Dict):
         b = _to_device(batch, _TRAIN_KEYS, dev)
@@ -123,7 +142,7 @@ def make_importance_step(cfg, kind: str, dtype=torch.bfloat16,
         leaves = tree_leaves(live)
         grads = torch.autograd.grad(objective(live, proto, b), leaves,
                                     allow_unused=True)
-        if ctx is not None:
+        if ctx is not None:     # over dp x pp
             grads = tree_leaves(reduce_grads(ctx, tree_unflatten(params, [
                 torch.zeros_like(p) if g is None else g
                 for p, g in zip(leaves, grads)])))

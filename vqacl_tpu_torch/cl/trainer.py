@@ -44,10 +44,22 @@ task. Only the main process writes checkpoints, logs, the prototype
 banks and ``metrics.json``. ``mesh.param_layout="fsdp"`` keeps each
 rank's slices of the large parameters and their moments
 (``parallel.sharding.FsdpLayout``); ``data.device_cache_sharded``
-row-shards the device cache over dp. Refused with ``ValueError``:
-``mesh.tp``/``pp`` above 1 and the "tp" layout (not ported yet), a
-``mesh.dp`` other than the mesh's, and global batch sizes dp does not
-divide.
+row-shards the device cache over dp.
+
+Tensor and pipeline parallelism (a mesh with tp or pp above 1, as
+``make_mesh`` builds it): the tp and pp ranks of one dp index run the
+same rows. ``mesh.param_layout="tp"`` keeps each rank's Megatron slices
+and their moments (``TpLayout``; "fsdp" at tp > 1 shards those slices
+over dp, as JAX composes them; "replicated" keeps the whole tree, cut
+per step); the train steps run the tp blocks. With pp > 1 the trainer
+sets ``cfg.model.pp_mesh``/``pp_micro`` as JAX's does, so every encode
+and teacher-forced decode (train, replay, capture, importance, eval
+encode) runs the GPipe stacks; greedy and beam decoding are not
+pipelined. Predict and validation run on the gathered tree, and
+checkpoints hold the full leaves. Refused with ``ValueError``: a layout
+nobody knows, a ``mesh.dp``/``tp``/``pp`` other than the mesh's, global
+batch sizes dp (× pp_micro under pp) does not divide, and heads, d_ff or
+layers that tp or pp do not divide.
 
 ``wall_s`` sums host seconds by phase (``loader``: waiting for the next
 train or memory batch; ``train``: the step calls and the epoch-end loss
@@ -92,7 +104,8 @@ from vqacl_tpu_torch.parallel.mesh import make_mesh, replicate, shard_batch
 from vqacl_tpu_torch.parallel.multihost import (barrier, is_main_process,
                                                 merge_quesid2ans,
                                                 process_count)
-from vqacl_tpu_torch.parallel.sharding import FsdpLayout
+from vqacl_tpu_torch.parallel.sharding import (FsdpLayout, StoredLayout,
+                                               TpLayout)
 from vqacl_tpu_torch.train.checkpoint import (AsyncCheckpointer,
                                               load_checkpoint,
                                               load_reference_prototypes,
@@ -106,6 +119,7 @@ from vqacl_tpu_torch.utils.config import resolve_merged_qkv
 from vqacl_tpu_torch.utils.device import resolve_device
 
 CL_REGS = ("none", "ewc", "mas", "der", "derpp")
+LAYOUTS = ("replicated", "tp", "fsdp")
 
 
 class LossMeter:
@@ -132,28 +146,37 @@ def _refuse_unported(cfg, ctx) -> None:
         raise ValueError(f"data.device_cache_dtype="
                          f"{cfg.data.device_cache_dtype!r}; pick from "
                          f"{tuple(DC.DTYPES)}")
-    if cfg.mesh.param_layout == "tp":
-        raise ValueError("mesh.param_layout='tp': the tensor-parallel layout "
-                         "is not ported yet")
-    if cfg.mesh.param_layout not in ("replicated", "fsdp"):
+    if cfg.mesh.param_layout not in LAYOUTS:
         raise ValueError(f"mesh.param_layout={cfg.mesh.param_layout!r}; pick "
-                         f"from ('replicated', 'fsdp')")
-    for axis in ("tp", "pp"):
-        if int(getattr(cfg.mesh, axis)) > 1:
-            raise ValueError(f"mesh.{axis}={getattr(cfg.mesh, axis)}: tensor "
-                             f"and pipeline parallelism are not ported yet")
+                         f"from {LAYOUTS}")
     if int(cfg.mesh.dp) not in (-1, ctx.dp):
         raise ValueError(f"mesh.dp={cfg.mesh.dp}, but the mesh has "
                          f"dp={ctx.dp} ranks")
+    for axis in ("tp", "pp"):
+        if int(getattr(cfg.mesh, axis)) != getattr(ctx, axis):
+            raise ValueError(f"mesh.{axis}={getattr(cfg.mesh, axis)}, but the "
+                             f"mesh has {axis}={getattr(ctx, axis)}")
+    m = cfg.model
+    for what, n, axis in (("num_heads", m.num_heads, "tp"),
+                          ("d_ff", m.d_ff, "tp"),
+                          ("num_layers", m.num_layers, "pp"),
+                          ("num_decoder_layers", m.num_decoder_layers, "pp")):
+        if n % getattr(ctx, axis):
+            raise ValueError(f"model.{what}={n} is not divisible by "
+                             f"{axis}={getattr(ctx, axis)}")
     accum = int(cfg.train.grad_accum)
+    micro = int(cfg.mesh.pp_micro) if ctx.pp > 1 else 1
     for name, size, div in (("batch_size", cfg.train.batch_size,
-                             ctx.dp * accum),
+                             ctx.dp * accum * micro),
                             ("valid_batch_size", cfg.train.valid_batch_size,
-                             ctx.dp)):
+                             ctx.dp * micro)):
         if size % div:
             raise ValueError(f"train.{name}={size} is not divisible by "
-                             f"dp={ctx.dp}" + (f" x grad_accum={accum}"
-                                                if div != ctx.dp else ""))
+                             f"dp={ctx.dp}"
+                             + (f" x grad_accum={accum}" if accum > 1
+                                and name == "batch_size" else "")
+                             + (f" x pp_micro={micro}" if micro > 1
+                                else ""))
     if cfg.train.cl_reg not in CL_REGS:
         raise ValueError(f"train.cl_reg={cfg.train.cl_reg!r}; pick from "
                          f"{CL_REGS}")
@@ -178,6 +201,12 @@ class VQACLTrainer:
         # "auto" → merged projections on one device, separate ones on a
         # mesh of more, as JAX's trainer resolves it
         resolve_merged_qkv(cfg.model, n_devices=self.ctx.world_size)
+        # pipelined stacks (parallel/pipeline.py): recorded on the model
+        # config (not a field), so encode()/decode_hidden() route through
+        # them, as JAX's trainer does (trainer.py:83-87)
+        if self.ctx.pp > 1:
+            cfg.model.pp_mesh = self.ctx
+            cfg.model.pp_micro = int(cfg.mesh.pp_micro)
         self.cfg = cfg
         self.data = data
         self.tok = tokenizer
@@ -195,9 +224,15 @@ class VQACLTrainer:
         # optimizer per group goes through it
         self._tx = make_transform(cfg.train)
         # params placed per mesh.param_layout: rank 0's broadcast, then
-        # this rank's FSDP slices (the moments made from them follow)
-        self._fsdp = FsdpLayout(self.ctx, params) \
-            if cfg.mesh.param_layout == "fsdp" else None
+        # this rank's tp slices ("tp", and "fsdp" at tp > 1) and their
+        # FSDP slices (the moments made from them follow)
+        layout = cfg.mesh.param_layout
+        self._tp = TpLayout(self.ctx, params) \
+            if layout in ("tp", "fsdp") and self.ctx.tp > 1 else None
+        self._fsdp = FsdpLayout(self.ctx, params, tp=self._tp) \
+            if layout == "fsdp" else None
+        self._layout = StoredLayout(self._tp, self._fsdp) \
+            if self._tp is not None or self._fsdp is not None else None
         params = self._place(params)
         # dropout generator seeded as the JAX trainer seeds its key; the
         # ranks' generators stay in step (models/t5.py::dropout)
@@ -295,15 +330,15 @@ class VQACLTrainer:
     # ------------------------------------------------------------------
     def _place(self, params):
         """Parameters as the layout keeps them: rank 0's values on every
-        rank (``replicate``), then this rank's FSDP slices."""
+        rank (``replicate``), then this rank's tp and FSDP slices."""
         params = replicate(self.ctx, params)
-        return params if self._fsdp is None else self._fsdp.shard(params)
+        return params if self._layout is None else self._layout.shard(params)
 
     def _full_params(self):
         """The whole parameter tree (gathered from the ranks' slices under
-        FSDP; every rank must call it together)."""
-        return self.state.params if self._fsdp is None else \
-            self._fsdp.gather(self.state.params)
+        tp and FSDP; every rank must call it together)."""
+        return self.state.params if self._layout is None else \
+            self._layout.gather(self.state.params)
 
     def _train_step(self, use_memory_loss: bool):
         key = bool(use_memory_loss)
@@ -313,7 +348,7 @@ class VQACLTrainer:
             kw = dict(dtype=self.dtype, device=self.device,
                       use_memory_loss=use_memory_loss,
                       remat=self.cfg.mesh.remat, reg_lambda=reg_lambda,
-                      mesh_ctx=self.ctx, fsdp=self._fsdp)
+                      mesh_ctx=self.ctx, fsdp=self._fsdp, tp=self._tp)
             fn = make_train_step(self.cfg, **kw) if self._cache is None \
                 else DC.make_cached_train_step(self.cfg, self._cache, **kw)
             if self._reg is not None:
@@ -333,7 +368,7 @@ class VQACLTrainer:
         if self._der_step_fn is None:
             kw = dict(dtype=self.dtype, device=self.device,
                       remat=self.cfg.mesh.remat, mesh_ctx=self.ctx,
-                      fsdp=self._fsdp)
+                      fsdp=self._fsdp, tp=self._tp)
             self._der_step_fn = make_der_replay_step(self.cfg, **kw) \
                 if self._cache is None else \
                 DC.make_cached_der_step(self.cfg, self._cache, **kw)
@@ -407,15 +442,15 @@ class VQACLTrainer:
         rank 0's broadcast, the params in this rank's layout."""
         params, proto, _ = load_checkpoint(
             os.path.join(self.cfg.output, f"{task}_LAST"),
-            device=self.device, mesh_ctx=self.ctx, layout=self._fsdp)
+            device=self.device, mesh_ctx=self.ctx, layout=self._layout)
         return params, proto
 
     def _save(self, saver, suffix: str, task: str) -> None:
-        """Every rank calls it (FSDP slices are gathered); only the main
-        process writes."""
+        """Every rank calls it (tp and FSDP slices are gathered); only the
+        main process writes."""
         saver(os.path.join(self.cfg.output, f"{task}_{suffix}"),
               self.state.params, self.state.proto, int(self.state.step),
-              layout=self._fsdp)
+              layout=self._layout)
 
     # ------------------------------------------------------------------
     def train(self, resume_task: Optional[str] = None) -> Dict:
@@ -665,7 +700,7 @@ class VQACLTrainer:
             tokens, meta = item
             tokens = tokens.cpu().numpy()
             # this rank's rows of the global batch, the real ones only
-            off = self.ctx.rank * len(tokens) if self.ctx.dp > 1 else 0
+            off = self.ctx.dp_index * len(tokens) if self.ctx.dp > 1 else 0
             n_real = min(max(meta["n_real"] - off, 0), len(tokens))
             for qid, ans in zip(meta["question_ids"][off:off + n_real],
                                 self.tok.batch_decode(tokens[:n_real])):

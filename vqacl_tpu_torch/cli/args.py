@@ -13,10 +13,10 @@ spelling and default. Two flags name the card instead of the TPU:
   on CUDA tensors, their plain versions on CPU tensors), ``off`` → False
   (the unfused attention).
 
-The mesh flags fill ``MeshConfig``: ``--mesh_dp`` (data parallel over
-the ranks ``torchrun`` starts), ``--param_layout`` ("replicated" or
-"fsdp"); tp and pp above 1 and the "tp" layout are refused (not ported
-yet).
+The mesh flags fill ``MeshConfig``: ``--mesh_dp``, ``--mesh_tp`` and
+``--mesh_pp`` (the ranks ``torchrun`` starts, laid out as JAX's (dp, tp,
+pp) mesh), ``--pp_micro`` and ``--param_layout`` ("replicated", "tp" or
+"fsdp").
 """
 
 from __future__ import annotations
@@ -138,7 +138,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--output", default="snap/vqacl")
     p.add_argument("--tiny_model", action="store_true",
                    help="scaled-down architecture (CI/e2e smoke)")
-    # placement (dp over the torchrun ranks; tp, pp > 1 are refused)
+    # placement over the torchrun ranks (parallel/mesh.py)
     p.add_argument("--mesh_dp", type=int, default=-1)
     p.add_argument("--mesh_tp", type=int, default=1)
     p.add_argument("--mesh_pp", type=int, default=1,

@@ -7,8 +7,9 @@ nextqa/nextqa_CL.py).
         --seed 6666 --now_train --output snap/nextqa
 
 Runs on the CUDA card; ``--platform cpu`` runs the plain PyTorch path on
-the host; ``torchrun --nproc_per_node=N ... --mesh_dp N`` runs data
-parallel, as ``cli/vqacl_train.py`` does. The CSV partitions and
+the host; ``torchrun --nproc_per_node=N ... --mesh_dp/--mesh_tp/
+--mesh_pp`` runs data, tensor and pipeline parallel, as
+``cli/vqacl_train.py`` does. The CSV partitions and
 ``app_mot_*.h5`` features of ``from_root`` need ``h5py``;
 ``NextQADataModule``'s constructor over tables does not.
 """

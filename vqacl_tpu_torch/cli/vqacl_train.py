@@ -9,10 +9,13 @@ Runs on the CUDA card; ``--platform cpu`` runs the plain PyTorch path on
 the host. Eval-only (the reference's ``VQACL.sh`` without
 ``--now_train``): omit ``--now_train`` to run ``Test()`` over saved
 per-task checkpoints. Data parallel over N ranks, one card each (NCCL;
-gloo on the CPU), as the reference's DDP launch:
+gloo on the CPU), as the reference's DDP launch, and tensor and pipeline
+parallel over the same ranks (N = dp·tp·pp):
 
     torchrun --nproc_per_node=N -m vqacl_tpu_torch.cli.vqacl_train \
         --mesh_dp N [--param_layout fsdp] [--device_cache_sharded] ...
+    torchrun --nproc_per_node=8 -m vqacl_tpu_torch.cli.vqacl_train \
+        --mesh_tp 2 --mesh_pp 2 --pp_micro 4 --param_layout tp ...
 """
 
 from __future__ import annotations

@@ -174,11 +174,12 @@ bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
            T* __restrict__ dq, T* __restrict__ dk_out, T* __restrict__ dv,
            float* __restrict__ dbias_part, int Tq, int Sk, int H, int dk,
            int L, int ldq, int ldk, int ldv, int dropout, uint32_t thresh,
-           float keep_div, int bh0) {
+           float keep_div, int bh0, int Hc, int h0) {
   extern __shared__ float smem[];
   const int h = blockIdx.x;
   const int b = blockIdx.y;
   const int bh = b * H + h;
+  const int srow = philox::stream_row(bh0, b, Hc, h0, h);
   const int HD = H * dk;
   const int ld = dk + 1;
   float* sq = smem;
@@ -214,7 +215,7 @@ bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float pij = pb[idx];
     sp[idx] = pij;
     if (dropout) {
-      const bool kp = philox::keep(s0, bh0 + bh, i, j, thresh);
+      const bool kp = philox::keep(s0, srow, i, j, thresh);
       skeep[idx] = kp;
       spd[idx] = kp ? pij / keep_div : 0.0f;
     } else {
@@ -295,10 +296,12 @@ cudaError_t launch_dbias_reduce(const float* part, float* dbias, int B,
   return cudaGetLastError();
 }
 
-// The keep mask of every attention element, as K1' and K2 draw it.
+// The keep mask of every attention element, as K1' and K2 draw it: row
+// bh = b*H + h takes the counter stream_row(bh0, b, Hc, h0, h).
 __global__ void keep_mask_kernel(const int* __restrict__ seed,
                                  uint8_t* __restrict__ out, int BH, int Tq,
-                                 int Sk, uint32_t thresh, int bh0) {
+                                 int Sk, uint32_t thresh, int bh0, int H,
+                                 int Hc, int h0) {
   const size_t n = (size_t)BH * Tq * Sk;
   const uint32_t s0 = (uint32_t)seed[0];
   for (size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x; idx < n;
@@ -306,7 +309,8 @@ __global__ void keep_mask_kernel(const int* __restrict__ seed,
     const int j = (int)(idx % Sk);
     const int i = (int)((idx / Sk) % Tq);
     const int bh = (int)(idx / ((size_t)Sk * Tq));
-    out[idx] = philox::keep(s0, bh0 + bh, i, j, thresh);
+    out[idx] = philox::keep(
+        s0, philox::stream_row(bh0, bh / H, Hc, h0, bh % H), i, j, thresh);
   }
 }
 
@@ -316,7 +320,8 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    void* dq, void* dk_out, void* dv, float* dbias_part,
                    float* dbias, int B, int Tq, int Sk, int H, int dk, int L,
                    int ldq, int ldk, int ldv, int dropout, uint32_t thresh,
-                   float keep_div, int bh0, cudaStream_t stream) {
+                   float keep_div, int bh0, int Hc, int h0,
+                   cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * (2 * (size_t)Tq * (dk + 1) + 2 * (size_t)Sk * (dk + 1) +
                        2 * (size_t)Tq * Sk + (size_t)kWarps * Sk) +
@@ -333,7 +338,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       static_cast<const T*>(v), p, seed, static_cast<const T*>(dout),
       static_cast<T*>(dq), static_cast<T*>(dk_out), static_cast<T*>(dv),
       dbias_part, Tq, Sk, H, dk, L, ldq, ldk, ldv, dropout, thresh, keep_div,
-      bh0);
+      bh0, Hc, h0);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || L == 0) return err;
   return launch_dbias_reduce(dbias_part, dbias, B, H, L, stream);
@@ -397,7 +402,8 @@ struct BwdArgs {
   uint32_t thresh;
   float keep_div;     // 1 - rate: kept p and dp are divided by it
   float keep_rcp;     // 1 / keep_div, rounded to f32
-  int bh0;            // added to b*H + h in the Philox counter
+  int bh0, Hc, h0;    // the Philox counter's row offset, a row's heads
+                      // and the launch's first head (`stream_row`)
   int heads;          // heads per unit, a divisor of H
   int groups;         // H / heads; unit u is batch row u / groups
   int kd;             // d / 16
@@ -506,6 +512,7 @@ bwd_mma_kernel(const __grid_constant__ BwdArgs a) {
     const int h = h0 + hl;
     const int r0 = (t - hl * a.qtiles) * 16;
     const int bh = b * a.H + h;
+    const int srow = philox::stream_row(a.bh0, b, a.Hc, a.h0, h);
     const float* pb = a.p + (size_t)bh * a.Tq * a.Sk;
     const __nv_bfloat16* hdo = sdo + hl * a.qpanel;
     const __nv_bfloat16* hk = sk + hl * a.kpanel;
@@ -559,7 +566,7 @@ bwd_mma_kernel(const __grid_constant__ BwdArgs a) {
       for (int nt = 0; nt < NT; ++nt) {
         if (n0 + nt * 8 >= a.Sk) continue;  // warp-uniform: p is 0 there
         const uint32_t keep =
-            philox::keep_nibble(s0, a.thresh, a.bh0 + bh, r0,
+            philox::keep_nibble(s0, a.thresh, srow, r0,
                                 n0 + nt * 8 + c2);
         kb |= keep << (4 * nt);
 #pragma unroll
@@ -782,8 +789,8 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v,
                        void* dq, void* dk_out, void* dv, float* dbias_part,
                        float* dbias, int B, int Tq, int Sk, int H, int dk,
                        int L, int ldq, int ldk, int ldv, int dropout,
-                       uint32_t thresh, float keep_div, int bh0,
-                       cudaStream_t stream) {
+                       uint32_t thresh, float keep_div, int bh0, int Hc,
+                       int h0, cudaStream_t stream) {
   if (dk % 16 != 0 || dk < 16 || dk > 128 ||
       bwd_stage_bytes(1, Tq, Sk, dk) > kSmemLimit)
     return cudaErrorInvalidValue;
@@ -818,6 +825,8 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v,
   a.keep_div = keep_div;
   a.keep_rcp = 1.0f / keep_div;
   a.bh0 = bh0;
+  a.Hc = Hc;
+  a.h0 = h0;
   const bool one = Sk <= kKeyTile;
   const cudaError_t err =
       dk <= 64 ? (one ? launch_mma_instance<4, true>(a, B, stream)
@@ -836,29 +845,32 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v,
 // do is dense [B, Tq, H*dk]). p is f32 [B, H*Tq, Sk], seed a device int32
 // (read only when dropout is set), dbias_part f32 [B, H, L, L] scratch and
 // dbias f32 [H, L, L] (both unused when L == 0). Returns the first failing
-// cudaError_t of the two launches; 0 means both were accepted. bh0, the
-// last argument, is added to b*H + h in the Philox counter, as K1' takes it.
+// cudaError_t of the two launches; 0 means both were accepted. bh0, Hc and
+// h0, the last arguments, place the Philox streams as K1' takes them
+// (bh0 + b*Hc + h0 + h; philox.cuh, `stream_row`).
 extern "C" int fused_attention_bwd_strided(
     const void* q, const void* k, const void* v, const void* p,
     const void* seed, const void* dout, void* dq, void* dk, void* dv,
     void* dbias_part, void* dbias, int B, int Tq, int Sk, int H, int dkv,
     int L, int ldq, int ldk, int ldv, int dtype, int dropout,
-    unsigned int thresh, float keep_div, void* stream, int bh0) {
+    unsigned int thresh, float keep_div, void* stream, int bh0, int Hc,
+    int h0) {
   const float* p_f = static_cast<const float*>(p);
   const int* seed_i = static_cast<const int*>(seed);
   float* part = static_cast<float*>(dbias_part);
   float* db = static_cast<float*>(dbias);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int HD = H * dkv;
-  if (ldq < HD || ldk < HD || ldv < HD) return (int)cudaErrorInvalidValue;
+  if (ldq < HD || ldk < HD || ldv < HD || h0 < 0 || Hc < h0 + H)
+    return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return (int)launch<float>(q, k, v, p_f, seed_i, dout, dq, dk, dv, part,
                               db, B, Tq, Sk, H, dkv, L, ldq, ldk, ldv,
-                              dropout, thresh, keep_div, bh0, s);
+                              dropout, thresh, keep_div, bh0, Hc, h0, s);
   if (dtype == 1)
     return (int)launch_mma(q, k, v, p_f, seed_i, dout, dq, dk, dv, part, db,
                            B, Tq, Sk, H, dkv, L, ldq, ldk, ldv, dropout,
-                           thresh, keep_div, bh0, s);
+                           thresh, keep_div, bh0, Hc, h0, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -871,23 +883,26 @@ extern "C" int fused_attention_bwd(const void* q, const void* k,
                                    int Tq, int Sk, int H, int dkv, int L,
                                    int dtype, int dropout,
                                    unsigned int thresh, float keep_div,
-                                   void* stream, int bh0) {
+                                   void* stream, int bh0, int Hc, int h0) {
   return fused_attention_bwd_strided(
       q, k, v, p, seed, dout, dq, dk, dv, dbias_part, dbias, B, Tq, Sk, H,
       dkv, L, H * dkv, H * dkv, H * dkv, dtype, dropout, thresh, keep_div,
-      stream, bh0);
+      stream, bh0, Hc, h0);
 }
 
 // The Philox keep mask [BH, Tq, Sk] (uint8, 1 = kept) that K1' and K2
 // apply, for checking the PyTorch copy of the streams on the card; row bh
-// takes the counter bh0 + bh.
+// = b*H + h takes the counter bh0 + b*Hc + h0 + h.
 extern "C" int fused_attention_keep_mask(const void* seed, void* out, int BH,
                                          int Tq, int Sk, unsigned int thresh,
-                                         void* stream, int bh0) {
+                                         void* stream, int bh0, int H, int Hc,
+                                         int h0) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (H <= 0 || BH % H != 0 || h0 < 0 || Hc < h0 + H)
+    return (int)cudaErrorInvalidValue;
   keep_mask_kernel<<<1024, 256, 0, s>>>(static_cast<const int*>(seed),
                                         static_cast<uint8_t*>(out), BH, Tq, Sk,
-                                        thresh, bh0);
+                                        thresh, bh0, H, Hc, h0);
   return (int)cudaGetLastError();
 }
 

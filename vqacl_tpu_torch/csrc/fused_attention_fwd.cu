@@ -193,7 +193,8 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
            const float* __restrict__ mask, T* __restrict__ o,
            int Tq, int Sk, int H, int dk, int L, int ldq, int ldk, int ldv,
            float* __restrict__ p_out, const int* __restrict__ seed,
-           int dropout, uint32_t thresh, float keep_div, int bh0) {
+           int dropout, uint32_t thresh, float keep_div, int bh0, int Hc,
+           int h0) {
   extern __shared__ float smem[];
   const int h = blockIdx.x;
   const int b = blockIdx.y;
@@ -226,6 +227,7 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const float* hbias = bias + (size_t)h * L * L;  // not read when L == 0
   const uint32_t s0 = (kTrain && dropout) ? (uint32_t)seed[0] : 0u;
   const int bh = b * H + h;
+  const int srow = philox::stream_row(bh0, b, Hc, h0, h);
 
   for (int i = warp; i < Tq; i += kWarps) {
     const T* qrow = q + ((size_t)b * Tq + i) * ldq + (size_t)h * dk;
@@ -255,7 +257,7 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       if (kTrain) {
         p_out[((size_t)bh * Tq + i) * Sk + j] = pj;  // pre-dropout
         if (dropout)
-          pj = philox::keep(s0, bh0 + bh, i, j, thresh) ? pj / keep_div
+          pj = philox::keep(s0, srow, i, j, thresh) ? pj / keep_div
                                                         : 0.0f;
       }
       wp[j] = to_f32(from_f32<T>(pj));  // p cast to v's dtype
@@ -277,7 +279,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    const float* bias, const float* mask, void* o, int B,
                    int Tq, int Sk, int H, int dk, int L, int ldq, int ldk,
                    int ldv, float* p, const int* seed, int dropout,
-                   uint32_t thresh, float keep_div, int bh0,
+                   uint32_t thresh, float keep_div, int bh0, int Hc, int h0,
                    cudaStream_t stream) {
   const size_t smem = sizeof(float) *
       ((size_t)Sk * (dk + 1) + (size_t)Sk * dk + Sk + (size_t)kWarps * dk +
@@ -292,7 +294,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   fwd_kernel<T, kTrain><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), bias, mask, static_cast<T*>(o), Tq, Sk, H, dk,
-      L, ldq, ldk, ldv, p, seed, dropout, thresh, keep_div, bh0);
+      L, ldq, ldk, ldv, p, seed, dropout, thresh, keep_div, bh0, Hc, h0);
   return cudaGetLastError();
 }
 
@@ -333,7 +335,8 @@ struct MmaArgs {
   uint32_t thresh;
   float keep_div;     // 1 - rate: kept p is divided by it (`div_keep`)
   float keep_rcp;     // 1 / keep_div, rounded to f32
-  int bh0;            // added to b*H + h in the Philox counter
+  int bh0, Hc, h0;    // the Philox counter's row offset, a row's heads
+                      // and the launch's first head (`stream_row`)
   int heads;          // heads per unit, a divisor of H
   int units;          // B * H / heads; unit u is batch row u / groups
   int groups;         // H / heads
@@ -454,12 +457,13 @@ fwd_mma_kernel(const __grid_constant__ MmaArgs a) {
     if (!(kTrain && NT == 8) || !drop || t >= a.items) return kb;
     const int b = u / a.groups;
     const int hl = t / a.tiles;
-    const int bh = b * a.H + (u - b * a.groups) * a.heads + hl;
+    const int srow = philox::stream_row(a.bh0, b, a.Hc, a.h0,
+                                        (u - b * a.groups) * a.heads + hl);
     const int r0 = (t - hl * a.tiles) * 16;
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt)
       if (nt * 8 < a.Sk)
-        kb |= keep_nibble(s0, a.thresh, a.bh0 + bh, r0, nt * 8 + c2)
+        kb |= keep_nibble(s0, a.thresh, srow, r0, nt * 8 + c2)
               << (4 * nt);
     return kb;
   };
@@ -492,6 +496,7 @@ fwd_mma_kernel(const __grid_constant__ MmaArgs a) {
       const int h = h0 + hl;
       const int r0 = (t - hl * a.tiles) * 16;
       const int bh = b * a.H + h;
+      const int srow = philox::stream_row(a.bh0, b, a.Hc, a.h0, h);
       const __nv_bfloat16* hk = sk + hl * a.panel;
       const __nv_bfloat16* hv = sv + hl * a.panel;
       if (t != warp) kb = draw_item(u, t);
@@ -614,7 +619,7 @@ fwd_mma_kernel(const __grid_constant__ MmaArgs a) {
           if (drop) {
             const uint32_t keep =
                 NT == 8 ? kb >> (4 * nt)
-                        : keep_nibble(s0, a.thresh, a.bh0 + bh, r0, j);
+                        : keep_nibble(s0, a.thresh, srow, r0, j);
 #pragma unroll
             for (int e = 0; e < 4; ++e)
               s[nt][e] = (keep >> e) & 1u
@@ -744,8 +749,8 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v,
                        const float* bias, const float* mask, void* o, int B,
                        int Tq, int Sk, int H, int dk, int L, int ldq, int ldk,
                        int ldv, float* p, const int* seed, int dropout,
-                       uint32_t thresh, float keep_div, int bh0,
-                       cudaStream_t stream) {
+                       uint32_t thresh, float keep_div, int bh0, int Hc,
+                       int h0, cudaStream_t stream) {
   if (dk % 16 != 0 || dk < 16 || dk > 128 ||
       mma_stage_bytes(1, Tq, Sk, dk) > kSmemLimit)
     return cudaErrorInvalidValue;
@@ -775,6 +780,8 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v,
   a.keep_div = keep_div;
   a.keep_rcp = 1.0f / keep_div;
   a.bh0 = bh0;
+  a.Hc = Hc;
+  a.h0 = h0;
   const bool wide = dk > 64;
   const bool long_keys = Sk > 64;
   if (!wide && !long_keys)
@@ -812,11 +819,11 @@ extern "C" int fused_attention_fwd_strided(const void* q, const void* k,
   if (dtype == 0)
     return (int)launch<float, false>(q, k, v, bias_f, mask_f, o, B, Tq, Sk, H,
                                      dk, L, ldq, ldk, ldv, nullptr, nullptr,
-                                     0, 0u, 1.0f, 0, s);
+                                     0, 0u, 1.0f, 0, H, 0, s);
   if (dtype == 1)
     return (int)launch_mma<false>(q, k, v, bias_f, mask_f, o, B, Tq, Sk, H,
                                   dk, L, ldq, ldk, ldv, nullptr, nullptr, 0,
-                                  0u, 1.0f, 0, s);
+                                  0u, 1.0f, 0, H, 0, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -834,30 +841,36 @@ extern "C" int fused_attention_fwd(const void* q, const void* k,
 // (pre-dropout). With dropout != 0, element (b, h, i, j) is kept when its
 // Philox bits (key seed[0], a device int32) are below `thresh`, and kept p
 // is divided by keep_div = 1 - rate (both computed by the wrapper as the
-// Pallas kernel does). bh0, the last argument, is added to b*H + h in the
-// Philox counter: a data-parallel rank passes rank * B * H, so its rows
-// draw the streams of rows rank*B .. rank*B + B-1 of a one-process call
-// over the whole batch (0: the one-process streams).
+// Pallas kernel does). The last three arguments place the launch's
+// Philox streams (philox.cuh, `stream_row`): the counter of (b, h) is bh0
+// + b*Hc + h0 + h. A data-parallel rank passes bh0 = rank * B * Hc, so its
+// rows draw the streams of rows rank*B .. rank*B + B-1 of a one-process
+// call over the whole batch; a tensor-parallel rank that runs heads h0 ..
+// h0 + H - 1 of Hc passes Hc and h0, so its heads draw those heads'
+// streams (bh0 = 0, Hc = H, h0 = 0: the one-process streams). Hc < h0 + H
+// or h0 < 0 is refused.
 extern "C" int fused_attention_fwd_train_strided(
     const void* q, const void* k, const void* v, const void* bias,
     const void* mask, const void* seed, void* o, void* p, int B, int Tq,
     int Sk, int H, int dk, int L, int ldq, int ldk, int ldv, int dtype,
     int dropout, unsigned int thresh, float keep_div, void* stream,
-    int bh0) {
+    int bh0, int Hc, int h0) {
   const float* bias_f = static_cast<const float*>(bias);
   const float* mask_f = static_cast<const float*>(mask);
   const int* seed_i = static_cast<const int*>(seed);
   float* p_f = static_cast<float*>(p);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!strides_ok(H, dk, ldq, ldk, ldv)) return (int)cudaErrorInvalidValue;
+  if (!strides_ok(H, dk, ldq, ldk, ldv) || h0 < 0 || Hc < h0 + H)
+    return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return (int)launch<float, true>(q, k, v, bias_f, mask_f, o, B, Tq, Sk, H,
                                     dk, L, ldq, ldk, ldv, p_f, seed_i,
-                                    dropout, thresh, keep_div, bh0, s);
+                                    dropout, thresh, keep_div, bh0, Hc, h0,
+                                    s);
   if (dtype == 1)
     return (int)launch_mma<true>(q, k, v, bias_f, mask_f, o, B, Tq, Sk, H, dk,
                                  L, ldq, ldk, ldv, p_f, seed_i, dropout,
-                                 thresh, keep_div, bh0, s);
+                                 thresh, keep_div, bh0, Hc, h0, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -869,10 +882,11 @@ extern "C" int fused_attention_fwd_train(const void* q, const void* k,
                                          int Sk, int H, int dk, int L,
                                          int dtype, int dropout,
                                          unsigned int thresh, float keep_div,
-                                         void* stream, int bh0) {
+                                         void* stream, int bh0, int Hc,
+                                         int h0) {
   return fused_attention_fwd_train_strided(
       q, k, v, bias, mask, seed, o, p, B, Tq, Sk, H, dk, L, H * dk, H * dk,
-      H * dk, dtype, dropout, thresh, keep_div, stream, bh0);
+      H * dk, dtype, dropout, thresh, keep_div, stream, bh0, Hc, h0);
 }
 
 // Message for a cudaError_t returned above.

@@ -14,10 +14,11 @@ The gather is plain PyTorch (``index_select``): in the JAX package it is
 ``jnp.take`` under ``jit``, not a Pallas kernel. The table is converted
 on the host and copied to the device once. ``shard=True`` row-shards the
 table over a data-parallel mesh, as JAX does: padded to a multiple of
-dp, rank r holds rows [r·n/dp, (r+1)·n/dp). A lookup then gathers the
-global batch's slots, fills the rows whose slots this rank holds (in the
-table's own type, with int8 scales and boxes), combines them over the
-ranks bit for bit in one ``all_reduce`` and keeps this rank's rows
+dp, a rank of dp index d holds rows [d·n/dp, (d+1)·n/dp) (its tp and pp
+peers hold the same rows). A lookup then gathers the global batch's
+slots over the dp group, fills the rows whose slots this rank holds (in
+the table's own type, with int8 scales and boxes), combines them over
+the dp group bit for bit in one ``all_reduce`` and keeps this rank's rows
 (``lookup_bytes`` counts that buffer's bytes over ``lookups`` calls).
 """
 
@@ -118,7 +119,7 @@ class DeviceFeatureCache:
             dp = mesh_ctx.dp
             pad = (-self.n) % dp
             self.rows = (self.n + pad) // dp
-            self.row0 = mesh_ctx.rank * self.rows
+            self.row0 = mesh_ctx.dp_index * self.rows
 
             def block(t, fill):
                 if pad:
@@ -169,7 +170,7 @@ class DeviceFeatureCache:
         joins them, each rank keeps its own rows."""
         ctx = self.ctx
         B = slots.shape[0]
-        g = ctx.gather_rows(slots.to(torch.int32))              # [dp·B]
+        g = ctx.gather_rows(slots.to(torch.int32), "dp")       # [dp·B]
         local = g.long() - self.row0
         own = ((g >= 0) & (g < self.n) & (local >= 0)
                & (local < self.rows))[:, None, None]
@@ -182,8 +183,8 @@ class DeviceFeatureCache:
         self.lookup_bytes += sum(-(-t.numel() * t.element_size() // 16) * 16
                                  for t in parts)
         self.lookups += 1
-        mine = slice(ctx.rank * B, (ctx.rank + 1) * B)
-        parts = [t[mine] for t in ctx.combine_all(parts)]
+        mine = slice(ctx.dp_index * B, (ctx.dp_index + 1) * B)
+        parts = [t[mine] for t in ctx.combine_all(parts, "dp")]
         f = parts[0].float()
         if self.scales is not None:
             f = f * parts[2]

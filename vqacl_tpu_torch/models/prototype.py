@@ -62,7 +62,7 @@ def batch_class_means(hidden_pooled: torch.Tensor, labels: torch.Tensor
     """Per-class mean of pooled hiddens [B,D] under one-hot labels [B,C]
     → ([C,D] means, zero rows for absent classes; [C] counts). Under an
     active data-parallel mesh the class sums and counts are summed over
-    the ranks first (one ``all_reduce``), so every rank's EMA update sees
+    the dp group first (one ``all_reduce``), so every rank's EMA update sees
     the global batch, as JAX's does (the bank update detaches its input,
     so the summed means carry no gradient)."""
     counts = labels.sum(dim=0)
@@ -70,7 +70,7 @@ def batch_class_means(hidden_pooled: torch.Tensor, labels: torch.Tensor
     ctx = active()
     if ctx is not None:
         both = ctx.all_reduce(torch.cat([sums.detach(),
-                                         counts.float()[:, None]], 1))
+                                         counts.float()[:, None]], 1), "dp")
         sums, counts = both[:, :-1], both[:, -1].to(counts.dtype)
     denom = torch.where(counts <= 0, torch.ones_like(counts), counts)
     return sums / denom[:, None], counts

@@ -13,6 +13,21 @@ at the global batch's shape and this rank keeps its rows, and the fused
 attention takes this rank's Philox row offset, so every rank's generator
 stays in step and the ranks together draw a one-process step's masks.
 
+Tensor parallelism (an active mesh with tp > 1; the Megatron layout of
+``parallel/sharding.py``): the blocks take the rank's slices of q/k/v,
+wi and the two wo, so they run ``nh_loc = wq.shape[1] // d_kv`` local
+heads and ``d_ff / tp`` of the hidden (``encoder_block_tp``,
+``decoder_block_tp``, and the fused blocks over K1′/K2). The normed input
+of each column-parallel product goes through ``copy_to_tp`` and each
+partial output through ``reduce_from_tp`` before its residual add, so
+``x`` stays replicated over the tp group; the stacks pass the encoder
+states (cross k/v of every layer) and the whole relative bias through
+``copy_to_tp`` once, then cut the bias to the local heads. Dropout of
+the attention probabilities and of the MLP hidden draws at the global
+width and keeps the rank's heads or columns; the residual masks are the
+same on every tp rank; the fused kernels take the rank's heads ``(Hc,
+h0)``. A tp step at dropout > 0 so draws a one-process step's masks.
+
 T5 specifics kept: RMS layer norm without mean or bias (variance in
 f32), unscaled dot-product attention with f32 scores and softmax, the
 relative position bias computed from one table per stack, an additive
@@ -29,7 +44,9 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
-from vqacl_tpu_torch.parallel.mesh import active, row_offset
+from vqacl_tpu_torch.parallel.mesh import (active, copy_to_tp,
+                                           reduce_from_tp, row_offset,
+                                           tp_active)
 
 Params = Dict[str, Any]
 
@@ -46,20 +63,33 @@ def layer_norm(w: torch.Tensor, x: torch.Tensor, eps: float) -> torch.Tensor:
 
 
 def dropout(x: torch.Tensor, rate: float,
-            generator: Optional[torch.Generator]) -> torch.Tensor:
+            generator: Optional[torch.Generator],
+            tp_dim: Optional[int] = None) -> torch.Tensor:
     """Keep each element with probability 1 − rate and scale kept ones
     by 1/(1 − rate); the identity without a generator or at rate 0.
     Under an active data-parallel mesh the draw covers the global batch
-    (x's rows on every rank) and this rank keeps its own rows."""
+    (x's rows on every rank) and this rank keeps its own rows; under
+    tensor parallelism, ``tp_dim`` names the dimension x holds the rank's
+    slice of (heads, MLP hidden): the draw covers its global width and
+    the rank keeps its slice."""
     if generator is None or rate == 0.0:
         return x
     ctx = active()
-    B = x.shape[0]
-    shape = x.shape if ctx is None else (ctx.dp * B,) + tuple(x.shape[1:])
+    shape = list(x.shape)
+    if ctx is not None:
+        shape[0] *= ctx.dp
+    cut = tp_dim is not None and ctx is not None and ctx.tp > 1
+    if cut:
+        tp_dim %= x.dim()
+        shape[tp_dim] *= ctx.tp
     keep = torch.rand(shape, generator=generator, device=x.device) \
         < (1.0 - rate)
     if ctx is not None:
-        keep = keep[ctx.rank * B:(ctx.rank + 1) * B]
+        B = x.shape[0]
+        keep = keep[ctx.dp_index * B:(ctx.dp_index + 1) * B]
+    if cut:
+        n = x.shape[tp_dim]
+        keep = keep.narrow(tp_dim, ctx.tp_index * n, n)
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
@@ -211,7 +241,7 @@ def multihead_attention(p: Params,
     if mask_add is not None:
         scores = scores + mask_add
     w = torch.softmax(scores, dim=-1)
-    w = dropout(w, dropout_rate, generator).to(dt)
+    w = dropout(w, dropout_rate, generator, tp_dim=1).to(dt)
     out = torch.einsum("bhqk,bkhd->bqhd", w.float(), v.float()).to(dt)
     return out.reshape(B, Lq, num_heads * d_kv) @ p["wo"].to(dt)
 
@@ -227,7 +257,7 @@ def mlp_apply(p: Params, x: torch.Tensor, activation: str,
         h = torch.nn.functional.gelu(h)
     else:
         raise ValueError(activation)
-    h = dropout(h, dropout_rate, generator)
+    h = dropout(h, dropout_rate, generator, tp_dim=-1)
     return h @ p["wo"].to(dt)
 
 
@@ -301,20 +331,68 @@ def merged_qkv(cfg) -> bool:
     return getattr(cfg, "merged_qkv", False) is True
 
 
+def local_heads(p: Params, cfg) -> int:
+    """The heads a block's attention parameters ``p`` hold: all of them,
+    or a tensor-parallel rank's ``H / tp``."""
+    return p["wq"].shape[1] // cfg.d_kv
+
+
+def head_slice(bias: Optional[torch.Tensor], dim: int, nh: int
+               ) -> Optional[torch.Tensor]:
+    """Under tensor parallelism, this rank's ``nh`` heads of a bias over
+    all heads (``dim``), after ``copy_to_tp`` of the whole bias so that
+    its gradient sums the ranks' heads; the bias itself otherwise."""
+    ctx = tp_active()
+    if ctx is None or bias is None:
+        return bias
+    return copy_to_tp(bias).narrow(dim, ctx.tp_index * nh, nh)
+
+
+def _head0(nh: int) -> int:
+    """The first head of this rank's ``nh`` under tensor parallelism."""
+    ctx = tp_active()
+    return 0 if ctx is None else ctx.tp_index * nh
+
+
 def encoder_block(p: Params, cfg, x: torch.Tensor,
                   bias: Optional[torch.Tensor],
                   mask_add: Optional[torch.Tensor] = None,
                   generator: Optional[torch.Generator] = None
                   ) -> torch.Tensor:
+    """One encoder block; under tensor parallelism ``encoder_block_tp``'s
+    Megatron block (``bias`` then carries the local heads)."""
     rate = cfg.dropout_rate
-    h = layer_norm(p["ln1"], x, cfg.layer_norm_epsilon)
-    a = multihead_attention(p["attn"], h, h, h, bias, cfg.num_heads,
-                            cfg.d_kv, mask_add=mask_add, dropout_rate=rate,
+    h = copy_to_tp(layer_norm(p["ln1"], x, cfg.layer_norm_epsilon))
+    a = multihead_attention(p["attn"], h, h, h, bias,
+                            local_heads(p["attn"], cfg), cfg.d_kv,
+                            mask_add=mask_add, dropout_rate=rate,
                             generator=generator, merged=merged_qkv(cfg))
-    x = x + dropout(a, rate, generator)
-    h = layer_norm(p["ln2"], x, cfg.layer_norm_epsilon)
+    x = x + dropout(reduce_from_tp(a), rate, generator)
+    h = copy_to_tp(layer_norm(p["ln2"], x, cfg.layer_norm_epsilon))
     m = mlp_apply(p["mlp"], h, cfg.feed_forward_proj, rate, generator)
-    return x + dropout(m, rate, generator)
+    return x + dropout(reduce_from_tp(m), rate, generator)
+
+
+def _require_tp(name: str) -> None:
+    if tp_active() is None:
+        raise ValueError(f"{name} runs under an active mesh with tp > 1 "
+                         f"(parallel.mesh.data_parallel)")
+
+
+def encoder_block_tp(p: Params, cfg, x: torch.Tensor,
+                     bias_local: Optional[torch.Tensor],
+                     mask_add: Optional[torch.Tensor] = None,
+                     generator: Optional[torch.Generator] = None
+                     ) -> torch.Tensor:
+    """Counterpart of JAX ``t5.encoder_block_tp``: ``encoder_block`` with
+    Megatron tensor parallelism over the active mesh's tp group. ``p``
+    holds this rank's slices (wq/wk/wv/wi by output, wo by input),
+    ``bias_local`` only the local heads (``head_slice``); the attention
+    and MLP outputs are summed over tp (``reduce_from_tp``) before each
+    residual add, so ``x`` stays replicated over the group. Raises
+    ValueError outside such a mesh."""
+    _require_tp("encoder_block_tp")
+    return encoder_block(p, cfg, x, bias_local, mask_add, generator)
 
 
 def encoder_block_fused(p: Params, cfg, x: torch.Tensor,
@@ -327,32 +405,36 @@ def encoder_block_fused(p: Params, cfg, x: torch.Tensor,
     pos_bias [H,L,L] f32 for the first L positions, mask [B,S], seed
     int32 [1] (the layer's attention-dropout stream). With ``merged_qkv``
     the kernels take q, k and v as strided views of the one merged
-    projection output."""
+    projection output. Under tensor parallelism the block is Megatron's
+    (``encoder_block_tp``) over the local heads: ``pos_bias`` holds them,
+    and the kernels take the rank's Philox heads (Hc = H, h0)."""
     from vqacl_tpu_torch.ops.fused_attention import (
         fused_encoder_attention, fused_encoder_attention_merged)
 
     rate = cfg.dropout_rate
     attn_rate = 0.0 if generator is None else rate
-    h = layer_norm(p["ln1"], x, cfg.layer_norm_epsilon)
+    h = copy_to_tp(layer_norm(p["ln1"], x, cfg.layer_norm_epsilon))
     dt = h.dtype
     B, S, _ = h.shape
-    bh0 = row_offset(B) * cfg.num_heads
     a = p["attn"]
+    nh = local_heads(a, cfg)
+    streams = dict(bh0=row_offset(B) * cfg.num_heads, Hc=cfg.num_heads,
+                   h0=_head0(nh))
     if merged_qkv(cfg):
         o = fused_encoder_attention_merged(
-            qkv_proj_merged_flat(a, h), pos_bias, mask, cfg.num_heads,
-            dropout_rate=attn_rate, seed=seed, bh0=bh0)
+            qkv_proj_merged_flat(a, h), pos_bias, mask, nh,
+            dropout_rate=attn_rate, seed=seed, **streams)
     else:
-        q = (h @ a["wq"].to(dt)).reshape(B, S, cfg.num_heads, cfg.d_kv)
-        k = (h @ a["wk"].to(dt)).reshape(B, S, cfg.num_heads, cfg.d_kv)
-        v = (h @ a["wv"].to(dt)).reshape(B, S, cfg.num_heads, cfg.d_kv)
+        q = (h @ a["wq"].to(dt)).reshape(B, S, nh, cfg.d_kv)
+        k = (h @ a["wk"].to(dt)).reshape(B, S, nh, cfg.d_kv)
+        v = (h @ a["wv"].to(dt)).reshape(B, S, nh, cfg.d_kv)
         o = fused_encoder_attention(q, k, v, pos_bias, mask,
                                     dropout_rate=attn_rate, seed=seed,
-                                    bh0=bh0)
-    x = x + dropout(o @ a["wo"].to(dt), rate, generator)
-    h = layer_norm(p["ln2"], x, cfg.layer_norm_epsilon)
+                                    **streams)
+    x = x + dropout(reduce_from_tp(o @ a["wo"].to(dt)), rate, generator)
+    h = copy_to_tp(layer_norm(p["ln2"], x, cfg.layer_norm_epsilon))
     m = mlp_apply(p["mlp"], h, cfg.feed_forward_proj, rate, generator)
-    return x + dropout(m, rate, generator)
+    return x + dropout(reduce_from_tp(m), rate, generator)
 
 
 def _layer_seeds(n: int, generator: Optional[torch.Generator]
@@ -383,17 +465,21 @@ def encoder_stack(p: Params, cfg, inputs_embeds: torch.Tensor,
     see ``maybe_checkpoint``."""
     rate = cfg.dropout_rate
     x = dropout(inputs_embeds, rate, generator)
+    nh = local_heads(p["block_0"]["attn"], cfg)
     if fused is not None:
         seeds = _layer_seeds(cfg.num_layers, generator)
+        pos_bias = head_slice(fused["pos_bias"], 0, nh)
+        pos_bias = None if pos_bias is None else pos_bias.contiguous()
         block_fn = maybe_checkpoint(encoder_block_fused, remat, generator)
         for i in range(cfg.num_layers):
             x = block_fn(
-                p[f"block_{i}"], cfg, x, fused["pos_bias"], fused["mask"],
+                p[f"block_{i}"], cfg, x, pos_bias, fused["mask"],
                 None if seeds is None else seeds[i:i + 1], generator)
     else:
+        bias = head_slice(position_bias, 1, nh)
         block_fn = maybe_checkpoint(encoder_block, remat, generator)
         for i in range(cfg.num_layers):
-            x = block_fn(p[f"block_{i}"], cfg, x, position_bias, mask_add,
+            x = block_fn(p[f"block_{i}"], cfg, x, bias, mask_add,
                          generator)
     x = layer_norm(p["final_ln"], x, cfg.layer_norm_epsilon)
     return dropout(x, rate, generator)
@@ -410,23 +496,45 @@ def decoder_block(p: Params, cfg, x: torch.Tensor,
     """Teacher-forced decoder block: causal self-attention (``self_bias``
     [·,H,T,T] holds the causal mask and the relative bias), cross-
     attention to the encoder (``cross_bias`` [B,1,1,S]; ``cross_kv``: its
-    k/v already projected, as ``folded_cross_kv`` gives them), MLP."""
+    k/v already projected, as ``folded_cross_kv`` gives them), MLP.
+    Under tensor parallelism ``decoder_block_tp``'s Megatron block:
+    ``self_bias`` then carries the local heads, and ``enc_states`` have
+    passed ``copy_to_tp`` (the stack does both)."""
     rate = cfg.dropout_rate
     merged = merged_qkv(cfg)
-    h = layer_norm(p["ln1"], x, cfg.layer_norm_epsilon)
-    a = multihead_attention(p["attn"], h, h, h, self_bias, cfg.num_heads,
+    nh = local_heads(p["attn"], cfg)
+    h = copy_to_tp(layer_norm(p["ln1"], x, cfg.layer_norm_epsilon))
+    a = multihead_attention(p["attn"], h, h, h, self_bias, nh,
                             cfg.d_kv, dropout_rate=rate, generator=generator,
                             merged=merged)
-    x = x + dropout(a, rate, generator)
-    h = layer_norm(p["ln2"], x, cfg.layer_norm_epsilon)
+    x = x + dropout(reduce_from_tp(a), rate, generator)
+    h = copy_to_tp(layer_norm(p["ln2"], x, cfg.layer_norm_epsilon))
     c = multihead_attention(p["cross_attn"], h, enc_states, enc_states,
-                            cross_bias, cfg.num_heads, cfg.d_kv,
+                            cross_bias, nh, cfg.d_kv,
                             kv_proj=cross_kv, dropout_rate=rate,
                             generator=generator, merged=merged)
-    x = x + dropout(c, rate, generator)
-    h = layer_norm(p["ln3"], x, cfg.layer_norm_epsilon)
+    x = x + dropout(reduce_from_tp(c), rate, generator)
+    h = copy_to_tp(layer_norm(p["ln3"], x, cfg.layer_norm_epsilon))
     m = mlp_apply(p["mlp"], h, cfg.feed_forward_proj, rate, generator)
-    return x + dropout(m, rate, generator)
+    return x + dropout(reduce_from_tp(m), rate, generator)
+
+
+def decoder_block_tp(p: Params, cfg, x: torch.Tensor,
+                     self_bias_local: Optional[torch.Tensor],
+                     enc_states: torch.Tensor,
+                     cross_bias: Optional[torch.Tensor],
+                     generator: Optional[torch.Generator] = None,
+                     cross_kv: Optional[Tuple[torch.Tensor,
+                                              torch.Tensor]] = None
+                     ) -> torch.Tensor:
+    """Counterpart of JAX ``t5.decoder_block_tp``: ``decoder_block`` under
+    Megatron tensor parallelism (see ``encoder_block_tp``); the cross
+    bias [B,1,1,S] broadcasts over heads, so only the self bias is cut to
+    the local heads. ``enc_states`` must have passed ``copy_to_tp``.
+    Raises ValueError outside a tp mesh."""
+    _require_tp("decoder_block_tp")
+    return decoder_block(p, cfg, x, self_bias_local, enc_states, cross_bias,
+                         generator, cross_kv)
 
 
 def decoder_block_fused(p: Params, cfg, x: torch.Tensor,
@@ -442,7 +550,9 @@ def decoder_block_fused(p: Params, cfg, x: torch.Tensor,
     the cross-attention is bias-free, masked by ``enc_mask`` [B,S].
     ``seeds`` int32 [2]: the self- and cross-attention dropout streams.
     With ``merged_qkv`` the self q/k/v and the cross k/v come from one
-    GEMM each and reach the kernels as strided views."""
+    GEMM each and reach the kernels as strided views. Under tensor
+    parallelism the block is ``decoder_block_tp``'s over the local heads
+    (``self_bias`` holds them; the kernels take the rank's Philox heads)."""
     from vqacl_tpu_torch.ops.fused_attention import (
         fused_cross_attention, fused_cross_attention_merged,
         fused_encoder_attention, fused_encoder_attention_merged)
@@ -450,48 +560,49 @@ def decoder_block_fused(p: Params, cfg, x: torch.Tensor,
     rate = cfg.dropout_rate
     attn_rate = 0.0 if generator is None else rate
     merged = merged_qkv(cfg)
-    H, dkv = cfg.num_heads, cfg.d_kv
+    H, dkv = local_heads(p["attn"], cfg), cfg.d_kv
     B, T, _ = x.shape
-    bh0 = row_offset(B) * H
+    streams = dict(bh0=row_offset(B) * cfg.num_heads, Hc=cfg.num_heads,
+                   h0=_head0(H))
     dt = x.dtype
     s_self = None if seeds is None else seeds[0:1]
     s_cross = None if seeds is None else seeds[1:2]
 
-    h = layer_norm(p["ln1"], x, cfg.layer_norm_epsilon)
+    h = copy_to_tp(layer_norm(p["ln1"], x, cfg.layer_norm_epsilon))
     a = p["attn"]
     ones = torch.ones((B, T), dtype=torch.float32, device=x.device)
     if merged:
         o = fused_encoder_attention_merged(
             qkv_proj_merged_flat(a, h), self_bias, ones, H,
-            dropout_rate=attn_rate, seed=s_self, bh0=bh0)
+            dropout_rate=attn_rate, seed=s_self, **streams)
     else:
         q = (h @ a["wq"].to(dt)).reshape(B, T, H, dkv)
         k = (h @ a["wk"].to(dt)).reshape(B, T, H, dkv)
         v = (h @ a["wv"].to(dt)).reshape(B, T, H, dkv)
         o = fused_encoder_attention(q, k, v, self_bias, ones,
                                     dropout_rate=attn_rate, seed=s_self,
-                                    bh0=bh0)
-    x = x + dropout(o @ a["wo"].to(dt), rate, generator)
+                                    **streams)
+    x = x + dropout(reduce_from_tp(o @ a["wo"].to(dt)), rate, generator)
 
-    h = layer_norm(p["ln2"], x, cfg.layer_norm_epsilon)
+    h = copy_to_tp(layer_norm(p["ln2"], x, cfg.layer_norm_epsilon))
     c = p["cross_attn"]
     S = enc_states.shape[1]
     qc = (h @ c["wq"].to(dt)).reshape(B, T, H, dkv)
     if merged:
         oc = fused_cross_attention_merged(
             qc, kv_proj_merged_flat(c, enc_states), enc_mask,
-            dropout_rate=attn_rate, seed=s_cross, bh0=bh0)
+            dropout_rate=attn_rate, seed=s_cross, **streams)
     else:
         kc = (enc_states @ c["wk"].to(dt)).reshape(B, S, H, dkv)
         vc = (enc_states @ c["wv"].to(dt)).reshape(B, S, H, dkv)
         oc = fused_cross_attention(qc, kc, vc, enc_mask,
                                    dropout_rate=attn_rate, seed=s_cross,
-                                   bh0=bh0)
-    x = x + dropout(oc @ c["wo"].to(dt), rate, generator)
+                                   **streams)
+    x = x + dropout(reduce_from_tp(oc @ c["wo"].to(dt)), rate, generator)
 
-    h = layer_norm(p["ln3"], x, cfg.layer_norm_epsilon)
+    h = copy_to_tp(layer_norm(p["ln3"], x, cfg.layer_norm_epsilon))
     m = mlp_apply(p["mlp"], h, cfg.feed_forward_proj, rate, generator)
-    return x + dropout(m, rate, generator)
+    return x + dropout(reduce_from_tp(m), rate, generator)
 
 
 def decoder_stack(p: Params, cfg, inputs_embeds: torch.Tensor,
@@ -518,9 +629,14 @@ def decoder_stack(p: Params, cfg, inputs_embeds: torch.Tensor,
     rate = cfg.dropout_rate
     x = dropout(inputs_embeds, rate, generator)
     n = cfg.num_decoder_layers
+    nh = local_heads(p["block_0"]["attn"], cfg)
+    # every layer's cross k/v read the encoder states: one all_reduce of
+    # their gradient over tp serves them all
+    enc_states = copy_to_tp(enc_states)
     if fused and enc_mask is not None:
         causal_add = (1.0 - causal_mask(T, dev)[0, 0]) * NEG_INF
-        self_bias_full = (pb[0].float() + causal_add[None]).contiguous()
+        self_bias_full = head_slice(pb[0].float() + causal_add[None], 0,
+                                    nh).contiguous()
         seeds = _layer_seeds(2 * n, generator)
         block_fn = maybe_checkpoint(decoder_block_fused, remat, generator)
         for i in range(n):
@@ -528,13 +644,13 @@ def decoder_stack(p: Params, cfg, inputs_embeds: torch.Tensor,
                          enc_mask, None if seeds is None
                          else seeds[2 * i:2 * i + 2], generator)
     else:
-        self_bias = attention_scores_bias(causal_mask(T, dev), pb)
+        self_bias = head_slice(
+            attention_scores_bias(causal_mask(T, dev), pb), 1, nh)
         cross_mask = None if enc_mask is None else enc_mask[:, None, None, :]
         cross_bias = attention_scores_bias(cross_mask, None)
         cross_kvs = [None] * n
         if getattr(cfg, "folded_cross_kv", False) is True:
-            cross_kvs = cross_kv_fold_all(p, n, enc_states, cfg.num_heads,
-                                          cfg.d_kv)
+            cross_kvs = cross_kv_fold_all(p, n, enc_states, nh, cfg.d_kv)
         block_fn = maybe_checkpoint(decoder_block, remat, generator)
         for i in range(n):
             x = block_fn(p[f"block_{i}"], cfg, x, self_bias, enc_states,

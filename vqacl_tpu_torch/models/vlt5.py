@@ -155,7 +155,12 @@ def encode(params: Params, cfg,
     only (the rest of the joint bias is zero, so it never moves);
     otherwise the full [1,H,S,S] bias and a [B,1,1,S] mask are added.
     A ``generator`` turns dropout on (training); ``remat`` recomputes
-    the blocks in the backward pass (``t5.maybe_checkpoint``)."""
+    the blocks in the backward pass (``t5.maybe_checkpoint``). With
+    ``cfg.pp_mesh`` (a ``MeshContext`` with pp > 1, set by the trainer)
+    the stack runs pipelined over its pp group in ``cfg.pp_micro``
+    microbatches (``parallel.pipeline.encoder_stack_pp``), as JAX's
+    ``encode`` does, with the same choice of fused or unfused
+    attention."""
     B, L = input_ids.shape
     N = vis_feats.shape[1]
     # text keys attend unless pad; region keys always attend
@@ -169,21 +174,29 @@ def encode(params: Params, cfg,
         dtype=dtype)
     inputs = torch.cat([text_emb, vis_emb], dim=1)              # [B, S, D]
 
+    pp_mesh = getattr(cfg, "pp_mesh", None)
     if cfg.fused_attention:
         text_bias = t5.compute_position_bias(
             params["encoder"]["rel_bias"], L, L, bidirectional=True,
             num_buckets=cfg.relative_attention_num_buckets,
             max_distance=cfg.relative_attention_max_distance)[0]  # [H,L,L]
         fused = {"pos_bias": text_bias.contiguous(), "mask": enc_mask}
-        hidden = t5.encoder_stack(params["encoder"], cfg, inputs, None,
-                                  fused=fused, generator=generator,
-                                  remat=remat)
+        pos_bias = mask_add = None
     else:
+        fused = None
         pos_bias = joint_pos_bias(params, cfg, L, N)
         mask_add = t5.attention_scores_bias(enc_mask[:, None, None, :], None)
+    if pp_mesh is not None:
+        from vqacl_tpu_torch.parallel.pipeline import encoder_stack_pp
+
+        hidden = encoder_stack_pp(params["encoder"], cfg, inputs, pos_bias,
+                                  pp_mesh, getattr(cfg, "pp_micro", 4),
+                                  fused=fused, mask_add=mask_add,
+                                  generator=generator)
+    else:
         hidden = t5.encoder_stack(params["encoder"], cfg, inputs, pos_bias,
-                                  mask_add=mask_add, generator=generator,
-                                  remat=remat)
+                                  fused=fused, mask_add=mask_add,
+                                  generator=generator, remat=remat)
     return hidden, enc_mask
 
 
@@ -261,11 +274,21 @@ def decode_hidden(params: Params, cfg, hidden: torch.Tensor,
     """Teacher-forced decoder states [B, T, D] (before the LM head).
     ``labels`` uses -100 for padding and is shifted right here, as HF
     does. Both attention cores run in ``ops.fused_attention`` when
-    ``cfg.fused_attention`` and ``cfg.fused_decoder`` are both set."""
+    ``cfg.fused_attention`` and ``cfg.fused_decoder`` are both set. With
+    ``cfg.pp_mesh`` the stack runs pipelined
+    (``parallel.pipeline.decoder_stack_pp``), as JAX's does."""
     dec_ids = t5.shift_right(labels, cfg.decoder_start_token_id,
                              cfg.pad_token_id)
     dec_emb = t5.embed_tokens(params["shared"], dec_ids, dtype)
     fused = bool(cfg.fused_attention) and bool(cfg.fused_decoder)
+    pp_mesh = getattr(cfg, "pp_mesh", None)
+    if pp_mesh is not None:
+        from vqacl_tpu_torch.parallel.pipeline import decoder_stack_pp
+
+        return decoder_stack_pp(params["decoder"], cfg, dec_emb, hidden,
+                                enc_mask, pp_mesh,
+                                getattr(cfg, "pp_micro", 4),
+                                generator=generator, fused=fused)
     return t5.decoder_stack(params["decoder"], cfg, dec_emb, hidden, enc_mask,
                             generator=generator, fused=fused, remat=remat)
 

@@ -48,7 +48,12 @@ its plain PyTorch version (``*_reference``) for CPU tensors, so the CPU
 tests run the same autograd logic; on CUDA tensors it launches its
 kernel or raises, and counts the launch in ``<wrapper>.launches`` (and,
 when an operand is strided, in ``<wrapper>.strided_launches``; K1′ and
-K2 launched with a row offset ``bh0`` ≠ 0 also in ``.offset_launches``). Strided
+K2 launched with a row offset ``bh0`` ≠ 0 also in ``.offset_launches``,
+and with a first head ``h0`` ≠ 0 in ``.head_offset_launches``). A
+tensor-parallel rank runs K1′/K2 over its heads h0 … h0 + H − 1 of rows
+of ``Hc`` heads: the Philox counter of (b, h) is then bh0 + b·Hc + h0 +
+h, so its heads draw the same heads' streams of a one-process call
+(defaults Hc = H, h0 = 0: bh0 + b·H + h, as before). Strided
 calls go to the ``*_strided`` C entries; dense ones keep the original
 entries, which pass the stride H·dk.
 """
@@ -89,19 +94,36 @@ def philox4x32_10(c0, c1, c2, c3, k0, k1):
     return c0, c1, c2, c3
 
 
+def stream_rows(B: int, H: int, bh0: int = 0, Hc: Optional[int] = None,
+                h0: int = 0, device=None) -> torch.Tensor:
+    """The Philox counter word of each (b, h) of a launch over heads h0 …
+    h0 + H − 1 of rows of ``Hc`` heads (default H), from row offset bh0:
+    bh0 + b·Hc + h0 + h, int64 [B·H] (``csrc/philox.cuh::stream_row``).
+    Raises ValueError unless 0 ≤ h0 and h0 + H ≤ Hc."""
+    Hc = H if Hc is None else int(Hc)
+    if h0 < 0 or h0 + H > Hc:
+        raise ValueError(f"fused_attention: heads {h0}..{h0 + H - 1} do not "
+                         f"lie in a row of {Hc} heads")
+    b = torch.arange(B, dtype=torch.int64, device=device)[:, None]
+    h = torch.arange(H, dtype=torch.int64, device=device)[None, :]
+    return (bh0 + b * Hc + h0 + h).reshape(B * H)
+
+
 def philox_keep_mask(seed: torch.Tensor, B: int, H: int, Tq: int, Sk: int,
-                     rate: float, bh0: int = 0) -> torch.Tensor:
+                     rate: float, bh0: int = 0, Hc: Optional[int] = None,
+                     h0: int = 0) -> torch.Tensor:
     """The keep mask [B,H,Tq,Sk] (bool) that K1′ and K2 apply: key
-    (seed, 0), counter (j // 4, i, bh0 + b·H + h, 0), word j % 4. A
-    data-parallel rank r of B rows passes bh0 = r·B·H and draws rows
-    r·B … r·B + B − 1 of the one-process mask."""
+    (seed, 0), counter (j // 4, i, bh0 + b·Hc + h0 + h, 0), word j % 4
+    (``stream_rows``). A data-parallel rank r of B rows passes bh0 =
+    r·B·Hc and draws rows r·B … r·B + B − 1 of the one-process mask; a
+    tensor-parallel rank over heads h0 … h0 + H − 1 of Hc passes Hc and
+    h0 and draws those heads of it."""
     dev = seed.device
     J = (Sk + 3) // 4
     i64 = torch.int64
     c0 = torch.arange(J, dtype=i64, device=dev).view(1, 1, J)
     c1 = torch.arange(Tq, dtype=i64, device=dev).view(1, Tq, 1)
-    c2 = torch.arange(bh0, bh0 + B * H, dtype=i64,
-                      device=dev).view(B * H, 1, 1)
+    c2 = stream_rows(B, H, bh0, Hc, h0, dev).view(B * H, 1, 1)
     shape = (B * H, Tq, J)
     c0, c1, c2 = (c.expand(shape) for c in (c0, c1, c2))
     c3 = torch.zeros(shape, dtype=i64, device=dev)
@@ -163,7 +185,8 @@ def fused_attention_fwd_train_reference(
         q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         bias: Optional[torch.Tensor], mask: torch.Tensor,
         seed: torch.Tensor, num_heads: int, dropout_rate: float,
-        bh0: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+        bh0: int = 0, Hc: Optional[int] = None, h0: int = 0
+) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of K1′ → (o [B,Tq,H·dk] in q's dtype,
     pre-dropout p [B,H·Tq,Sk] f32)."""
     B, Tq, _ = q.shape
@@ -172,7 +195,8 @@ def fused_attention_fwd_train_reference(
     p = _probs(q, k, bias, mask, H)
     pd = p
     if dropout_rate > 0.0:
-        keep = philox_keep_mask(seed, B, H, Tq, Sk, dropout_rate, bh0)
+        keep = philox_keep_mask(seed, B, H, Tq, Sk, dropout_rate, bh0, Hc,
+                                h0)
         pd = torch.where(keep, p / _keep_div(dropout_rate, p.device), 0.0)
     o = pd.to(v.dtype).float() @ _heads(v, H).float()
     return _merge(o).to(q.dtype), p.reshape(B, H * Tq, Sk)
@@ -181,7 +205,8 @@ def fused_attention_fwd_train_reference(
 def fused_attention_bwd_reference(
         q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, p: torch.Tensor,
         seed: torch.Tensor, do: torch.Tensor, num_heads: int, L: int,
-        dropout_rate: float, bh0: int = 0
+        dropout_rate: float, bh0: int = 0, Hc: Optional[int] = None,
+        h0: int = 0
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """Plain PyTorch version of K2 → (dq, dk, dv in q's dtype, dbias
     [H,L,L] f32, or None when L = 0)."""
@@ -192,7 +217,8 @@ def fused_attention_bwd_reference(
     p = p.reshape(B, H, Tq, Sk)
     pd = p
     if dropout_rate > 0.0:
-        keep = philox_keep_mask(seed, B, H, Tq, Sk, dropout_rate, bh0)
+        keep = philox_keep_mask(seed, B, H, Tq, Sk, dropout_rate, bh0, Hc,
+                                h0)
         kd = _keep_div(dropout_rate, p.device)
         pd = torch.where(keep, p / kd, 0.0)
     dv = pd.transpose(-1, -2) @ doh
@@ -436,14 +462,16 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     bias: Optional[torch.Tensor], mask: torch.Tensor,
                     num_heads: int, dropout_rate: float = 0.0,
                     seed: Optional[torch.Tensor] = None,
-                    bh0: int = 0) -> torch.Tensor:
+                    bh0: int = 0, Hc: Optional[int] = None,
+                    h0: int = 0) -> torch.Tensor:
     """q [B,Tq,H·dk], k/v [B,Sk,H·dk] (f32 or bf16, one dtype; dense, or
     column slices of a wider projection output, whose row stride the
     kernels take: ``_row_stride``); bias [H,L,L] f32 covering the first L
     positions, or None; mask [B,Sk] (1 = attend); seed int32 [1] on q's
-    device (the layer's dropout stream; zeros when None); bh0 the Philox
-    row offset of this call's first (batch, head) (``philox_keep_mask``;
-    a data-parallel rank's) → [B,Tq,H·dk] in q's dtype.
+    device (the layer's dropout stream; zeros when None); bh0, Hc and h0
+    place the Philox streams (``stream_rows``: a data-parallel rank's row
+    offset, a tensor-parallel rank's heads h0 … of rows of Hc) →
+    [B,Tq,H·dk] in q's dtype.
 
     Differentiable calls go through K1′/K2; others run K1 (counted in
     ``fused_attention.launches``, and those on strided operands also in
@@ -453,7 +481,9 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if seed is None:
             seed = torch.zeros((1,), dtype=torch.int32, device=q.device)
         return _FusedAttention.apply(q, k, v, bias, mask, seed, num_heads,
-                                     float(dropout_rate), int(bh0))
+                                     float(dropout_rate), int(bh0),
+                                     num_heads if Hc is None else int(Hc),
+                                     int(h0))
     if dropout_rate > 0.0:
         raise NotImplementedError(
             "fused_attention: the inference kernel takes no dropout; "
@@ -471,14 +501,17 @@ def fused_attention_fwd_train(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, bias: Optional[torch.Tensor],
                               mask: torch.Tensor, seed: torch.Tensor,
                               num_heads: int, dropout_rate: float,
-                              bh0: int = 0
+                              bh0: int = 0, Hc: Optional[int] = None,
+                              h0: int = 0
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K1′ → (o [B,Tq,H·dk] in q's dtype, pre-dropout p [B,H·Tq,Sk] f32).
-    q, k, v and bh0 as in ``fused_attention``; launches on strided
-    operands are also counted in ``strided_launches``."""
+    q, k, v, bh0, Hc and h0 as in ``fused_attention``; launches on
+    strided operands are also counted in ``strided_launches``."""
+    Hc = num_heads if Hc is None else int(Hc)
+    stream_rows(1, num_heads, 0, Hc, h0)          # the heads lie in a row
     if q.device.type == "cpu":
         return fused_attention_fwd_train_reference(
-            q, k, v, bias, mask, seed, num_heads, dropout_rate, bh0)
+            q, k, v, bias, mask, seed, num_heads, dropout_rate, bh0, Hc, h0)
     from vqacl_tpu_torch.ops import _build
 
     B, Tq, Sk, dk = _validate_fwd(q, k, v, num_heads, (seed,))
@@ -496,7 +529,7 @@ def fused_attention_fwd_train(q: torch.Tensor, k: torch.Tensor,
             o.data_ptr(), p.data_ptr(), B, Tq, Sk, num_heads, dk, L)
     tail = (_DTYPE_CODE[q.dtype], int(drop),
             dropout_threshold(dropout_rate) if drop else 0,
-            1.0 - dropout_rate, _stream(q), int(bh0))
+            1.0 - dropout_rate, _stream(q), int(bh0), Hc, int(h0))
     if strided:
         err = lib.fused_attention_fwd_train_strided(*head, *lds, *tail)
     else:
@@ -506,12 +539,14 @@ def fused_attention_fwd_train(q: torch.Tensor, k: torch.Tensor,
     fused_attention_fwd_train.launches += 1
     fused_attention_fwd_train.strided_launches += strided
     fused_attention_fwd_train.offset_launches += bh0 != 0
+    fused_attention_fwd_train.head_offset_launches += h0 != 0
     return o, p
 
 
 fused_attention_fwd_train.launches = 0
 fused_attention_fwd_train.strided_launches = 0
 fused_attention_fwd_train.offset_launches = 0
+fused_attention_fwd_train.head_offset_launches = 0
 
 
 def _rows_like(t: torch.Tensor, ld: int) -> torch.Tensor:
@@ -528,12 +563,14 @@ def fused_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         dropout_rate: float,
                         out: Optional[Tuple[torch.Tensor, torch.Tensor,
                                             torch.Tensor]] = None,
-                        bh0: int = 0
+                        bh0: int = 0, Hc: Optional[int] = None,
+                        h0: int = 0
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                                    Optional[torch.Tensor]]:
     """K2 → (dq, dk, dv in q's dtype, dbias [H,L,L] f32 or None if L=0).
 
-    q, k, v and bh0 as in ``fused_attention`` (do dense [B,Tq,H·dk]); dq, dk
+    q, k, v, bh0, Hc and h0 as in ``fused_attention`` (do dense
+    [B,Tq,H·dk]); dq, dk
     and dv are written as rows of their input's stride: into ``out``
     (three tensors of that layout, e.g. the slices of one merged gradient
     buffer) or, without it, into new buffers of that layout. Launches on
@@ -546,9 +583,11 @@ def fused_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 raise ValueError(f"fused_attention_bwd: out {name} must "
                                  f"have {name[1:]}'s shape, dtype, device "
                                  f"and row stride")
+    Hc = num_heads if Hc is None else int(Hc)
+    stream_rows(1, num_heads, 0, Hc, h0)          # the heads lie in a row
     if q.device.type == "cpu":
         dq, dk_, dv, dbias = fused_attention_bwd_reference(
-            q, k, v, p, seed, do, num_heads, L, dropout_rate, bh0)
+            q, k, v, p, seed, do, num_heads, L, dropout_rate, bh0, Hc, h0)
         if out is None:
             return dq, dk_, dv, dbias
         for g, r in zip(out, (dq, dk_, dv)):
@@ -586,7 +625,7 @@ def fused_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             dbias.data_ptr() if L else None, B, Tq, Sk, H, dk, L)
     tail = (_DTYPE_CODE[q.dtype], int(drop),
             dropout_threshold(dropout_rate) if drop else 0,
-            1.0 - dropout_rate, _stream(q), int(bh0))
+            1.0 - dropout_rate, _stream(q), int(bh0), Hc, int(h0))
     if strided:
         err = lib.fused_attention_bwd_strided(*head, *lds, *tail)
     else:
@@ -596,31 +635,37 @@ def fused_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     fused_attention_bwd.launches += 1
     fused_attention_bwd.strided_launches += strided
     fused_attention_bwd.offset_launches += bh0 != 0
+    fused_attention_bwd.head_offset_launches += h0 != 0
     return dq, dk_, dv, dbias
 
 
 fused_attention_bwd.launches = 0
 fused_attention_bwd.strided_launches = 0
 fused_attention_bwd.offset_launches = 0
+fused_attention_bwd.head_offset_launches = 0
 
 
 def fused_attention_keep_mask(seed: torch.Tensor, B: int, H: int, Tq: int,
-                              Sk: int, rate: float, bh0: int = 0
+                              Sk: int, rate: float, bh0: int = 0,
+                              Hc: Optional[int] = None, h0: int = 0
                               ) -> torch.Tensor:
-    """The keep mask [B,H,Tq,Sk] (bool) as the CUDA kernels draw it, from
-    Philox row bh0 on, for holding ``philox_keep_mask`` against them on
-    the card."""
+    """The keep mask [B,H,Tq,Sk] (bool) as the CUDA kernels draw it, with
+    the streams of ``stream_rows(B, H, bh0, Hc, h0)``, for holding
+    ``philox_keep_mask`` against them on the card."""
     from vqacl_tpu_torch.ops import _build
 
     if seed.device.type != "cuda":
         raise ValueError("fused_attention_keep_mask: needs a CUDA seed")
     _check("seed", seed, torch.int32, (1,))
+    Hc = H if Hc is None else int(Hc)
+    stream_rows(1, H, 0, Hc, h0)                  # the heads lie in a row
     lib = _build.load("fused_attention_bwd")
     out = torch.empty((B, H, Tq, Sk), dtype=torch.uint8, device=seed.device)
     err = lib.fused_attention_keep_mask(seed.data_ptr(), out.data_ptr(),
                                         B * H, Tq, Sk,
                                         dropout_threshold(rate),
-                                        _stream(seed), int(bh0))
+                                        _stream(seed), int(bh0), H, Hc,
+                                        int(h0))
     _raise_on(err, lib, "fused_attention_keep_mask",
               "fused_attention_bwd_error_string")
     return out.bool()
@@ -629,31 +674,34 @@ def fused_attention_keep_mask(seed: torch.Tensor, B: int, H: int, Tq: int,
 class _FusedAttention(torch.autograd.Function):
     """The custom VJP (K3): forward through K1′, which saves p; backward
     through K2, which regenerates the keep mask from the saved seed and
-    Philox row offset ``bh0`` (K3's mesh path: a data-parallel rank's
-    ``rank·B·H``, so that its rows draw a one-process call's streams)."""
+    Philox streams ``(bh0, Hc, h0)`` (K3's mesh path: a data-parallel
+    rank's row offset ``rank·B·Hc`` and a tensor-parallel rank's heads,
+    so that they draw a one-process call's streams)."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, mask, seed, num_heads, dropout_rate,
-                bh0=0):
+                bh0=0, Hc=None, h0=0):
         if q.device.type == "cuda":    # refuse before K1′ launches
             bwd_route(q.dtype, q.shape[-1] // num_heads, q.shape[1],
                       k.shape[1], dropout_rate)
         o, p = fused_attention_fwd_train(q, k, v, bias, mask, seed,
-                                         num_heads, dropout_rate, bh0)
+                                         num_heads, dropout_rate, bh0, Hc,
+                                         h0)
         ctx.save_for_backward(q, k, v, p, seed)
         ctx.num_heads = num_heads
         ctx.dropout_rate = dropout_rate
-        ctx.bh0 = bh0
+        ctx.streams = (bh0, Hc, h0)
         ctx.L = 0 if bias is None else bias.shape[-1]
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, p, seed = ctx.saved_tensors
+        bh0, Hc, h0 = ctx.streams
         dq, dk, dv, dbias = fused_attention_bwd(
             q, k, v, p, seed, do.contiguous(), ctx.num_heads, ctx.L,
-            ctx.dropout_rate, bh0=ctx.bh0)
-        return dq, dk, dv, dbias, None, None, None, None, None
+            ctx.dropout_rate, bh0=bh0, Hc=Hc, h0=h0)
+        return dq, dk, dv, dbias, None, None, None, None, None, None, None
 
 
 def _unpack(x: torch.Tensor, kv: Optional[torch.Tensor]):
@@ -685,36 +733,39 @@ class _FusedAttentionPacked(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, kv, bias, mask, seed, num_heads, dropout_rate,
-                bh0=0):
+                bh0=0, Hc=None, h0=0):
         q, k, v = _unpack(x, kv)
         if q.device.type == "cuda":    # refuse before K1′ launches
             bwd_route(q.dtype, q.shape[-1] // num_heads, q.shape[1],
                       k.shape[1], dropout_rate)
         o, p = fused_attention_fwd_train(q, k, v, bias, mask, seed,
-                                         num_heads, dropout_rate, bh0)
+                                         num_heads, dropout_rate, bh0, Hc,
+                                         h0)
         ctx.save_for_backward(x, kv, p, seed)
         ctx.num_heads = num_heads
         ctx.dropout_rate = dropout_rate
-        ctx.bh0 = bh0
+        ctx.streams = (bh0, Hc, h0)
         ctx.L = 0 if bias is None else bias.shape[-1]
         return o
 
     @staticmethod
     def backward(ctx, do):
         x, kv, p, seed = ctx.saved_tensors
+        bh0, Hc, h0 = ctx.streams
         dx = torch.empty_like(x)       # dense, as fused_attention_packed
         dkv = None if kv is None else torch.empty_like(kv)   # checks x, kv
         *_, dbias = fused_attention_bwd(
             *_unpack(x, kv), p, seed, do.contiguous(), ctx.num_heads, ctx.L,
-            ctx.dropout_rate, out=_unpack(dx, dkv), bh0=ctx.bh0)
-        return dx, dkv, dbias, None, None, None, None, None
+            ctx.dropout_rate, out=_unpack(dx, dkv), bh0=bh0, Hc=Hc, h0=h0)
+        return dx, dkv, dbias, None, None, None, None, None, None, None
 
 
 def fused_attention_packed(x: torch.Tensor, kv: Optional[torch.Tensor],
                            bias: Optional[torch.Tensor], mask: torch.Tensor,
                            num_heads: int, dropout_rate: float = 0.0,
                            seed: Optional[torch.Tensor] = None,
-                           bh0: int = 0) -> torch.Tensor:
+                           bh0: int = 0, Hc: Optional[int] = None,
+                           h0: int = 0) -> torch.Tensor:
     """``fused_attention`` on packed projection outputs (``_unpack``: x =
     q|k|v [B,S,3·H·dk], or x = q [B,Tq,H·dk] with kv = k|v [B,Sk,2·H·dk];
     each dense) → [B,Tq,H·dk]. Differentiable calls go through
@@ -729,9 +780,11 @@ def fused_attention_packed(x: torch.Tensor, kv: Optional[torch.Tensor],
             seed = torch.zeros((1,), dtype=torch.int32, device=x.device)
         return _FusedAttentionPacked.apply(x, kv, bias, mask, seed,
                                            num_heads, float(dropout_rate),
-                                           int(bh0))
+                                           int(bh0), num_heads if Hc is None
+                                           else int(Hc), int(h0))
     return fused_attention(*_unpack(x, kv), bias, mask, num_heads,
-                           dropout_rate=dropout_rate, seed=seed, bh0=bh0)
+                           dropout_rate=dropout_rate, seed=seed, bh0=bh0,
+                           Hc=Hc, h0=h0)
 
 
 def _bias_block(pos_bias: Optional[torch.Tensor], q: torch.Tensor,
@@ -750,10 +803,11 @@ def _fused_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                pos_bias: Optional[torch.Tensor], mask: torch.Tensor,
                dropout_rate: float = 0.0,
                seed: Optional[torch.Tensor] = None,
-               bh0: int = 0) -> torch.Tensor:
+               bh0: int = 0, Hc: Optional[int] = None,
+               h0: int = 0) -> torch.Tensor:
     """q [B,Tq,H,dk], k/v [B,Sk,H,dk] (the projection outputs, reshaped
     flat without a copy); pos_bias [H,L,L] or None; mask [B,Sk]; seed
-    int32 [1]; bh0 the Philox row offset → [B,Tq,H·dk]. The JAX wrapper pads to a multiple of 8 for
+    int32 [1]; bh0, Hc, h0 the Philox streams → [B,Tq,H·dk]. The JAX wrapper pads to a multiple of 8 for
     the TPU's tiling; the CUDA kernels handle ragged lengths themselves,
     so nothing is padded here (padded keys are masked, so the result is
     the same)."""
@@ -762,53 +816,60 @@ def _fused_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     bias = _bias_block(pos_bias, q, k)
     return fused_attention(q.reshape(B, Tq, H * dk), k.reshape(B, Sk, H * dk),
                            v.reshape(B, Sk, H * dk), bias, mask, H,
-                           dropout_rate=dropout_rate, seed=seed, bh0=bh0)
+                           dropout_rate=dropout_rate, seed=seed, bh0=bh0,
+                           Hc=Hc, h0=h0)
 
 
 def fused_encoder_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             pos_bias: torch.Tensor, mask: torch.Tensor,
                             dropout_rate: float = 0.0,
                             seed: Optional[torch.Tensor] = None,
-                            bh0: int = 0) -> torch.Tensor:
+                            bh0: int = 0, Hc: Optional[int] = None,
+                            h0: int = 0) -> torch.Tensor:
     """Self-attention: q/k/v [B,S,H,dk], pos_bias [H,L,L] f32 covering the
-    first L positions, mask [B,S], seed int32 [1], bh0 the Philox row
-    offset → [B,S,H·dk]."""
+    first L positions, mask [B,S], seed int32 [1], bh0, Hc, h0 the Philox
+    streams → [B,S,H·dk]."""
     return _fused_mha(q, k, v, pos_bias, mask, dropout_rate=dropout_rate,
-                      seed=seed, bh0=bh0)
+                      seed=seed, bh0=bh0, Hc=Hc, h0=h0)
 
 
 def fused_cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           mask: torch.Tensor, dropout_rate: float = 0.0,
                           seed: Optional[torch.Tensor] = None,
-                          bh0: int = 0) -> torch.Tensor:
+                          bh0: int = 0, Hc: Optional[int] = None,
+                          h0: int = 0) -> torch.Tensor:
     """Bias-free rectangular attention: q [B,Tq,H,dk], k/v [B,Sk,H,dk],
-    mask [B,Sk], seed int32 [1], bh0 the Philox row offset →
+    mask [B,Sk], seed int32 [1], bh0, Hc, h0 the Philox streams →
     [B,Tq,H·dk]."""
     return _fused_mha(q, k, v, None, mask, dropout_rate=dropout_rate,
-                      seed=seed, bh0=bh0)
+                      seed=seed, bh0=bh0, Hc=Hc, h0=h0)
 
 
 def fused_encoder_attention_merged(qkv: torch.Tensor, pos_bias: torch.Tensor,
                                    mask: torch.Tensor, num_heads: int,
                                    dropout_rate: float = 0.0,
                                    seed: Optional[torch.Tensor] = None,
-                                   bh0: int = 0) -> torch.Tensor:
+                                   bh0: int = 0, Hc: Optional[int] = None,
+                                   h0: int = 0) -> torch.Tensor:
     """Self-attention on the merged projection output qkv [B,S,3·H·dk]
     (``t5.qkv_proj_merged``'s GEMM), q, k and v reaching the kernels as
-    strided views; pos_bias [H,L,L] f32, mask [B,S], seed int32 [1], bh0
-    the Philox row offset → [B,S,H·dk]."""
+    strided views; pos_bias [H,L,L] f32, mask [B,S], seed int32 [1], bh0,
+    Hc, h0 the Philox streams → [B,S,H·dk]."""
     return fused_attention_packed(qkv, None, _bias_block(pos_bias, qkv, qkv),
-                                  mask, num_heads, dropout_rate, seed, bh0)
+                                  mask, num_heads, dropout_rate, seed, bh0,
+                                  Hc, h0)
 
 
 def fused_cross_attention_merged(q: torch.Tensor, kv: torch.Tensor,
                                  mask: torch.Tensor,
                                  dropout_rate: float = 0.0,
                                  seed: Optional[torch.Tensor] = None,
-                                 bh0: int = 0) -> torch.Tensor:
+                                 bh0: int = 0, Hc: Optional[int] = None,
+                                 h0: int = 0) -> torch.Tensor:
     """Bias-free rectangular attention: q [B,Tq,H,dk] and the merged k|v
     projection kv [B,Sk,2·H·dk] (``t5.kv_proj_merged``'s GEMM), mask
-    [B,Sk], seed int32 [1], bh0 the Philox row offset → [B,Tq,H·dk]."""
+    [B,Sk], seed int32 [1], bh0, Hc, h0 the Philox streams →
+    [B,Tq,H·dk]."""
     B, Tq, H, dk = q.shape
     return fused_attention_packed(q.reshape(B, Tq, H * dk), kv, None, mask,
-                                  H, dropout_rate, seed, bh0)
+                                  H, dropout_rate, seed, bh0, Hc, h0)

@@ -4,11 +4,18 @@
 The rules are data: each parameter path ("encoder/block_0/attn/wq") maps
 to a spec tuple naming the mesh axis of each dimension, as JAX's
 ``PartitionSpec``s do (``(None, "tp")``: the output dimension over tp;
-``()``: replicated). The tp half (``shard_params``, the Megatron layout)
-is not ported yet and raises. The dp half is FSDP (ZeRO-3 style):
-``fsdp_rules`` gives each leaf of at least 2^14 elements a dimension
-sharded over dp, and ``FsdpLayout`` keeps only this rank's slice of such
-a leaf, and of its Adam moments, between steps. Weights are stored
+``()``: replicated). The tp half is the Megatron layout: ``TpLayout``
+(and ``shard_params``) keeps tp rank t's slice ``[t·n/tp, (t+1)·n/tp)``
+of each ``RULES``-marked dimension (q/k/v and the MLP's first product by
+their outputs, the two wo by their inputs: a rank's heads and its part
+of the hidden), which the tp blocks of models/t5.py run on. The dp half
+is FSDP (ZeRO-3 style): ``fsdp_rules`` gives each leaf of at least 2^14
+elements a dimension sharded over dp, and ``FsdpLayout`` keeps only this
+rank's slice of such a leaf, and of its Adam moments, between steps;
+composed with tp, it shards the rank's tp slices on the dimension JAX's
+rule picks (never a tp-marked one). ``StoredLayout`` chains the two for
+the trainer and the checkpoints. Every gather is one zeroed bucket
+all-reduced bit for bit over the group (tp or dp). Weights are stored
 ``[in, out]`` and applied as ``x @ W``.
 """
 
@@ -65,9 +72,131 @@ def apply_rules(ctx, params: Any) -> Any:
 
 
 def shard_params(ctx, params: Any) -> Any:
-    """The tensor-parallel layout: not ported yet."""
-    raise ValueError("shard_params: the tensor-parallel layout ('tp') is not "
-                     "ported yet")
+    """This rank's tensor-parallel slices of ``params`` (copies; the whole
+    tree at tp = 1): ``TpLayout.shard``."""
+    return TpLayout(ctx, params).shard(params)
+
+
+def _numel(shape) -> int:
+    n = 1
+    for s in shape:
+        n *= s
+    return n
+
+
+def _bucket_gather(ctx, group: str, tree: Any, dims, full_shapes,
+                   part) -> Any:
+    """The full leaves of ``tree`` from the ranks' slices: each leaf i
+    with ``dims[i]`` set is written at ``part(i)`` (dim, start, length)
+    of a zeroed bucket of the full leaves' bytes (16-byte aligned), which
+    one ``all_reduce`` over ``group`` combines as int32 words, bit for
+    bit; the other leaves pass as they are."""
+    leaves = tree_leaves(tree)
+    offs, total = [], 0
+    for i, x in enumerate(leaves):
+        offs.append(total)
+        if dims[i] is not None:
+            total += -(-_numel(full_shapes[i]) * x.element_size() // 16) * 16
+    if total == 0:
+        return tree
+    words = torch.zeros(total // 4, dtype=torch.int32,
+                        device=leaves[0].device)
+    raw = words.view(torch.uint8)
+    out = []
+    for i, x in enumerate(leaves):
+        if dims[i] is None:
+            out.append(x)
+            continue
+        n = _numel(full_shapes[i]) * x.element_size()
+        full = raw[offs[i]:offs[i] + n].view(x.dtype).view(full_shapes[i])
+        full.narrow(*part(i)).copy_(x)
+        out.append(full)
+    ctx.all_reduce(words, group)
+    return tree_unflatten(tree, out)
+
+
+def _sq_norm(ctx, leaves, tp_dims, dp_dims) -> torch.Tensor:
+    """Σ x² in f32 over a tree stored as slices: the squares of the leaves
+    sharded over dp summed over dp, then those of the leaves sharded over
+    tp (over dp too or not) summed over tp, the whole leaves added
+    once."""
+    dev = leaves[0].device
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    sums = {}
+    for x, td, dd in zip(leaves, tp_dims, dp_dims):
+        sums.setdefault((td is not None, dd is not None), []).append(
+            x.float().pow(2).sum())
+    s = {k: torch.stack(v).sum() for k, v in sums.items()}
+    both, tp_only = s.get((True, True), zero), s.get((True, False), zero)
+    dp_only, none = s.get((False, True), zero), s.get((False, False), zero)
+    if any(d is not None for d in dp_dims):
+        if (True, True) in s:
+            both, dp_only = ctx.all_reduce(torch.stack([both, dp_only]),
+                                           "dp")
+        else:
+            dp_only = ctx.all_reduce(dp_only.clone(), "dp")
+    total = dp_only + none
+    if any(d is not None for d in tp_dims):
+        total = total + ctx.all_reduce(both + tp_only, "tp")
+    return total
+
+
+class TpLayout:
+    """The Megatron layout of a parameter tree: which dimension of each
+    leaf ``RULES`` marks "tp", and the moves between full leaves and tp
+    rank t's slices ``[t·n/tp, (t+1)·n/tp)`` of it. At tp = 1 every leaf
+    stays whole. Raises ValueError for a marked dimension tp does not
+    divide (the heads or the MLP hidden)."""
+
+    def __init__(self, ctx, params: Any):
+        self.ctx = ctx
+        self.specs = apply_rules(ctx, params)
+        self._shapes = [tuple(p.shape) for p in tree_leaves(params)]
+        self._dims = [s.index("tp") if ctx.tp > 1 and "tp" in s else None
+                      for s in tree_leaves(self.specs)]
+        for d, shape, path in zip(self._dims, self._shapes,
+                                  tree_leaves(_tree_paths(params))):
+            if d is not None and shape[d] % ctx.tp:
+                raise ValueError(f"TpLayout: {path} dimension {d} of "
+                                 f"{shape[d]} not divisible by tp={ctx.tp}")
+
+    @property
+    def dims(self):
+        return list(self._dims)
+
+    def local_shapes(self):
+        """The shapes of this rank's slices."""
+        return [s if d is None else s[:d] + (s[d] // self.ctx.tp,)
+                + s[d + 1:] for s, d in zip(self._shapes, self._dims)]
+
+    def _part(self, i: int) -> Tuple[int, int, int]:
+        d = self._dims[i]
+        n = self._shapes[i][d] // self.ctx.tp
+        return d, self.ctx.tp_index * n, n
+
+    def shard(self, tree: Any) -> Any:
+        """This rank's slices (copies) of a full tree's sharded leaves."""
+        return tree_unflatten(tree, [
+            x if self._dims[i] is None else x.narrow(*self._part(i)).clone()
+            for i, x in enumerate(tree_leaves(tree))])
+
+    def slice(self, tree: Any) -> Any:
+        """Like ``shard``, as views of the full leaves (no copy)."""
+        return tree_unflatten(tree, [
+            x if self._dims[i] is None else x.narrow(*self._part(i))
+            for i, x in enumerate(tree_leaves(tree))])
+
+    def gather(self, tree: Any) -> Any:
+        """The full tree from the tp ranks' slices: one bucket, all-reduced
+        over the tp group bit for bit."""
+        return _bucket_gather(self.ctx, "tp", tree, self._dims,
+                              self._shapes, self._part)
+
+    def global_sq_norm(self, shards: Any) -> torch.Tensor:
+        """Σ x² in f32 over the whole tree from this rank's slices: the
+        sharded leaves' squares summed over tp, the whole ones once."""
+        leaves = tree_leaves(shards)
+        return _sq_norm(self.ctx, leaves, self._dims, [None] * len(leaves))
 
 
 def fsdp_rules(ctx, params: Any, min_size: int = 1 << 14) -> Any:
@@ -96,23 +225,29 @@ def fsdp_rules(ctx, params: Any, min_size: int = 1 << 14) -> Any:
 
 
 class FsdpLayout:
-    """Which dimension of each leaf is sharded over dp (``fsdp_rules``),
-    and the moves between full leaves and this rank's slices: rank r
-    keeps ``[r·n/dp, (r+1)·n/dp)`` of that dimension. Leaves without
-    "dp" stay whole on every rank."""
+    """Which dimension of each leaf is sharded over dp (``fsdp_rules``,
+    chosen on the full ``params``), and the moves between the leaves and
+    this rank's slices: the rank of dp index d keeps ``[d·n/dp,
+    (d+1)·n/dp)`` of that dimension. Leaves without "dp" stay whole on
+    every rank. With a ``tp`` layout the leaves are that layout's tp
+    slices (never cut on a tp-marked dimension, so the dp dimension has
+    its full length), as JAX composes the two (sharding.py:73-102)."""
 
-    def __init__(self, ctx, params: Any, min_size: int = 1 << 14):
+    def __init__(self, ctx, params: Any, min_size: int = 1 << 14,
+                 tp: Optional[TpLayout] = None):
         self.ctx = ctx
+        self.tp = tp
         self.specs = fsdp_rules(ctx, params, min_size)
         self._dims = [s.index("dp") if "dp" in s else None
                       for s in tree_leaves(self.specs)]
-        self._shapes = [tuple(p.shape) for p in tree_leaves(params)]
+        self._shapes = tp.local_shapes() if tp is not None else \
+            [tuple(p.shape) for p in tree_leaves(params)]
 
     def _part(self, i: int) -> Tuple[int, int, int]:
         """(dim, start, length) of this rank's slice of leaf i."""
         d = self._dims[i]
         n = self._shapes[i][d] // self.ctx.dp
-        return d, self.ctx.rank * n, n
+        return d, self.ctx.dp_index * n, n
 
     def shard(self, tree: Any) -> Any:
         """This rank's slices (copies) of a full tree's sharded leaves."""
@@ -130,50 +265,42 @@ class FsdpLayout:
             for i, x in enumerate(tree_leaves(tree))])
 
     def gather(self, tree: Any) -> Any:
-        """The full tree from every rank's slices: one bucket, each rank
+        """The leaves from every dp rank's slices: one bucket, each rank
         writing its slices into a zeroed buffer of the sharded leaves'
-        bytes, combined by one ``all_reduce`` bit for bit."""
-        leaves = tree_leaves(tree)
-        offs, total = [], 0
-        for i, x in enumerate(leaves):
-            offs.append(total)
-            if self._dims[i] is not None:
-                n = x.element_size()
-                for s in self._shapes[i]:
-                    n *= s
-                total += -(-n // 16) * 16        # 16-byte aligned leaves
-        if total == 0:
-            return tree
-        dev = leaves[0].device
-        words = torch.zeros(total // 4, dtype=torch.int32, device=dev)
-        raw = words.view(torch.uint8)
-        out = []
-        for i, x in enumerate(leaves):
-            if self._dims[i] is None:
-                out.append(x)
-                continue
-            shape = self._shapes[i]
-            n = x.element_size()
-            for s in shape:
-                n *= s
-            full = raw[offs[i]:offs[i] + n].view(x.dtype).view(shape)
-            full.narrow(*self._part(i)).copy_(x)
-            out.append(full)
-        self.ctx.all_reduce(words)
-        return tree_unflatten(tree, out)
+        bytes, combined by one ``all_reduce`` over dp bit for bit."""
+        return _bucket_gather(self.ctx, "dp", tree, self._dims,
+                              self._shapes, self._part)
 
     def global_sq_norm(self, shards: Any) -> torch.Tensor:
         """Σ x² in f32 over the whole tree from this rank's slices: the
-        sharded leaves' sums all-reduced, the whole leaves' added once."""
-        sharded = [x.float().pow(2).sum() for i, x in
-                   enumerate(tree_leaves(shards)) if self._dims[i] is not None]
-        whole = [x.float().pow(2).sum() for i, x in
-                 enumerate(tree_leaves(shards)) if self._dims[i] is None]
-        dev = tree_leaves(shards)[0].device
-        zero = torch.zeros((), dtype=torch.float32, device=dev)
-        part = self.ctx.all_reduce(torch.stack(sharded).sum()
-                                   if sharded else zero.clone())
-        return part + (torch.stack(whole).sum() if whole else zero)
+        dp-sharded leaves' sums all-reduced over dp, the tp-sharded ones'
+        (with a ``tp`` layout) over tp, the whole leaves' added once."""
+        leaves = tree_leaves(shards)
+        tp_dims = self.tp.dims if self.tp is not None else \
+            [None] * len(leaves)
+        return _sq_norm(self.ctx, leaves, tp_dims, self._dims)
+
+
+class StoredLayout:
+    """How a trainer keeps its parameters: the tp slices (``tp``, a
+    ``TpLayout``), then their dp slices (``fsdp``, an ``FsdpLayout``
+    built over the same ``tp``); either may be None. ``shard`` takes the
+    full tree to this rank's storage, ``gather`` back (every rank calls
+    it)."""
+
+    def __init__(self, tp: Optional[TpLayout] = None,
+                 fsdp: Optional[FsdpLayout] = None):
+        self.tp, self.fsdp = tp, fsdp
+
+    def shard(self, tree: Any) -> Any:
+        if self.tp is not None:
+            tree = self.tp.shard(tree)
+        return tree if self.fsdp is None else self.fsdp.shard(tree)
+
+    def gather(self, tree: Any) -> Any:
+        if self.fsdp is not None:
+            tree = self.fsdp.gather(tree)
+        return tree if self.tp is None else self.tp.gather(tree)
 
 
 def shard_params_fsdp(ctx, params: Any) -> Any:

@@ -10,9 +10,10 @@ banks. ``save_checkpoint_dcp``/``load_checkpoint_dcp`` keep the same tree
 as a ``torch.distributed.checkpoint`` directory, the counterpart of JAX's
 orbax pair.
 
-Under data parallelism every rank calls the savers: with an FSDP
-``layout`` (parallel/sharding.py::FsdpLayout) the sharded leaves are
-gathered first, and only the main process writes, so the archive keeps
+Under data, tensor or pipeline parallelism every rank calls the savers:
+with a ``layout`` (parallel/sharding.py: ``FsdpLayout``, ``TpLayout`` or
+the trainer's ``StoredLayout`` of both) the sharded leaves are gathered
+first (over tp, then dp), and only the main process writes, so the archive keeps
 the flat keys and full shapes of a one-process run. The loaders read the
 file, then broadcast rank 0's values (``mesh_ctx``) and keep this rank's
 slices (``layout``).
@@ -89,7 +90,8 @@ def _atomic_savez(path: str, flat: Dict[str, np.ndarray]) -> None:
 
 
 def _whole(params: Any, layout) -> Any:
-    """The full parameter tree (FSDP slices gathered over the ranks)."""
+    """The full parameter tree (tp and FSDP slices gathered over the
+    ranks)."""
     return params if layout is None else layout.gather(params)
 
 

@@ -28,6 +28,19 @@ the kernels' Philox row offset, summed prototype statistics). With an
 moments in the state are this rank's slices: the step gathers them
 before the forward, keeps its slice of the summed gradient, and the
 optimizer runs on the slices with the global norm.
+
+Tensor and pipeline parallelism (a mesh with tp or pp above 1): a rank
+differentiates ``1/(dp·pp)`` of the global loss (every pp stage runs the
+same downstream code, and the pipeline's collect sums its cotangent over
+pp), and the bucket is all-reduced over the dp × pp group ("dpp": the
+ranks that share the tp index). Under tp nothing goes over the tp group
+in the bucket: the Megatron pair has already made the replicated
+leaves' gradients equal there. With a ``tp`` layout
+(parallel/sharding.py::TpLayout) the state holds the rank's tp slices,
+which the blocks run on; a replicated state at tp > 1 is cut into them
+for the forward and its sliced gradients gathered back over tp. The
+clip's norm then comes from the layout. The metrics are summed over dp
+only.
 """
 
 from __future__ import annotations
@@ -84,15 +97,15 @@ def _dp(mesh_ctx):
         else None
 
 
-def reduce_grads(ctx, grads):
-    """The sum over the ranks of a gradient tree: its leaves flattened
-    into one buffer, one ``all_reduce`` (one bucket), split back as
-    views of that buffer."""
+def reduce_grads(ctx, grads, group: str = "dpp"):
+    """The sum over the ranks of ``group`` (dp × pp) of a gradient tree:
+    its leaves flattened into one buffer, one ``all_reduce`` (one bucket),
+    split back as views of that buffer."""
     leaves = tree_leaves(grads)
     if len({g.dtype for g in leaves}) != 1:
         raise ValueError("reduce_grads: the gradient leaves must share a "
                          "dtype")
-    flat = ctx.all_reduce(torch.cat([g.reshape(-1) for g in leaves]))
+    flat = ctx.all_reduce(torch.cat([g.reshape(-1) for g in leaves]), group)
     out, off = [], 0
     for g in leaves:
         out.append(flat[off:off + g.numel()].view(g.shape))
@@ -101,28 +114,75 @@ def reduce_grads(ctx, grads):
 
 
 def _global(ctx, *vals: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-    """Scalars summed over the ranks (one ``all_reduce``); unchanged
+    """Scalars summed over the dp group (one ``all_reduce``); unchanged
     without a mesh."""
     if ctx is None:
         return vals
-    return tuple(ctx.all_reduce(torch.stack([v.float() for v in vals])))
+    return tuple(ctx.all_reduce(torch.stack([v.float() for v in vals]),
+                                "dp"))
+
+
+def _share(ctx) -> int:
+    """The number of ranks whose loss shares sum to the global loss's
+    gradient: dp × pp (1 without a mesh)."""
+    return 1 if ctx is None else ctx.dp * ctx.pp
+
+
+class _Placement:
+    """What a step's forward runs on, from the state's parameters: the
+    FSDP slices gathered over dp (``fsdp``), then, for a replicated
+    state on a mesh with tp > 1, this rank's tp slices (copies: the
+    gradient is the slices', gathered back over tp by ``grads``)."""
+
+    def __init__(self, ctx, fsdp=None, tp=None):
+        self.ctx, self.fsdp, self.tp = ctx, fsdp, tp
+        self.cut = None
+
+    def forward(self, params):
+        if self.fsdp is not None:
+            params = self.fsdp.gather(params)
+        if self.ctx is not None and self.ctx.tp > 1 and self.tp is None:
+            if self.cut is None:
+                from vqacl_tpu_torch.parallel.sharding import TpLayout
+
+                self.cut = TpLayout(self.ctx, params)
+            params = self.cut.shard(params)
+        return params
+
+    def grads(self, grads):
+        """The forward's summed gradients in the state's layout."""
+        if self.cut is not None:
+            grads = self.cut.gather(grads)
+        return grads if self.fsdp is None else self.fsdp.slice(grads)
+
+    def norm(self, grads) -> torch.Tensor:
+        """The whole tree's gradient norm from the state's layout."""
+        for layout in (self.fsdp, self.tp):
+            if layout is not None:
+                return torch.sqrt(layout.global_sq_norm(grads))
+        return global_norm(grads)
+
+    def reg(self, reg):
+        """A regularizer state (full trees) in the forward's layout →
+        (state, the tp dimension of each leaf or None)."""
+        if reg is None or self.ctx is None or self.ctx.tp == 1:
+            return reg, None
+        tpl = self.tp if self.tp is not None else self.cut
+        return type(reg)(*(tpl.shard(x) for x in reg)), tpl.dims
 
 
 def _apply_update(tx, tcfg, state: TrainState, grads, proto: ProtoState,
-                  ctx=None, fsdp=None
+                  ctx, place: _Placement
                   ) -> Tuple[TrainState, torch.Tensor, torch.Tensor]:
     """The optimizer half of a step: the ranks' gradients summed (with
-    a mesh ``ctx``, ``_dp``'s), this rank's slices kept (with ``fsdp``),
-    AdamW direction, lr from the schedule, ``p − lr·u`` → (new state, lr,
-    grad norm)."""
+    a mesh ``ctx``, ``_dp``'s, over dp × pp), put in the state's layout
+    (``place``), AdamW direction, lr from the schedule, ``p − lr·u`` →
+    (new state, lr, grad norm)."""
     with torch.no_grad():
         if ctx is not None:
             grads = reduce_grads(ctx, grads)
-        if fsdp is not None:
-            grads = fsdp.slice(grads)
-            gnorm = torch.sqrt(fsdp.global_sq_norm(grads))
-        else:
-            gnorm = global_norm(grads)
+        grads = place.grads(grads)
+        gnorm = place.norm(grads)
         updates, opt_state = tx.update(grads, state.opt_state, state.params,
                                        gnorm)
         lr = dynamic_lr(state.step.float(), state.sched, tcfg.lr,
@@ -136,7 +196,7 @@ def make_train_step(cfg, dtype=torch.bfloat16, device="cuda",
                     use_prototype: Optional[bool] = None,
                     use_memory_loss: bool = False,
                     remat=False, reg_lambda: float = 0.0,
-                    mesh_ctx=None, fsdp=None) -> Callable:
+                    mesh_ctx=None, fsdp=None, tp=None) -> Callable:
     """Returns ``(state, batch, reg=None) -> (state, metrics)``.
 
     ``state`` is a ``TrainState`` on ``device`` (made with the transform
@@ -153,9 +213,12 @@ def make_train_step(cfg, dtype=torch.bfloat16, device="cuda",
     state, less activation memory. A ``reg``
     (``cl.regularizers.RegState``) adds the EWC/MAS anchor penalty
     ``reg_lambda/2 · Σ ω (θ−θ*)²`` to every microbatch's loss (and so to
-    the ``loss`` metric), differentiated with it. ``mesh_ctx`` and
-    ``fsdp``: data parallelism and FSDP (the module's note); ``batch`` is
-    then this rank's rows (``parallel.mesh.shard_batch``)."""
+    the ``loss`` metric), differentiated with it (given as full trees;
+    under tp the step cuts them to the rank's slices). ``mesh_ctx``,
+    ``fsdp`` and ``tp``: data, tensor and pipeline parallelism, FSDP and
+    the tp layout (the module's note; ``tp`` a ``TpLayout`` when the
+    state holds tp slices); ``batch`` is then this rank's rows
+    (``parallel.mesh.shard_batch``)."""
     dev = resolve_device(device)
     mcfg, tcfg = cfg.model, cfg.train
     if use_prototype is None:
@@ -164,6 +227,8 @@ def make_train_step(cfg, dtype=torch.bfloat16, device="cuda",
     accum = int(tcfg.grad_accum)
     ctx = _dp(mesh_ctx)
     dp = ctx.dp if ctx is not None else 1
+    share = _share(ctx)
+    place = _Placement(ctx, fsdp, tp)
 
     def loss_and_grads(params, proto, batch, generator, reg):
         def loss_fn(live):
@@ -175,9 +240,9 @@ def make_train_step(cfg, dtype=torch.bfloat16, device="cuda",
                 generator=generator, dtype=dtype, remat=remat)
             loss = out.loss
             if reg is not None:
-                loss = loss + 0.5 * reg_lambda * penalty(live, reg)
-            if dp > 1:      # this rank's share of the global loss
-                loss = loss / dp
+                loss = loss + 0.5 * reg_lambda * penalty(live, *reg)
+            if share > 1:   # this rank's share of the global loss
+                loss = loss / share
             return loss, out
 
         loss, out, grads = _grads_of(loss_fn, params)
@@ -207,8 +272,8 @@ def make_train_step(cfg, dtype=torch.bfloat16, device="cuda",
     def train_step(state: TrainState, batch: Dict, reg=None
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         batch = _to_device(batch, _TRAIN_KEYS, dev)
-        full = state if fsdp is None else \
-            state._replace(params=fsdp.gather(state.params))
+        full = state._replace(params=place.forward(state.params))
+        reg = None if reg is None else place.reg(reg)
         with data_parallel(ctx):
             if accum > 1:
                 loss, proto, aux, grads = accum_grads(full, batch, reg)
@@ -216,9 +281,9 @@ def make_train_step(cfg, dtype=torch.bfloat16, device="cuda",
                 loss, proto, aux, grads = loss_and_grads(
                     full.params, state.proto, batch, state.generator, reg)
         new_state, lr, gnorm = _apply_update(tx, tcfg, state, grads, proto,
-                                             ctx, fsdp)
+                                             ctx, place)
         if ctx is not None:
-            loss, *aux = _global(ctx, loss, *aux)
+            loss, *aux = _global(ctx, loss * ctx.pp, *aux)
             aux = [a / dp for a in aux]
         metrics = {
             "loss": loss, "grad_norm": gnorm, "lr": lr,
@@ -232,7 +297,8 @@ def make_train_step(cfg, dtype=torch.bfloat16, device="cuda",
 
 def make_der_replay_step(cfg, dtype=torch.bfloat16, device="cuda",
                          use_prototype: Optional[bool] = None,
-                         remat=False, mesh_ctx=None, fsdp=None) -> Callable:
+                         remat=False, mesh_ctx=None, fsdp=None,
+                         tp=None) -> Callable:
     """Dark-Experience-Replay step (Buzzega et al. 2020) for memory
     batches, ``(state, batch) -> (state, metrics)``; a Table-1 comparison
     method the reference repo does not implement (its replay is plain
@@ -246,10 +312,10 @@ def make_der_replay_step(cfg, dtype=torch.bfloat16, device="cuda",
     (``cl_reg='derpp'``) adds β·CE on the replay ground truth
     (β = ``train.der_beta``). The optimizer, clip and schedule are
     ``make_train_step``'s, and the prototype banks update as in a normal
-    replay step. Metrics: loss, der_mse, grad_norm, lr. ``mesh_ctx`` and
-    ``fsdp`` as in ``make_train_step``: the MSE's masked mean divides by
-    the all-reduced count of valid positions, the CE's row mean by the
-    global batch."""
+    replay step. Metrics: loss, der_mse, grad_norm, lr. ``mesh_ctx``,
+    ``fsdp`` and ``tp`` as in ``make_train_step``: the MSE's masked mean
+    divides by the count of valid positions all-reduced over dp, the CE's
+    row mean by the global batch, and both by pp."""
     dev = resolve_device(device)
     mcfg, tcfg = cfg.model, cfg.train
     alpha = float(tcfg.reg_lambda)
@@ -259,12 +325,14 @@ def make_der_replay_step(cfg, dtype=torch.bfloat16, device="cuda",
     tx = make_transform(tcfg)
     ctx = _dp(mesh_ctx)
     dp = ctx.dp if ctx is not None else 1
+    pp = ctx.pp if ctx is not None else 1
+    place = _Placement(ctx, fsdp, tp)
 
     def der_step(state: TrainState, batch: Dict
                  ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         b = _to_device(batch, _TRAIN_KEYS + ("der_logits",), dev)
         gen = state.generator
-        params = state.params if fsdp is None else fsdp.gather(state.params)
+        params = place.forward(state.params)
 
         def loss_fn(live):
             hidden, enc_mask = vlt5.encode(
@@ -285,19 +353,19 @@ def make_der_replay_step(cfg, dtype=torch.bfloat16, device="cuda",
                             dim=-1)
             count = mask.sum()
             if ctx is not None:
-                count = ctx.all_reduce(count.clone())
+                count = ctx.all_reduce(count.clone(), "dp")
             mse = torch.sum(se * mask) / count.clamp_min(1.0)
             loss = alpha * mse
             if beta > 0.0:
                 loss = loss + beta * vlt5.weighted_lm_loss(
                     logits, b["target_ids"], b["scores"]) / dp
-            return loss, (proto, mse.detach())
+            return loss / pp, (proto, mse.detach())
 
         with data_parallel(ctx):
             loss, (proto, mse), grads = _grads_of(loss_fn, params)
         new_state, lr, gnorm = _apply_update(tx, tcfg, state, grads, proto,
-                                             ctx, fsdp)
-        loss, mse = _global(ctx, loss, mse)
+                                             ctx, place)
+        loss, mse = _global(ctx, loss * pp, mse)
         return new_state, {"loss": loss, "der_mse": mse, "grad_norm": gnorm,
                            "lr": lr}
 

@@ -132,23 +132,26 @@ class TrainConfig:
 
 @dataclass
 class MeshConfig:
-    """Placement. ``dp`` is the data-parallel size, one process per card
-    (the reference's DDP; parallel/mesh.py): the CLIs build the mesh with
-    ``make_mesh(dp=dp)``, -1 taking every rank ``torchrun`` started, and
-    the trainer refuses a dp other than its mesh's. ``param_layout``
-    "replicated" keeps the whole parameters and Adam moments on every
-    rank; "fsdp" keeps each rank's slice of every leaf of at least 2^14
-    elements (parallel/sharding.py::fsdp_rules; the step gathers them
-    before its forward); "tp" is refused (not ported yet), as are
-    ``tp`` and ``pp`` above 1. ``remat`` is the train steps' block
-    recompute (False, True/"full", "dots"); ``dtype`` the compute dtype
-    the CLI hands the trainer; ``pp_micro`` and ``param_dtype`` are read
-    by nothing yet."""
+    """Placement over the ranks, one process per card (parallel/mesh.py):
+    the CLIs build the mesh with ``make_mesh(dp, tp, pp)`` (dp -1 taking
+    every rank ``torchrun`` started that tp·pp leaves), and the trainer
+    refuses sizes other than its mesh's. ``tp``: Megatron tensor
+    parallelism of the blocks; ``pp``: GPipe stages of each stack over
+    ``pp_micro`` microbatches of a rank's rows (parallel/pipeline.py).
+    ``param_layout`` "replicated" keeps the whole parameters and Adam
+    moments on every rank; "tp" each rank's Megatron slices
+    (parallel/sharding.py::TpLayout); "fsdp" each rank's slice of every
+    leaf of at least 2^14 elements (``fsdp_rules``; composed with the tp
+    slices at tp > 1; the step gathers them before its forward).
+    ``remat`` is the train steps' block recompute (False, True/"full",
+    "dots"; not applied in the pipelined stacks); ``dtype`` the compute
+    dtype the CLI hands the trainer; ``param_dtype`` is read by nothing
+    yet."""
 
     dp: int = -1                     # -1: every rank of the mesh
-    tp: int = 1
-    pp: int = 1
-    pp_micro: int = 4                # pipeline microbatches (placeholder)
+    tp: int = 1                      # tensor-parallel ranks
+    pp: int = 1                      # pipeline stages
+    pp_micro: int = 4                # pipeline microbatches per step
     dtype: str = "bfloat16"          # compute dtype (the CLI's --dtype)
     param_dtype: str = "float32"     # master weights
     remat: object = False
@@ -224,10 +227,12 @@ def resolve_merged_qkv(model_cfg: ModelConfig, n_devices: int = 1) -> None:
     """Resolve ``merged_qkv="auto"`` in place from the mesh's world size
     ``n_devices``: True on one device, False on more (the part of JAX's
     ``resolve_fused_attention`` that applies to the port, config.py:282-
-    283). ``fused_attention`` is not resolved here: the CLI's "auto" is
-    True on the card at any dp, each rank running K1/K1′/K2 on its rows
-    (JAX's explicit ``fused_attention=True`` shard_map path; its "auto"
-    would turn the kernels off on a mesh — ROADMAP §3)."""
+    283), whatever the mesh's shape. ``fused_attention`` is not resolved
+    here: the CLI's "auto" is True on the card at any mesh, each rank
+    running K1/K1′/K2 on its rows and, under tp, its heads (JAX's
+    explicit ``fused_attention=True`` shard_map path; its "auto" would
+    turn the kernels off on a mesh, and its pp stacks run the einsum
+    attention — ROADMAP §3)."""
     if model_cfg.merged_qkv == "auto":
         model_cfg.merged_qkv = n_devices == 1
 
