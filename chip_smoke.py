@@ -24,9 +24,14 @@ Phases, each of which exits non-zero on failure:
    0.1, timed at 0.1; each also on merged q|k|v views, bit-equal to dense),
    and a bf16 call at dk = 8 refused with ValueError before any launch;
    each K1/K1′/K2 check names its route (``mma.sync bf16`` or ``scalar
-   f32``); K5 (``dw_splitk``, xᵀ·g) at the probe's shape and at odd
-   shapes; N1 (``greedy_nms``, the greedy NMS of the RPN and the 36-box
-   sweep) at the RPN's shape (6000 score-sorted boxes at IoU 0.7, a tail
+   f32``); K5 (``dw_splitk``, xᵀ·g) on a ladder of shapes from the
+   smallest up (``DW_LADDER``: one k-step and one tile, a K tail, D = F =
+   768), the probe's shape (timed against the plain version and cuBLAS
+   with f32 and with bf16 output), ``DW_ODD`` (one on the wgmma route,
+   one on the mma route, each also in f32) and the f32 probe, each line
+   naming its route (``wgmma``, ``mma``, ``f32``) and, on the wgmma
+   route, its stream-K plan; N1 (``greedy_nms``, the greedy NMS of the
+   RPN and the 36-box sweep) at the RPN's shape (6000 score-sorted boxes at IoU 0.7, a tail
    of invalid rows), the sweep's (300 boxes x 5 thresholds), all rows
    invalid and a scarce sweep, every keep mask bit-equal to its plain
    version and a second launch bit-equal. CUDA-event times of each kernel, its plain version and one
@@ -59,7 +64,8 @@ Phases, each of which exits non-zero on failure:
 5. Serving: ``VQAServer`` over a ``VQAPredictor`` answers concurrent
    ``submit()`` calls with no errors.
 6. ``vqacl_tpu_torch.mm_bench``: the probe's matrix products and the K5
-   weight-gradient kernel ``dw_splitk`` at the probe's shapes.
+   weight-gradient kernel ``dw_splitk`` at the probe's shapes, which must
+   launch K5's wgmma route (the wrapper counts launches per route).
 7. The continual-learning loop: ``VQACLTrainer`` on the random-init
    t5-base of phase 3 (bf16 compute, f32 master weights, dropout 0.1,
    train batch 80, eval batch 100) over two tasks of
@@ -224,8 +230,10 @@ exits non-zero.
 same card in one run: DIR holds that checkout (for example ``git archive
 <commit> | tar -x -C build/base``), whose ``vqacl_tpu_torch/csrc`` is
 built beside this one's (the kernels whose source it has: N1 is left out
-when it has no ``nms.cu``). Phases 1 and 2 run; every timed K1, K1′, K2
-and N1 is timed through the same wrappers and inputs with DIR's libraries too,
+when it has no ``nms.cu``). Phases 1 and 2 run; every timed K1, K1′, K2,
+N1 and K5 (at the probe's shape: a library from before the wgmma route
+takes its own route) is timed through the same wrappers and inputs with
+DIR's libraries too,
 in the order base, this, this, base, on both measures (device and
 ``call_ms``). The C signatures must be the same in both. The run then
 prints an ``ab`` JSON line and stops.
@@ -280,8 +288,12 @@ LOSS_EVAL_RTOL = {"bfloat16": 5e-3, "float32": 1e-5}
 # gradients agree to the last bit; the bound leaves room for nothing else
 REMAT_GRAD_RTOL = 1e-6
 # K5 (xᵀ·g) at the probe's shape (K = batch x sequence rows of the MLP
-# input, D = d_model, F = d_ff) and at odd shapes; both sides sum in
-# f32 in other orders: |kernel - plain| <= DW_RTOL * Σ_k|x_kd g_kf| + 1e-6
+# input, D = d_model, F = d_ff), after a ladder from the smallest shape up
+# (one k-step and one tile, one k-block, a K tail, F = D), and at odd
+# shapes (the wgmma and the mma route); both sides sum in f32 in other
+# orders: |kernel - plain| <= DW_RTOL * Σ_k|x_kd g_kf| + 1e-6
+DW_LADDER = ((16, 64, 128), (64, 128, 256), (1000, 768, 3072),
+             (4480, 768, 768))
 DW_PROBE = (4480, 768, 3072)
 DW_ODD = ((100, 40, 72), (97, 131, 257))
 DW_RTOL = 1e-5
@@ -830,39 +842,64 @@ def dw_inputs(K, D, F, dtype, seed):
     return x, dy
 
 
+def dw_sms():
+    """The card's SM count (the plan the wgmma route runs is printed for
+    it)."""
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+def mm_f32_out(a, b):
+    """One cuBLAS product of bf16 operands with f32 output, as K5 writes:
+    K5's library yardstick."""
+    return torch.mm(a, b, out_dtype=torch.float32)
+
+
 def check_dw(dw, name, K, D, F, dtype, timed=False):
-    """K5 vs its plain version (and a second launch bit for bit); with
-    ``timed`` also the times, bound and library yardstick."""
+    """K5 vs its plain version (and a second launch bit for bit) on the
+    route ``dw.dw_route`` picks; with ``timed`` also the times, bound and
+    library yardsticks."""
     dt = getattr(torch, dtype)
     x, dy = dw_inputs(K, D, F, dt, seed=K + D + F)
-    out = dw.dw_splitk(x, dy)
+    route = dw.dw_route(K, D, F, dt, x, dy)
     ref = dw.dw_splitk_reference(x, dy)
-    again = dw.dw_splitk(x, dy)
     scale = x.float().abs().t() @ dy.float().abs()
+    tol = DW_RTOL * scale + 1e-6
+    out = dw.dw_splitk(x, dy)
+    again = dw.dw_splitk(x, dy)
     torch.cuda.synchronize()
     if out.dtype != torch.float32 or out.shape != (D, F):
         fail(f"{name}: output {out.dtype} {tuple(out.shape)}")
     diff = (out - ref).abs()
-    tol = DW_RTOL * scale + 1e-6
     err = float(diff.max())
     ok = bool((diff <= tol).all()) and bool(torch.isfinite(out).all())
     same = torch.equal(out, again)
-    log(f"kernel_check {name}: K={K} D={D} F={F} {dtype} max_abs_err="
-        f"{err:.3e} max err/tol={float((diff / tol).max()):.3e} tol="
-        f"{DW_RTOL:g}*sum|x*g| + 1e-6; second launch equal: {same} -> "
+    plan = ""
+    if route == "wgmma":
+        p = dw.dw_plan(K, D, F, dw_sms())
+        plan = (f" N={dw.TILE_N} (plan: {p.tiles} tiles x {p.k_blocks} "
+                f"k-blocks on {p.units} clusters of {dw.CLUSTER}, "
+                f"{len(p.splits())} split)")
+    log(f"kernel_check {name}: route={route}{plan} K={K} D={D} F={F} "
+        f"{dtype} max_abs_err={err:.3e} max err/tol="
+        f"{float((diff / tol).max()):.3e} tol={DW_RTOL:g}*sum|x*g| + "
+        f"1e-6; second launch equal: {same} -> "
         f"{'ok' if ok and same else 'MISMATCH'}")
     if not (ok and same):
-        fail(f"{name}: dw_splitk disagrees with its plain version")
-    row = {"max_abs_err": err}
+        fail(f"{name}: dw_splitk disagrees with its plain version or "
+             f"with itself")
+    row = {"route": route, "max_abs_err": err}
     if not timed:
         return row
     sets = [(x, dy)] + [dw_inputs(K, D, F, dt, seed=300 + i)
                         for i in range(3)]
-    row["ms"] = time_ms([lambda s=s: dw.dw_splitk(*s) for s in sets])
+    put_ab(row, "ms", time_ab([lambda s=s: dw.dw_splitk(*s) for s in sets]))
     row["plain_ms"] = time_ms([lambda s=s: dw.dw_splitk_reference(*s)
                                for s in sets])
-    # bf16 out (cuBLAS sums in f32 and rounds the result)
-    row["library_ms"] = time_ms([lambda s=s: torch.matmul(s[0].t(), s[1])
+    # cuBLAS with bf16 out (it sums in f32 and rounds the result) and with
+    # f32 out as K5 writes: the yardstick
+    row["library_bf16_ms"] = time_ms([lambda s=s: torch.matmul(s[0].t(), s[1])
+                                      for s in sets])
+    row["library_ms"] = time_ms([lambda s=s: mm_f32_out(s[0].t(), s[1])
                                  for s in sets])
     elem = x.element_size()
     nbytes = (K * D + K * F) * elem + D * F * 4
@@ -870,11 +907,11 @@ def check_dw(dw, name, K, D, F, dtype, timed=False):
     row["bound_ms"], row["bound_by"] = _bound(nbytes,
                                               flops / PEAK_FLOPS[dtype])
     row["bytes"], row["flops"] = nbytes, flops
-    log(f"kernel_time {name}: kernel_ms={row['ms']:.5f} "
-        f"plain_ms={row['plain_ms']:.5f} library_ms={row['library_ms']:.5f} "
-        f"(torch.matmul(x.t(), g), {dtype} out) bound_ms="
-        f"{row['bound_ms']:.5f} ({row['bound_by']}: {nbytes} B, {flops} "
-        f"FLOP)")
+    log(f"kernel_time {name} ({route}): kernel_ms={row['ms']:.5f} "
+        f"plain_ms={row['plain_ms']:.5f} library_ms: cuBLAS f32 out "
+        f"{row['library_ms']:.5f}, bf16 out {row['library_bf16_ms']:.5f} "
+        f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']}: {nbytes} B, "
+        f"{flops} FLOP)")
     return row
 
 
@@ -4281,12 +4318,17 @@ def main(argv=None) -> int:
         "cross_eval": check_attention(
             fa, "decoder_cross_eval", TRAIN_BATCH, T, S + 2, H, dk, 0,
             "bfloat16", text_len=L, timed=True)}
-    # K5 at the probe's shape and at odd shapes
+    # K5: the ladder from the smallest shape up, the probe's shape (timed),
+    # the odd shapes (wgmma and mma routes, and f32), the f32 probe
+    for shape in DW_LADDER:
+        check_dw(dw, "dw_ladder", *shape, "bfloat16")
     k5 = check_dw(dw, "dw_probe", *DW_PROBE, "bfloat16", timed=True)
-    check_dw(dw, "dw_probe_f32", *DW_PROBE, "float32")
+    if k5["route"] != "wgmma":
+        fail(f"dw_probe took the {k5['route']} route, not wgmma")
     for shape in DW_ODD:
         for dname in ("bfloat16", "float32"):
             check_dw(dw, "dw_odd", *shape, dname)
+    check_dw(dw, "dw_probe_f32", *DW_PROBE, "float32")
     # N1 at the RPN's and the sweep's shapes, with nothing valid, and a
     # sweep that even IoU 0.9 leaves short of 36 boxes
     n1 = check_nms(nms, "nms_rpn", *NMS_RPN, timed=True)
@@ -4313,7 +4355,8 @@ def main(argv=None) -> int:
             "K1 nextqa eval": pick_ab(nq_k1),
             "K1' nextqa train": pick_ab(nq_k1p),
             "K2 nextqa train": pick_ab(nq_k2),
-            "N1 rpn": pick_ab(n1), "N1 sweep": pick_ab(n1_sweep)}))
+            "N1 rpn": pick_ab(n1), "N1 sweep": pick_ab(n1_sweep),
+            "K5 probe": pick_ab(k5)}))
         return 0
 
     # ---- 3. the slice at t5-base -----------------------------------------
@@ -4721,14 +4764,17 @@ def main(argv=None) -> int:
     # ---- 6. the mm_bench probe (K5) -------------------------------------
     torch.cuda.synchronize()
     dw.dw_splitk.launches = 0
+    dw.dw_splitk.route_launches = dict.fromkeys(dw.ROUTES, 0)
     mm_rows = mm_bench.run("cuda", MM_BENCH_SHAPES, reps=MM_BENCH_REPS)
     dw_launches = dw.dw_splitk.launches
+    dw_routes = dict(dw.dw_splitk.route_launches)
     log(f"mm_bench ({MM_BENCH_REPS} timed calls per case, CUDA events; peak "
         f"{mm_bench.PEAK_FLOPS / 1e12:g} TFLOP/s bf16; {card}):")
     log(mm_bench.table(mm_rows))
-    log(f"mm_bench: dw_splitk launches={dw_launches}")
-    if dw_launches == 0:
-        fail("mm_bench did not launch dw_splitk")
+    log(f"mm_bench: dw_splitk launches={dw_launches} by route "
+        f"{json.dumps(dw_routes)}")
+    if dw_routes["wgmma"] == 0:
+        fail("mm_bench did not launch dw_splitk's wgmma route")
     if not all(np.isfinite(r["us"]) and r["us"] > 0 for r in mm_rows):
         fail("mm_bench gave a time that is not a positive number")
 
@@ -4956,6 +5002,10 @@ def main(argv=None) -> int:
             "small_train_param_err": fd_small[1],
             "loss_eval": fd_eval, "kernel_times": dec_times},
         "remat": remat_summary, "mm_bench": mm_rows,
+        "mm_bench_dw_route_launches": dw_routes,
+        "k5_probe": {k: k5[k] for k in (
+            "route", "ms", "base_ms", "plain_ms", "library_ms",
+            "library_bf16_ms", "bound_ms", "bound_by") if k in k5},
         "cl": {k: {key: v for key, v in r.items() if key != "metrics"}
                for k, r in cl.items()},
         "cl_tiny": {"loss_rel_err": tiny_err, "equal": same,

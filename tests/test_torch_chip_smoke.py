@@ -176,9 +176,13 @@ fa.fused_attention_bwd = counted_bwd
 fa.fused_attention_keep_mask = fa.philox_keep_mask
 from vqacl_tpu_torch.ops import dw
 def counted_dw(x, g):
+    dw._validate(x, g)               # the wrapper's checks and its route
+    route = dw.dw_route(x.shape[0], x.shape[1], g.shape[1], x.dtype, x, g)
     counted_dw.launches += 1
+    counted_dw.route_launches[route] += 1
     return dw.dw_splitk_reference(x, g)
 counted_dw.launches = 0
+counted_dw.route_launches = dict.fromkeys(dw.ROUTES, 0)
 dw.dw_splitk = counted_dw
 from vqacl_tpu_torch.ops import nms as NM
 def counted_nms(b, v, t):
@@ -220,6 +224,10 @@ chip_smoke.EVAL_BATCH = 4
 chip_smoke.TRAIN_BATCH = 8
 chip_smoke.TRAIN_STEPS = 4
 chip_smoke.DW_PROBE = (64, 16, 24)
+chip_smoke.DW_LADDER = ((16, 64, 128), (24, 16, 40))
+chip_smoke.dw_sms = lambda: 132
+# the CPU build of torch has no kernel for mm with out_dtype
+chip_smoke.mm_f32_out = lambda a, b: a.float() @ b.float()
 chip_smoke.MM_BENCH_SHAPES = dict(B=2, S=6, D=16, F=24, H=2, dk=8)
 chip_smoke.MM_BENCH_REPS = 2
 chip_smoke.CL_ITEMS = (24, 8, 8)
@@ -265,9 +273,9 @@ ENV = dict(os.environ, CHIP_SMOKE_REHEARSAL=REHEARSAL)
 
 
 def test_chip_smoke_base_rehearsal_on_cpu():
-    # --base: phases 1-2, every timed attention kernel also timed on the
-    # base checkout's libraries (here the same checkout), then an "ab"
-    # line and no verdict
+    # --base: phases 1-2, every timed attention kernel, N1 and K5 also
+    # timed on the base checkout's libraries (here the same checkout),
+    # then an "ab" line and no verdict
     r = subprocess.run([sys.executable, "-c", REHEARSAL, "--base", REPO],
                        cwd=REPO, capture_output=True, text=True, timeout=300,
                        env=ENV)
@@ -276,13 +284,13 @@ def test_chip_smoke_base_rehearsal_on_cpu():
     ab = json.loads(lines[-1][len("ab "):])
     assert ab["base"] == os.path.join(REPO, "vqacl_tpu_torch", "csrc")
     rows = [k for k in ab if k not in ("base", "card")]
-    assert len(rows) == 14
+    assert len(rows) == 15
     for k in rows:
         assert {"ms", "base_ms", "bound_ms"} <= set(ab[k]), k
         assert ("call_ms" in ab[k]) == ("base_call_ms" in ab[k]) \
             == k.startswith("K1"), k
-    assert {"N1 rpn", "N1 sweep"} <= set(rows)
-    assert sum(l.startswith("  ab device: base ") for l in lines) == 14
+    assert {"N1 rpn", "N1 sweep", "K5 probe"} <= set(rows)
+    assert sum(l.startswith("  ab device: base ") for l in lines) == 15
     assert '"ok"' not in r.stdout and "eval_step:" not in r.stdout
 
 
@@ -478,11 +486,24 @@ def test_chip_smoke_rehearsal_on_cpu():
         assert f"remat={mode}: " in r.stdout
         assert f"remat={mode} vs none: loss equal True" in r.stdout
     assert r.stdout.count("launches K1=0 K1'=12 K2=6") == 2
-    # K5: checked at the probe and odd shapes, launched by mm_bench
+    # K5: the ladder, the probe, the odd shapes (bf16 and f32) and the f32
+    # probe, each on its route; launched by mm_bench on the wgmma route
     # (3 input sets warmed up + 2 timed calls)
-    assert r.stdout.count("kernel_check dw_") == 6
+    dw_lines = [l for l in lines if l.startswith("kernel_check dw_")]
+    assert len(dw_lines) == 2 + 1 + 4 + 1
+    assert all(l.endswith("-> ok") for l in dw_lines)
+    assert sum("route=wgmma N=256 (plan: " in l
+               for l in dw_lines) == 2 + 1 + 1
+    assert [l.split()[1] for l in dw_lines if "route=mma" in l] == \
+        ["dw_odd:"]
+    assert sum("route=f32" in l for l in dw_lines) == 3
+    assert "kernel_time dw_probe (wgmma): " in r.stdout
     assert "mlp_wi dW dw_splitk (CUDA, K5)" in r.stdout
     assert k5["launches"] == 5
+    assert summary["mm_bench_dw_route_launches"] == {"wgmma": 5, "mma": 0,
+                                                     "f32": 0}
+    assert {"ms", "library_ms", "library_bf16_ms", "bound_ms"} <= \
+        set(summary["k5_probe"])
     assert set(summary["remat"]) == {"False", "full", "dots"}
     assert len(summary["mm_bench"]) == 12
     # phase 8

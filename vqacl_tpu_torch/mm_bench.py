@@ -7,7 +7,11 @@ Counterpart of ``scripts/mm_bench.py``, with its cases at its shapes
 input projection forward, its weight gradient xᵀ·g written five ways
 through PyTorch's matrix products and once through the port's own
 kernel (``ops.dw.dw_splitk``, K5, which replaces the probe's two Pallas
-split-K cases), the attention projections, the score and weighted-sum
+split-K cases: ``dw_kernel`` in ``scripts/mm_bench.py``; bound by its
+21.1 GFLOP on the bf16 tensor cores; its wgmma route at these shapes, a
+deterministic stream-K plan over the card's SMs, beside the mma and f32
+routes that ``ops.dw.dw_route`` picks for other shapes and f32), the
+attention projections, the score and weighted-sum
 products and one attention block's forward. Each case is timed with
 CUDA events over ``reps`` calls that cycle through ``sets`` input sets
 (more bytes than the 50 MB L2 at these shapes), and its rate is given

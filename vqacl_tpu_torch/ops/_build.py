@@ -69,8 +69,12 @@ SIGNATURES = {
         "greedy_nms_error_string": ([_I], ctypes.c_char_p),
     },
     "dw_splitk": {
-        # x, g, out, K, D, F, dtype, stream
-        "dw_splitk": ([_P] * 3 + [_I] * 4 + [_P], _I),
+        # x, g, out, K, D, F, dtype, stream, plan, workspace, n_blocks
+        # (the wgmma route's; last, so that an older library without them
+        # still lines up: ``chip_smoke.py --base``)
+        "dw_splitk": ([_P] * 3 + [_I] * 4 + [_P] * 3 + [_I], _I),
+        # int* blocks
+        "dw_splitk_wgmma_blocks": ([_P], _I),
         "dw_splitk_error_string": ([_I], ctypes.c_char_p),
     },
 }
