@@ -220,6 +220,29 @@ Phases, each of which exits non-zero on failure:
    bit for bit to those heads of one launch over all 12 (o, p, dq, dk,
    dv, the dbias panel, the keep mask) and within the phase 2 tolerance
    of the plain versions.
+14. The protocol scripts (``protocol_runs``), as a user runs them:
+   (a) the Table-1 surrogate's ``P14_ROWS`` (vanilla, er, ours) at seed 0
+   through ``vqacl_tpu_torch.ablation.run_row`` with the JAX script's
+   defaults (5 tasks x 1000 train QA, 3 epochs, M = 100, 500 test QA, f32
+   at tiny widths), each row a process of this script in rank mode, the
+   three side by side with (b): each row's Avg_acc, Avg_forget,
+   diag_acc and wall, its K1/K1′/K2 launches equal to what its train,
+   replay, importance and predict counts imply, every one on the
+   ``scalar f32`` route (the wrappers' ``route_launches``; phase 2 checks
+   the surrogate's encoder shape, 4 heads of 8 over 10 positions, in
+   f32), and the orderings ``P14_ORDERINGS`` (ours AP >= vanilla AP + 20,
+   vanilla Forget >= ours Forget + 25, er AP >= vanilla AP + 10). (b) The
+   "ours" row cut to ``P14_CUT_ARGV`` (two tasks x 64 train QA, one
+   epoch) from one init at dropout 0, on the card and on the CPU, at the
+   surrogate's lr (1e-2) and at ``P14_CUT_LR`` (1e-3): equal result
+   matrices, answers and metrics at both, per-step losses within
+   ``CL_LOSS_RTOL`` at 1e-3 (at 1e-2 the training amplifies f32 rounding
+   past it: the losses' error is recorded). (c) The small soak at t5-base
+   through ``vqacl_tpu_torch.soak.run`` (ten tasks x 1000 train QA, M =
+   1000, the bf16 device cache), alone: the 55-cell matrix complete,
+   finite metrics, launches equal to its counts, every one on the
+   ``mma.sync bf16`` route; the card's busy share over three train
+   steps (the soak's ``torch.profiler`` window).
 
 The second-to-last lines are a JSON object of per-kernel numbers and the
 card's name and power limit; the last line is the run's verdict as JSON.
@@ -3458,6 +3481,10 @@ def rank_main(args) -> int:
 
     with open(args.spec) as f:
         spec = json.load(f)
+    if spec.get("phase") == 14:       # a surrogate row: no group
+        with open(args.out, "w") as f:
+            json.dump(p14_row(spec, args.rank), f)
+        return 0
     ctx = make_mesh(**spec.get("mesh", {"dp": args.world}),
                     device="cuda:0", backend="gloo",
                     init_method=f"file://{args.store}", rank=args.rank,
@@ -3470,12 +3497,14 @@ def rank_main(args) -> int:
     return 0
 
 
-def run_ranks(work, tag, n, spec, echo=()):
+def run_ranks(work, tag, n, spec, echo=(), meanwhile=None):
     """Start ``n`` ranks of this script in rank mode (``RANK_CMD``) over
-    one file store under ``work``, each with ``spec``; wait for them
-    within ``P12_TIMEOUT`` (killing any still running), echo their log
-    lines that start with ``echo`` (every log's tail when one failed) →
-    (the ranks' records in rank order, seconds)."""
+    one file store under ``work``, each with ``spec``; run
+    ``meanwhile()`` in this process, if given (the ranks are killed if it
+    fails); wait for them within ``P12_TIMEOUT`` (killing any still
+    running), echo their log lines that start with ``echo`` (every log's
+    tail when one failed) → (the ranks' records in rank order, seconds),
+    and what ``meanwhile`` returned as a third item when given."""
     spec_path = os.path.join(work, f"{tag}_spec.json")
     with open(spec_path, "w") as f:
         json.dump(spec, f)
@@ -3489,6 +3518,14 @@ def run_ranks(work, tag, n, spec, echo=()):
                    os.path.join(work, f"{tag}_store"), "--spec", spec_path,
                    "--out", os.path.join(work, f"{tag}_rank{r}.json")],
             cwd=HERE, stdout=logs[-1], stderr=subprocess.STDOUT))
+    if meanwhile is not None:
+        try:
+            extra = meanwhile()
+        except BaseException:
+            for p in procs:
+                p.kill()
+                p.wait()
+            raise
     deadline = time.time() + P12_TIMEOUT
     for p in procs:
         try:
@@ -3521,7 +3558,7 @@ def run_ranks(work, tag, n, spec, echo=()):
     for r in range(n):
         with open(os.path.join(work, f"{tag}_rank{r}.json")) as f:
             ranks.append(json.load(f))
-    return ranks, secs
+    return (ranks, secs) if meanwhile is None else (ranks, secs, extra)
 
 
 def data_parallel(counters):
@@ -4153,6 +4190,269 @@ def tensor_pipeline():
     return rec, launches, offsets, heads
 
 
+# ---- 14. the protocol runs -------------------------------------------------
+
+# (a) the Table-1 surrogate's rows at seed 0 with scripts/ablation.py's
+# defaults (vqacl_tpu_torch.ablation: tiny widths, f32, so K1/K1′/K2 take
+# their scalar f32 route), each a process of this script in rank mode,
+# side by side, the argv beyond the defaults (none), and the orderings
+# the rows must show as (hi, lo, metric, margin): hi's metric at least
+# lo's plus the margin (Forget: lower is better, so the vanilla row is
+# hi). Each margin is about half the smallest single-seed gap of
+# ABLATION.md's per-seed lines (38.2, 48.5 and 23.5 points)
+P14_ROWS = ("vanilla", "er", "ours")
+P14_ARGV = ()
+P14_ORDERINGS = (("ours", "vanilla", "Avg_acc", 20.0),
+                 ("vanilla", "ours", "Avg_forget", 25.0),
+                 ("er", "vanilla", "Avg_acc", 10.0))
+# (b) the "ours" row cut short, on the card and on the CPU from one init
+# at dropout 0: its argv, and the lr at which its per-step losses are
+# held to CL_LOSS_RTOL. At the surrogate's own lr of 1e-2 the training
+# amplifies f32 rounding: on the CPU alone a 1e-7 relative change of the
+# init moves the cut row's losses by up to ~5e-4 within its 17 steps, at
+# 1e-3 by ~1e-7 (tests/test_torch_ablation.py::
+# test_cut_row_amplifies_rounding_at_the_surrogates_lr). So at 1e-2 the
+# card and the CPU must give the same result matrix, answers and metrics,
+# and at 1e-3 also the same losses within CL_LOSS_RTOL
+P14_CUT_ARGV = ("--tasks", "2", "--n_train", "64", "--epochs", "1")
+P14_CUT_LR = 1e-3
+P14_DIR = os.path.join(HERE, "build", "chip_smoke", "phase14")
+
+
+def p14_orderings(rows):
+    """[(text, holds)] for each (hi, lo, metric, margin) of
+    ``P14_ORDERINGS`` over ``rows`` ({row: its cell})."""
+    out = []
+    for hi, lo, metric, margin in P14_ORDERINGS:
+        a, b = rows[hi][metric], rows[lo][metric]
+        out.append((f"{hi} {metric} {a:.3f} >= {lo} {b:.3f} + {margin:g} "
+                    f"(gap {a - b:+.3f})", bool(a - b >= margin)))
+    return out
+
+
+def p14_matrix_complete(matrix, n_tasks):
+    """True when the lower triangle of ``matrix`` (row i: the test after
+    task i) holds n(n+1)/2 evaluated, finite cells and nothing above it
+    was evaluated."""
+    import numpy as np
+
+    m = np.asarray(matrix, dtype=np.float64)
+    if m.shape != (n_tasks, n_tasks) or not np.isfinite(m).all():
+        return False
+    low = np.tril_indices(n_tasks)
+    return bool((m[low] >= 0).all()
+                and (m[np.triu_indices(n_tasks, 1)] == -1).all())
+
+
+def attention_counters():
+    """(zero_counts, read_counts) over K1, K1′ and K2's wrappers."""
+    from vqacl_tpu_torch.ops import fused_attention as fa
+
+    ws = (fa.fused_attention, fa.fused_attention_fwd_train,
+          fa.fused_attention_bwd)
+
+    def zero_counts():
+        for w in ws:
+            w.launches = w.strided_launches = 0
+            w.route_launches = dict.fromkeys(fa.ROUTE_NAMES, 0)
+
+    return zero_counts, lambda: tuple(w.launches for w in ws)
+
+
+def p14_on_route(label, rec, route):
+    """Every launch of the run just read (``rec["launches"]``) on
+    ``route`` ("scalar" or "mma"): the wrappers' ``route_launches``."""
+    from vqacl_tpu_torch.ops import fused_attention as fa
+
+    routes = [dict(w.route_launches) for w in (
+        fa.fused_attention, fa.fused_attention_fwd_train,
+        fa.fused_attention_bwd)]
+    rec["route_launches"] = routes
+    log(f"{label}: launches by route K1 {routes[0]} K1' {routes[1]} "
+        f"K2 {routes[2]}")
+    if [r[route] for r in routes] != list(rec["launches"]):
+        fail(f"{label}: not every launch on the {fa.ROUTE_NAMES[route]} "
+             f"route: {routes}")
+
+
+def p14_cell(name, a, label, counters=None, **kw):
+    """One surrogate cell through ``ablation.run_row``, driven by
+    ``drive_cl`` (with ``counters``: (zero_counts, read_counts), the
+    launches checked against the counts) → (its result, drive_cl's
+    record with the answers of every predict)."""
+    from vqacl_tpu_torch import ablation
+
+    sw = dict(ablation.ROWS)[name]
+    recs = {}
+
+    def drive(trainer):
+        answers = []
+
+        def predict(loader, predict=trainer.predict):
+            answers.append(predict(loader))
+            return answers[-1]
+
+        trainer.predict = predict
+        recs["rec"] = drive_cl(trainer, label, None if counters is None else
+                               (*counters, trainer.cfg.model.num_layers))
+        recs["rec"]["answers"] = answers
+        return recs["rec"]["metrics"]
+
+    t0 = time.perf_counter()
+    res = ablation.run_row(name, sw["memory"], sw["prototype"], a,
+                           seed=a.seed, cl_reg=sw.get("cl_reg", "none"),
+                           memloss=sw.get("memloss", False), drive=drive,
+                           **kw)
+    res["wall_s"] = time.perf_counter() - t0
+    return res, recs["rec"]
+
+
+def p14_row(spec, rank):
+    """Rank mode, phase 14 (a): surrogate row ``spec["rows"][rank]`` at
+    seed 0 on the card, its launches checked → its record."""
+    from vqacl_tpu_torch import ablation
+
+    torch.set_num_threads(1)       # a tiny f32 row: the host's dispatch
+    name = spec["rows"][rank]
+    a = ablation.parse_args(["--device", "cuda", "--out",
+                             os.path.join(spec["work"], name),
+                             *spec["argv"]])
+    res, rec = p14_cell(name, a, f"p14_{name}", attention_counters())
+    p14_on_route(f"p14_{name}", rec, "scalar")
+    log(f"p14_{name}: Avg_acc {res['Avg_acc']} Avg_forget "
+        f"{res['Avg_forget']} diag_acc {res['diag_acc']} wall "
+        f"{res['wall_s']:.3f} s; launches K1/K1'/K2 "
+        f"{'/'.join(map(str, rec['launches']))}")
+    return {**res, **{k: rec[k] for k in (
+        "launches", "expected_launches", "counts", "route_launches",
+        "train_step_ms_median", "predict_batch_ms_median", "wall_share")}}
+
+
+def p14_cut(counters):
+    """Phase 14 (b): the cut "ours" row on the card and on the CPU from one
+    init at dropout 0, at the surrogate's lr and at ``P14_CUT_LR`` →
+    (record, [K1, K1′, K2] launches on the card)."""
+    from vqacl_tpu_torch import ablation
+    from vqacl_tpu_torch.models import vlt5
+    from vqacl_tpu_torch.utils.config import tiny_model_config
+
+    cut = ablation.parse_args(["--out", os.path.join(P14_DIR, "cut"),
+                               *P14_CUT_ARGV])
+    init = vlt5.init_vlt5_params(cut.seed, tiny_model_config(
+        vocab_size=32200), device="cpu")
+    out, k = {}, [0, 0, 0]
+    for lr in (None, P14_CUT_LR):
+        tag = "surrogate_lr" if lr is None else f"lr_{lr:g}"
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            cut.device = dev
+            label = f"p14_cut_ours_{tag}_{dev}"
+            runs[dev] = p14_cell("ours", cut, label, counters
+                                 if dev == "cuda" else None,
+                                 init_params=init, dropout_rate=0.0, lr=lr)
+            if dev == "cuda":
+                p14_on_route(label, runs[dev][1], "scalar")
+        (card_res, card), (cpu_res, cpu) = runs["cuda"], runs["cpu"]
+        k = [x + y for x, y in zip(k, card["launches"])]
+        err = max(abs(x - y) / abs(y) for x, y in zip(card["losses"],
+                                                       cpu["losses"]))
+        metrics = ("Avg_acc", "Avg_forget", "diag_acc")
+        same = {"steps": len(card["losses"]) == len(cpu["losses"]),
+                "result_matrix": card["result_matrix"]
+                == cpu["result_matrix"],
+                "answers": card["answers"] == cpu["answers"],
+                "metrics": [card_res[m] for m in metrics]
+                == [cpu_res[m] for m in metrics]}
+        held = lr is not None
+        if held:
+            same["losses"] = err <= CL_LOSS_RTOL
+        log(f"p14 cut ours row ({' '.join(P14_CUT_ARGV)}, lr "
+            f"{'1e-2 (the surrogate' + chr(39) + 's)' if lr is None else f'{lr:g}'}"
+            f", dropout 0, one init), card vs CPU: {len(card['losses'])} / "
+            f"{len(cpu['losses'])} steps, loss max rel err {err:.3e}"
+            + (f" (tol {CL_LOSS_RTOL:g})" if held else
+               " (recorded: rounding amplified at this lr)")
+            + f"; equal: {json.dumps(same)}; Avg_acc {card_res['Avg_acc']}"
+            f" / {cpu_res['Avg_acc']}; wall {card_res['wall_s']:.3f} / "
+            f"{cpu_res['wall_s']:.3f} s")
+        out[tag] = {"loss_rel_err": err, "equal": same,
+                    "launches": card["launches"], "counts": card["counts"],
+                    "expected_launches": card["expected_launches"],
+                    "card": card_res, "cpu": cpu_res}
+        if not all(same.values()):
+            fail(f"p14: the cut ours row ({tag}) on the card differs from "
+                 f"the CPU run")
+    return out, k
+
+
+def p14_soak(counters):
+    """Phase 14 (c): the small soak at t5-base through
+    ``vqacl_tpu_torch.soak.run`` → (record, [K1, K1′, K2] launches)."""
+    import numpy as np
+
+    from vqacl_tpu_torch import soak
+
+    zero_counts, read_counts = counters
+    zero_counts()
+    t0 = time.perf_counter()
+    srec = soak.run(full=False, out=os.path.join(P14_DIR, "soak"),
+                    device="cuda", verbose=False)
+    srec["phase_s"] = time.perf_counter() - t0
+    srec["launches"] = list(read_counts())
+    n = len(srec["task_wall_s"])
+    complete = p14_matrix_complete(srec["result_matrix"], n)
+    log(f"p14 soak: {n} tasks, {n * (n + 1) // 2}-cell matrix complete "
+        f"{complete}, Avg_acc {srec['Avg_acc']} Avg_forget "
+        f"{srec['Avg_forget']}, launches {srec['launches']} (expected "
+        f"{srec['expected_launches']}), {srec['phase_s']:.3f} s")
+    p14_on_route("p14_soak", srec, "mma")
+    if not complete or not np.isfinite([srec["Avg_acc"],
+                                        srec["Avg_forget"]]).all():
+        fail(f"p14 soak: the matrix or metrics are not complete and "
+             f"finite: {srec['result_matrix']}")
+    if srec["launches"] != srec["expected_launches"] \
+            or min(srec["launches"]) <= 0:
+        fail(f"p14 soak: launches {srec['launches']}, expected "
+             f"{srec['expected_launches']}, each above zero")
+    rec = {k: v for k, v in srec.items() if k != "result_matrix"}
+    rec["matrix_complete"] = complete
+    return rec, srec["launches"]
+
+
+def protocol_runs(counters):
+    """Phase 14: the Table-1 surrogate's rows (each a process of this
+    script in rank mode) and meanwhile one cut row on the card against the
+    CPU, then the small soak alone, through the modules a user runs
+    (``vqacl_tpu_torch.ablation``, ``vqacl_tpu_torch.soak``).
+    ``counters``: (zero_counts, read_counts). → (record, [K1, K1′, K2]
+    launches)."""
+    shutil.rmtree(P14_DIR, ignore_errors=True)
+    os.makedirs(P14_DIR)
+    log(f"p14 surrogate: rows {list(P14_ROWS)}, seed 0, the surrogate's "
+        f"defaults{' with ' + ' '.join(P14_ARGV) if P14_ARGV else ''} "
+        f"(f32, tiny widths), one process each, side by side with (b)")
+    spec = {"phase": 14, "rows": list(P14_ROWS), "argv": list(P14_ARGV),
+            "work": P14_DIR}
+    ranks, secs, (cut, cut_k) = run_ranks(
+        P14_DIR, "p14_rows", len(P14_ROWS), spec, echo=("p14_",),
+        meanwhile=lambda: p14_cut(counters))
+    rows = dict(zip(P14_ROWS, ranks))
+    orderings = p14_orderings(rows)
+    for text, holds in orderings:
+        log(f"p14 ordering: {text} -> {'ok' if holds else 'FAILS'}")
+    log(f"p14 surrogate rows in {secs:.1f} s (side by side)")
+    if not all(h for _, h in orderings):
+        fail("p14: the surrogate's rows do not show the Table-1 orderings")
+    soak, soak_k = p14_soak(counters)
+    p14_k = [sum(r["launches"][i] for r in ranks) + cut_k[i] + soak_k[i]
+             for i in range(3)]
+    shutil.rmtree(P14_DIR, ignore_errors=True)
+    log(f"phase 14 launches K1={p14_k[0]} K1'={p14_k[1]} K2={p14_k[2]}")
+    return {"surrogate": {"rows": rows, "orderings": orderings,
+                          "rows_s": secs},
+            "cut": cut, "soak": soak}, p14_k
+
+
 def main(argv=None) -> int:
     global BASE_CSRC
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -4212,6 +4512,7 @@ def main(argv=None) -> int:
         for c in counters:
             c.launches = 0
             c.strided_launches = 0
+            c.route_launches = dict.fromkeys(fa.ROUTE_NAMES, 0)
         for c in counters[1:]:
             c.offset_launches = c.head_offset_launches = 0
 
@@ -4302,6 +4603,16 @@ def main(argv=None) -> int:
             nq_k1p, nq_k2 = rows
         check_strided(fa, "nextqa_train_shape", TRAIN_BATCH, NQ_S, NQ_S, H,
                       dk, NQ_L, "bfloat16", rate, "self")
+    # the Table-1 surrogate's encoder (phase 14): tiny widths in f32, 4
+    # heads of 8, 6 text + 4 box positions, a [4,6,6] bias, batch 16
+    tm = tiny_model_config()
+    sur = (16, tm.encoder_len, tm.encoder_len, tm.num_heads, tm.d_kv,
+           tm.max_text_length)
+    check_attention(fa, "surrogate_f32", *sur, "float32",
+                    text_len=tm.max_text_length)
+    for rate in (0.0, DROPOUT):
+        check_train_attention(fa, "surrogate_f32", *sur, "float32", rate,
+                              text_len=tm.max_text_length)
     # the fused decoder's shapes at the train batch (K4): K1′/K2 with
     # dropout in training, K1 in the loss-eval step
     T = m.target_max_length
@@ -4914,6 +5225,12 @@ def main(argv=None) -> int:
     ext13["head_offset_check"] = head_off
     log(f"phase 13 in {ext13['phase_s']:.1f} s")
 
+    # ---- 14. the protocol runs ------------------------------------------
+    t0 = time.time()
+    ext14, p14_k = protocol_runs((zero_counts, read_counts))
+    ext14["phase_s"] = time.time() - t0
+    log(f"phase 14 in {ext14['phase_s']:.1f} s")
+
     def row(name, source, replaces, launches, r, offsets=None, heads=None):
         out = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces, "launches": launches,
@@ -4938,23 +5255,24 @@ def main(argv=None) -> int:
     # its row offset: ``offset_launches``); phase 13's tp, pp and tp x pp
     # ranks' steps and tiny CL runs (K1′/K2 of the second tp rank over
     # its heads: ``head_offset_launches``; a pipeline's microbatches past
-    # the first at their row offsets). N1 in phase 11's extraction
-    # runs (two per image) and CLI records
+    # the first at their row offsets); phase 14's surrogate rows, cut row
+    # and small soak. N1 in phase 11's extraction runs (two per image)
+    # and CLI records
     kernels = [
         row("fused_attention_fwd", fwd_src,
             "vqacl_tpu/ops/fused_attention.py:159",
             eval_launches + loss_eval_k1 + cl_k[0] + p8_k[0] + p9_k[0]
-            + p10_k[0] + p11_k[0] + p12_k[0] + p13_k[0], k1),
+            + p10_k[0] + p11_k[0] + p12_k[0] + p13_k[0] + p14_k[0], k1),
         row("fused_attention_fwd_train", fwd_src,
             "vqacl_tpu/ops/fused_attention.py:199",
             train_k1p + fd_k1p + cl_k[1] + p8_k[1] + p9_k[1] + p10_k[1]
-            + p12_k[1] + p13_k[1], k1p, p12_off[0] + p13_off[0],
+            + p12_k[1] + p13_k[1] + p14_k[1], k1p, p12_off[0] + p13_off[0],
             p13_head[0]),
         row("fused_attention_bwd",
             "vqacl_tpu_torch/csrc/fused_attention_bwd.cu",
             "vqacl_tpu/ops/fused_attention.py:272",
             train_k2 + fd_k2 + cl_k[2] + p8_k[2] + p9_k[2] + p10_k[2]
-            + p12_k[2] + p13_k[2], k2, p12_off[1] + p13_off[1],
+            + p12_k[2] + p13_k[2] + p14_k[2], k2, p12_off[1] + p13_off[1],
             p13_head[1]),
         row("dw_splitk", "vqacl_tpu_torch/csrc/dw_splitk.cu",
             "scripts/mm_bench.py:121", dw_launches, k5),
@@ -5019,6 +5337,7 @@ def main(argv=None) -> int:
         "tensor_pipeline": ext13, "tensor_pipeline_launches": p13_k,
         "tensor_pipeline_offset_launches": p13_off,
         "tensor_pipeline_head_offset_launches": p13_head,
+        "protocol_runs": ext14, "protocol_runs_launches": p14_k,
         "extraction_n1_launches": n1_launches,
         "nms_kernel_times": {"rpn": pick(n1), "sweep": pick(n1_sweep)},
         "nextqa_kernel_times": {"K1": pick(nq_k1), "K1p": pick(nq_k1p),

@@ -44,8 +44,14 @@ on the CPU, and their launches and offset launches in the kernels line —
 rehearsal in rank mode) against their one-process steps, the tiny tp
 and pp ER runs (8/8/8 items) against the CPU's and one process's, the
 head-offset check of phase 2, and their launches in the kernels line;
-and that without CUDA the real script prints no result and exits
-non-zero.
+in phase 14 the Table-1 surrogate's three rows at a few items per
+task, each a process of the rehearsal in rank mode (each row's launches
+against its counts, all on the scalar f32 route; the orderings' margins
+lowered, as only the real size can show them: ``test_phase14_orderings``
+holds the real ones), the cut row on the "card" against the CPU at both
+learning rates and a ten-task soak at tiny widths (its 55-cell matrix
+and launches); and that without CUDA the real script prints no
+result and exits non-zero.
 """
 
 import json
@@ -134,8 +140,9 @@ def rows(what, route, q, k, v, more=()):
     if route == "mma":
         fa._check_rows16(what, list(zip("qkv", (q, k, v), lds)) + list(more))
     return lds != (q.shape[-1],) * 3
-def route(q, k, v, H):   # the wrappers' validation, before any launch
+def route(f, q, k, v, H):   # the wrappers' validation, before any launch
     r = fa.fwd_route(q.dtype, q.shape[-1] // H, q.shape[1], k.shape[1])
+    f.route_launches[r] += 1
     return rows("fused_attention", r, q, k, v)
 def counted(q, k, v, bias, mask, H, dropout_rate=0.0, seed=None, bh0=0,
             Hc=None, h0=0):
@@ -145,11 +152,12 @@ def counted(q, k, v, bias, mask, H, dropout_rate=0.0, seed=None, bh0=0,
                      dropout_rate)
         return dispatch(q, k, v, bias, mask, H, dropout_rate, seed, bh0, Hc,
                         h0)
-    counted.strided_launches += route(q, k, v, H)
+    counted.strided_launches += route(counted, q, k, v, H)
     counted.launches += 1
     return fa.fused_attention_reference(q, k, v, bias, mask, H)
 def counted_fwd_train(*a, **kw):
-    counted_fwd_train.strided_launches += route(a[0], a[1], a[2], a[6])
+    counted_fwd_train.strided_launches += route(counted_fwd_train, a[0], a[1],
+                                                a[2], a[6])
     counted_fwd_train.launches += 1
     bh0 = a[8] if len(a) > 8 else kw.get("bh0", 0)
     h0 = a[10] if len(a) > 10 else kw.get("h0", 0)
@@ -162,6 +170,7 @@ def counted_bwd(*a, **kw):
     strided = rows("fused_attention_bwd", r, q, k, v,
                    [("do", do, do.shape[-1])])
     res = bwd(*a, **kw)              # the plain version on CPU tensors
+    counted_bwd.route_launches[r] += 1
     counted_bwd.launches += 1
     counted_bwd.strided_launches += strided
     counted_bwd.offset_launches += kw.get("bh0", 0) != 0
@@ -170,6 +179,7 @@ def counted_bwd(*a, **kw):
 for f in (counted, counted_fwd_train, counted_bwd):
     f.launches = f.strided_launches = f.offset_launches = 0
     f.head_offset_launches = 0
+    f.route_launches = dict.fromkeys(fa.ROUTE_NAMES, 0)
 fa.fused_attention = counted
 fa.fused_attention_fwd_train = counted_fwd_train
 fa.fused_attention_bwd = counted_bwd
@@ -266,6 +276,19 @@ chip_smoke.RANK_CMD = [sys.executable, "-c",
 # card): the bound of this control-flow rehearsal is 0.25
 chip_smoke.P13_TINY = (8, 8, 8)
 chip_smoke.P13_PARAM_RTOL = 0.25
+# phase 14 at a few items per task: the surrogate's rows (their orderings
+# need its real size, so the margins here only exercise the checks), the
+# cut row and a ten-task soak over the tiny widths
+chip_smoke.P14_ARGV = ("--tasks", "2", "--n_train", "16", "--n_eval", "8",
+                       "--epochs", "1", "--m_size", "8")
+chip_smoke.P14_ORDERINGS = (("ours", "vanilla", "Avg_acc", -200.0),
+                            ("vanilla", "ours", "Avg_forget", -200.0),
+                            ("er", "vanilla", "Avg_acc", -200.0))
+chip_smoke.P14_CUT_ARGV = ("--tasks", "2", "--n_train", "24", "--n_eval",
+                           "8", "--epochs", "1")
+import vqacl_tpu_torch.soak as SK
+SK.SCALES["small"] = dict(epochs=1, m_size=8, n_train=8, n_images=None)
+SK.N_VAL = SK.N_TEST = 4
 with CudaOnCpu():
     sys.exit(chip_smoke.main())
 """
@@ -437,13 +460,14 @@ def test_chip_smoke_rehearsal_on_cpu():
     p12 = summary["data_parallel"]
     p12_k = summary["data_parallel_launches"]
     p13_k = summary["tensor_pipeline_launches"]
+    p14_k = summary["protocol_runs_launches"]
     assert k1["launches"] == 2 * 3 + 6 + cl_k[0] + p8_k[0] + p9_k[0] \
-        + p10_k[0] + p11_k[0] + p12_k[0] + p13_k[0]
+        + p10_k[0] + p11_k[0] + p12_k[0] + p13_k[0] + p14_k[0]
     assert "fused_attention launches=6 (2/step)" in r.stdout
     # K1'/K2: 4 train steps x 2 encoder layers, and 4 fused-decoder
     # steps x (2 encoder + 2 x 2 decoder) attentions, plus the CL loops
     assert k1p["launches"] == k2["launches"] == 2 * 4 + 6 * 4 + cl_k[1] \
-        + p8_k[1] + p9_k[1] + p10_k[1] + p12_k[1] + p13_k[1]
+        + p8_k[1] + p9_k[1] + p10_k[1] + p12_k[1] + p13_k[1] + p14_k[1]
     assert cl_k[1] == cl_k[2]
     assert "train_step: bs 8 bf16" in r.stdout
     assert "launches over 4 steps: K1=0 K1'=8 K2=8" in r.stdout
@@ -694,6 +718,59 @@ def test_chip_smoke_rehearsal_on_cpu():
     assert any(l.startswith("p13_tiny_one: wall ") for l in lines)
     assert any(l.startswith("head_offset_check: heads 1..1 of 2")
                for l in lines)
+    # phase 2: the surrogate's encoder (4 heads of 8 over 10 positions) in
+    # f32, K1 once and K1'/K2 at rates 0 and 0.1
+    assert sum(l.startswith("kernel_check surrogate_f32:") and "Tq=10 Sk=10"
+               in l and "float32" in l for l in lines) == 3
+    # phase 14: (a) the surrogate's rows, each row's launches what its
+    # counts imply, all on the scalar f32 route, the orderings checked; (b)
+    # the cut row on the card == on the CPU; (c) the ten-task soak's
+    # 55-cell matrix and its launches, all on the bf16 route
+    p14 = summary["protocol_runs"]
+    rows14 = p14["surrogate"]["rows"]
+    assert list(rows14) == ["vanilla", "er", "ours"]
+    for name, row in rows14.items():
+        c = row["counts"]
+        steps = c["train_steps"] + c.get("replay_steps", 0) \
+            + c.get("importance_batches", 0)
+        assert row["launches"] == row["expected_launches"] == [
+            2 * c["predict_batches"], 2 * steps, 2 * steps], name
+        assert [r["scalar"] for r in row["route_launches"]] == \
+            row["launches"], name
+        assert [r["mma"] for r in row["route_launches"]] == [0, 0, 0]
+        assert (c.get("replay_steps", 0) > 0) == (name != "vanilla")
+        assert row["seed"] == 0 and row["wall_s"] > 0
+        assert {"Avg_acc", "Avg_forget", "diag_acc"} <= set(row)
+        assert f"p14_{name}: Avg_acc {row['Avg_acc']} Avg_forget " in r.stdout
+        assert row["route_launches"][0]["scalar"] == row["launches"][0]
+    assert [t[1] for t in p14["surrogate"]["orderings"]] == [True] * 3
+    assert sum(l.startswith("p14 ordering: ") for l in lines) == 3
+    cut = p14["cut"]
+    assert list(cut) == ["surrogate_lr", "lr_0.001"]
+    for tag, run in cut.items():
+        assert all(run["equal"].values()), tag
+        assert run["launches"] == run["expected_launches"], tag
+        assert min(run["launches"]) > 0 and run["counts"]["replay_steps"] > 0
+    # the losses are held to CL_LOSS_RTOL at lr 1e-3, recorded at 1e-2
+    assert cut["lr_0.001"]["equal"]["losses"]
+    assert cut["lr_0.001"]["loss_rel_err"] <= 1e-5
+    assert "losses" not in cut["surrogate_lr"]["equal"]
+    soak = p14["soak"]
+    assert soak["matrix_complete"] and len(soak["task_wall_s"]) == 10
+    assert soak["launches"] == soak["expected_launches"]
+    assert min(soak["launches"]) > 0
+    assert [r["mma"] for r in soak["route_launches"]] == soak["launches"]
+    assert "p14 soak: 10 tasks, 55-cell matrix complete True" in r.stdout
+    assert any(l.startswith("SOAK small: ") for l in lines)
+    assert p14_k == [sum(x["launches"][i] for x in [*rows14.values(),
+                                                     *cut.values(), soak])
+                     for i in range(3)]
+    # the rows ran as processes of the script in rank mode, side by side
+    for name in rows14:
+        assert any(l.startswith(f"rank {list(rows14).index(name)}: p14_"
+                                f"{name}: Avg_acc ") for l in lines), name
+    assert not os.path.exists(os.path.join(REPO, "build", "chip_smoke",
+                                           "phase14"))
 
 
 def test_chip_smoke_without_cuda_prints_no_result():
@@ -705,3 +782,57 @@ def test_chip_smoke_without_cuda_prints_no_result():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode != 0
     assert r.stdout.strip() == ""
+
+
+def test_phase14_orderings():
+    """Phase 14's orderings at their real margins, about half the smallest
+    single-seed gaps of ABLATION.md's per-seed lines: ABLATION.md's seed-0
+    cells pass them, and a gap one point short of each fails it."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+
+    assert chip_smoke.P14_ORDERINGS == (
+        ("ours", "vanilla", "Avg_acc", 20.0),
+        ("vanilla", "ours", "Avg_forget", 25.0),
+        ("er", "vanilla", "Avg_acc", 10.0))
+    seed0 = {"vanilla": {"Avg_acc": 39.96, "Avg_forget": 75.0},
+             "er": {"Avg_acc": 66.24, "Avg_forget": 35.05},
+             "ours": {"Avg_acc": 89.8, "Avg_forget": 12.05}}
+    got = chip_smoke.p14_orderings(seed0)
+    assert [h for _, h in got] == [True] * 3
+    assert got[0][0] == "ours Avg_acc 89.800 >= vanilla 39.960 + 20 " \
+        "(gap +49.840)"
+    for i, (hi, lo, metric, margin) in enumerate(chip_smoke.P14_ORDERINGS):
+        rows = {k: dict(v) for k, v in seed0.items()}
+        rows[hi][metric] = rows[lo][metric] + margin - 1.0
+        held = [h for _, h in chip_smoke.p14_orderings(rows)]
+        assert held[i] is False, (hi, lo, metric)
+        rows[lo][metric] = 10.0                           # the edge holds
+        rows[hi][metric] = 10.0 + margin
+        assert chip_smoke.p14_orderings(rows)[i][1] is True
+
+
+def test_phase14_launch_accounting():
+    """The launches a run's counted calls imply (encoder layers times
+    train + replay + importance steps for K1'/K2, predict + capture
+    batches for K1) and the soak's matrix check."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+    from vqacl_tpu_torch.soak import expected_launches
+
+    counts = {"train_steps": 7, "replay_steps": 5, "predict_batches": 11,
+              "importance_batches": 3, "capture_batches": 2}
+    assert expected_launches(counts, 2) == [2 * 13, 2 * 15, 2 * 15]
+    assert expected_launches({"train_steps": 4}, 12) == [0, 48, 48]
+    full = [[50.0 if j <= i else -1.0 for j in range(10)] for i in range(10)]
+    assert chip_smoke.p14_matrix_complete(full, 10)
+    hole = [row[:] for row in full]
+    hole[9][3] = -1.0                   # a cell never evaluated
+    assert not chip_smoke.p14_matrix_complete(hole, 10)
+    above = [row[:] for row in full]
+    above[2][5] = 0.0                   # a task tested before its training
+    assert not chip_smoke.p14_matrix_complete(above, 10)
+    nan = [row[:] for row in full]
+    nan[4][4] = float("nan")
+    assert not chip_smoke.p14_matrix_complete(nan, 10)
+    assert not chip_smoke.p14_matrix_complete(full[:9], 10)

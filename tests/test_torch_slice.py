@@ -281,7 +281,8 @@ def test_port_imports_nothing_of_jax():
     the weight files and the directory checkpoint are written and read
     with them blocked too, and so are the detector's weights (npz) and a
     pack of extracted records made from a decoded array. The parallel
-    modules are among them, and a one-process mesh starts."""
+    modules and the protocol scripts (ablation, soak) are among them, and
+    a one-process mesh starts."""
     code = r"""
 import importlib, os, pkgutil, runpy, sys, tempfile
 BLOCKED = ("jax", "jaxlib", "vqacl_tpu", "h5py", "ml_dtypes", "transformers",
@@ -296,7 +297,8 @@ for m in mods:
     importlib.import_module(m)
 assert {"vqacl_tpu_torch.parallel.mesh", "vqacl_tpu_torch.parallel.multihost",
         "vqacl_tpu_torch.parallel.sharding",
-        "vqacl_tpu_torch.parallel.pipeline"} <= set(mods)
+        "vqacl_tpu_torch.parallel.pipeline", "vqacl_tpu_torch.ablation",
+        "vqacl_tpu_torch.soak"} <= set(mods)
 from vqacl_tpu_torch import make_mesh
 assert make_mesh(device="cpu").dp == 1
 runpy.run_path("chip_smoke.py", run_name="chip_smoke_import_check")

@@ -40,7 +40,8 @@ and ``vision.video``, with ``vision.convert_weights`` and
 one rank per card) with ``parallel.multihost`` and ``parallel.sharding``,
 wired through the CL trainer, the train steps and both training CLIs
 (``torchrun ... --mesh_dp N``), the kernels drawing each rank's dropout
-rows by a Philox row offset.
+rows by a Philox row offset; and the protocol scripts, ``ablation`` (the
+Table-1 surrogate) and ``soak`` (the ten-task protocol at t5-base).
 """
 
 __version__ = "0.1.0"

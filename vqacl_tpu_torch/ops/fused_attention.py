@@ -49,7 +49,8 @@ tests run the same autograd logic; on CUDA tensors it launches its
 kernel or raises, and counts the launch in ``<wrapper>.launches`` (and,
 when an operand is strided, in ``<wrapper>.strided_launches``; K1′ and
 K2 launched with a row offset ``bh0`` ≠ 0 also in ``.offset_launches``,
-and with a first head ``h0`` ≠ 0 in ``.head_offset_launches``). A
+and with a first head ``h0`` ≠ 0 in ``.head_offset_launches``; and by
+route, "mma" or "scalar", in ``.route_launches``). A
 tensor-parallel rank runs K1′/K2 over its heads h0 … h0 + H − 1 of rows
 of ``Hc`` heads: the Philox counter of (b, h) is then bh0 + b·Hc + h0 +
 h, so its heads draw the same heads' streams of a one-process call
@@ -455,6 +456,7 @@ def _launch_k1(q, k, v, bias, mask, num_heads) -> torch.Tensor:
     _raise_on(err, lib, "fused_attention_fwd", "fused_attention_error_string")
     fused_attention.launches += 1
     fused_attention.strided_launches += strided
+    fused_attention.route_launches[fwd_route(q.dtype, dk, Tq, Sk)] += 1
     return o
 
 
@@ -495,6 +497,7 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 fused_attention.launches = 0
 fused_attention.strided_launches = 0
+fused_attention.route_launches = dict.fromkeys(ROUTE_NAMES, 0)
 
 
 def fused_attention_fwd_train(q: torch.Tensor, k: torch.Tensor,
@@ -538,6 +541,8 @@ def fused_attention_fwd_train(q: torch.Tensor, k: torch.Tensor,
               "fused_attention_error_string")
     fused_attention_fwd_train.launches += 1
     fused_attention_fwd_train.strided_launches += strided
+    fused_attention_fwd_train.route_launches[
+        fwd_route(q.dtype, dk, Tq, Sk)] += 1
     fused_attention_fwd_train.offset_launches += bh0 != 0
     fused_attention_fwd_train.head_offset_launches += h0 != 0
     return o, p
@@ -545,6 +550,7 @@ def fused_attention_fwd_train(q: torch.Tensor, k: torch.Tensor,
 
 fused_attention_fwd_train.launches = 0
 fused_attention_fwd_train.strided_launches = 0
+fused_attention_fwd_train.route_launches = dict.fromkeys(ROUTE_NAMES, 0)
 fused_attention_fwd_train.offset_launches = 0
 fused_attention_fwd_train.head_offset_launches = 0
 
@@ -607,7 +613,8 @@ def fused_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lds = _qkv_strides(q, k, v)
     dq, dk_, dv = out if out is not None else (
         _rows_like(t, ld) for t, ld in zip((q, k, v), lds))
-    if bwd_route(q.dtype, dk, Tq, Sk, dropout_rate) == "mma":
+    route = bwd_route(q.dtype, dk, Tq, Sk, dropout_rate)
+    if route == "mma":
         _check_rows16("fused_attention_bwd", zip(
             ("q", "k", "v", "do", "dq", "dk", "dv"), (q, k, v, do, dq, dk_, dv),
             lds + (HD,) + lds))
@@ -634,6 +641,7 @@ def fused_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               "fused_attention_bwd_error_string")
     fused_attention_bwd.launches += 1
     fused_attention_bwd.strided_launches += strided
+    fused_attention_bwd.route_launches[route] += 1
     fused_attention_bwd.offset_launches += bh0 != 0
     fused_attention_bwd.head_offset_launches += h0 != 0
     return dq, dk_, dv, dbias
@@ -641,6 +649,7 @@ def fused_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 fused_attention_bwd.launches = 0
 fused_attention_bwd.strided_launches = 0
+fused_attention_bwd.route_launches = dict.fromkeys(ROUTE_NAMES, 0)
 fused_attention_bwd.offset_launches = 0
 fused_attention_bwd.head_offset_launches = 0
 
