@@ -339,19 +339,6 @@ def test_draw_boxes(tmp_path):
     assert len(fig.axes[0].patches) == 2
 
 
-def test_step_timer_equals_jax():
-    from vqacl_tpu.utils.profiling import StepTimer as JT
-    from vqacl_tpu_torch.utils.profiling import StepTimer
-    t, j = StepTimer(sync_every=2), JT(sync_every=2)
-    for _ in range(6):
-        t.step(sync_value=torch.tensor(1.0))
-        j.step(sync_value=np.float32(1.0))
-    assert t.summary()["steps"] == j.summary()["steps"] == 6
-    assert len(t.times) == len(j.times) == 3
-    assert t.summary()["ms_per_step"] > 0.0
-    assert StepTimer().summary()["ms_per_step"] == 0.0
-
-
 def test_trace_writes_a_chrome_trace(tmp_path):
     from vqacl_tpu_torch.utils.profiling import trace
     with trace(str(tmp_path)) as prof:

@@ -117,6 +117,7 @@ from vqacl_tpu_torch.train.step import (make_der_replay_step,
                                         make_train_step)
 from vqacl_tpu_torch.utils.config import resolve_merged_qkv
 from vqacl_tpu_torch.utils.device import resolve_device
+from vqacl_tpu_torch.utils.profiling import span
 
 CL_REGS = ("none", "ewc", "mas", "der", "derpp")
 LAYOUTS = ("replicated", "tp", "fsdp")
@@ -307,19 +308,20 @@ class VQACLTrainer:
     def _call(self, kind: str):
         """Counts one step or batch of ``kind`` and keeps its time: CUDA
         events around it on a card (read by ``_read_spans``), the host
-        clock on the CPU."""
+        clock on the CPU; the recorder's span ``cl.<kind>``."""
         self.counts[kind] += 1
-        if self.device.type == "cuda":
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            yield
-            end.record()
-            self._spans.append((kind, start, end))
-        else:
-            t0 = time.perf_counter()
-            yield
-            self.times_ms[kind].append((time.perf_counter() - t0) * 1e3)
+        with span(f"cl.{kind}"):
+            if self.device.type == "cuda":
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                yield
+                end.record()
+                self._spans.append((kind, start, end))
+            else:
+                t0 = time.perf_counter()
+                yield
+                self.times_ms[kind].append((time.perf_counter() - t0) * 1e3)
 
     def _read_spans(self) -> None:
         for kind, start, end in self._spans:

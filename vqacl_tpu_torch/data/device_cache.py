@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from vqacl_tpu_torch.utils.device import resolve_device
+from vqacl_tpu_torch.utils.profiling import span
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
           "int8": torch.int8}
@@ -224,9 +225,10 @@ class DeviceFeatureCache:
 
 def with_features(cache: DeviceFeatureCache, batch: Dict) -> Dict:
     """``batch`` with its ``slots`` replaced by the gathered vis_feats and
-    boxes (on the cache's device)."""
+    boxes (on the cache's device); the span ``cache.gather``."""
     b = dict(batch)
-    b["vis_feats"], b["boxes"] = cache.lookup(b.pop("slots"))
+    with span("cache.gather"):
+        b["vis_feats"], b["boxes"] = cache.lookup(b.pop("slots"))
     return b
 
 

@@ -39,6 +39,7 @@ import numpy as np
 
 from vqacl_tpu_torch.cl.tasks import CATEGORY_SPLITS
 from vqacl_tpu_torch.data.collate import collate
+from vqacl_tpu_torch.utils.profiling import span
 
 
 def load_partition(root: str, split: str, task: str) -> List[Dict]:
@@ -178,7 +179,12 @@ class BatchLoader:
     generator seeded by (dataset seed, epoch, example index), so it is
     reproducible and invariant to worker count and schedule.
     ``num_workers <= 1`` keeps the single producer, which draws from the
-    dataset's shared stream in batch order."""
+    dataset's shared stream in batch order.
+
+    An iteration that is closed or dropped before its end stops its
+    threads: they finish the batch in hand and return. The consumer's
+    blocking wait for a batch is the recorder's span ``loader.wait``
+    (utils/profiling.py)."""
 
     def __init__(self, dataset: VQAPartitionDataset, indices: Sequence[int],
                  batch_size: int, shuffle: bool = True, seed: int = 0,
@@ -245,6 +251,7 @@ class BatchLoader:
         done: Dict[int, Any] = {}
         cond = threading.Condition()
         failure: list = []
+        stop = threading.Event()
         # workers stay ≤ 2·num_workers batches ahead of the consumer
         window = threading.Semaphore(self.num_workers * 2)
 
@@ -253,7 +260,7 @@ class BatchLoader:
                 window.acquire()
                 with ticket_lock:
                     b = next_ticket[0]
-                    if b >= n_batches or failure:
+                    if b >= n_batches or failure or stop.is_set():
                         window.release()
                         return
                     next_ticket[0] = b + 1
@@ -272,17 +279,25 @@ class BatchLoader:
                    for _ in range(min(self.num_workers, max(n_batches, 1)))]
         for t in threads:
             t.start()
-        for b in range(n_batches):
-            with cond:
-                while b not in done and not failure:
-                    cond.wait()
-                if failure:
-                    raise failure[0]
-                batch = done.pop(b)
+        try:
+            for b in range(n_batches):
+                with cond:
+                    if b not in done and not failure:
+                        with span("loader.wait"):
+                            while b not in done and not failure:
+                                cond.wait()
+                    if failure:
+                        raise failure[0]
+                    batch = done.pop(b)
+                window.release()
+                yield batch
+            if failure:
+                raise failure[0]
+        finally:
+            # a worker blocked on the window wakes, sees the flag, passes
+            # the release on and returns
+            stop.set()
             window.release()
-            yield batch
-        if failure:
-            raise failure[0]
 
     def __iter__(self) -> Iterator[Dict]:
         self._epoch += 1
@@ -292,11 +307,14 @@ class BatchLoader:
         q: queue.Queue = queue.Queue(maxsize=2)
         sentinel = object()
         failure: list = []
+        stop = threading.Event()
 
         def producer():
             try:
                 for b in self._make_batches():
                     q.put(b)
+                    if stop.is_set():
+                        break
             except BaseException as e:  # re-raised in the consumer: a bad
                 # feature row must stop the run, not silently end the epoch
                 failure.append(e)
@@ -305,13 +323,24 @@ class BatchLoader:
 
         t = threading.Thread(target=producer, daemon=True)
         t.start()
-        while True:
-            item = q.get()
-            if item is sentinel:
-                if failure:
-                    raise failure[0]
-                break
-            yield item
+        try:
+            while True:
+                with span("loader.wait"):
+                    item = q.get()
+                if item is sentinel:
+                    if failure:
+                        raise failure[0]
+                    break
+                yield item
+        finally:
+            # the producer puts at most its batch in hand and the sentinel
+            # into the emptied queue, then returns
+            stop.set()
+            while True:
+                try:
+                    q.get_nowait()
+                except queue.Empty:
+                    break
 
 
 def group_loaders(dataset: VQAPartitionDataset, batch_size: int,

@@ -60,6 +60,7 @@ import torch
 import torch.distributed as dist
 
 from vqacl_tpu_torch.utils.device import resolve_device
+from vqacl_tpu_torch.utils.profiling import count, span
 
 
 def mesh_shape(n: int, dp: int = -1, tp: int = 1, pp: int = 1
@@ -297,21 +298,27 @@ def shard_batch(ctx: MeshContext, batch: Dict, accum: int = 1) -> Dict:
     """This rank's rows of a global host batch (a dict of numpy arrays or
     tensors; other values pass through), on ``ctx.device``: the rows of
     its dp index, so the tp and pp ranks of one dp index hold the same
-    rows. Every rank builds the same global batch from the same seed."""
+    rows. Every rank builds the same global batch from the same seed.
+    The recorder's span ``batch.shard``; the counter ``h2d_bytes`` adds
+    what is copied from host memory to another device."""
     rows = None
     out = {}
-    for k, x in batch.items():
-        if isinstance(x, np.ndarray):
-            x = torch.from_numpy(x)
-        if not isinstance(x, torch.Tensor):
-            out[k] = x
-            continue
-        if ctx.dp > 1:
-            if rows is None:
-                rows = batch_rows(x.shape[0], ctx.dp, ctx.dp_index, accum)
-            x = x[rows[0]:rows[-1] + 1] if accum == 1 else \
-                x[torch.from_numpy(rows)]
-        out[k] = x.to(ctx.device, non_blocking=True)
+    with span("batch.shard"):
+        for k, x in batch.items():
+            if isinstance(x, np.ndarray):
+                x = torch.from_numpy(x)
+            if not isinstance(x, torch.Tensor):
+                out[k] = x
+                continue
+            if ctx.dp > 1:
+                if rows is None:
+                    rows = batch_rows(x.shape[0], ctx.dp, ctx.dp_index,
+                                      accum)
+                x = x[rows[0]:rows[-1] + 1] if accum == 1 else \
+                    x[torch.from_numpy(rows)]
+            if x.device.type == "cpu" and ctx.device.type != "cpu":
+                count("h2d_bytes", x.numel() * x.element_size())
+            out[k] = x.to(ctx.device, non_blocking=True)
     return out
 
 

@@ -6,25 +6,31 @@
 Random-init t5-base (seeded), f32 master weights, bf16 compute, dropout
 0.1, the port's train step on one synthetic batch. Prints, as one JSON
 line: the train step's host-clock median and p90 (each step ends in
-``torch.cuda.synchronize()``); the same work split into forward,
-backward (forward+backward minus forward) and the rest (clip, AdamW,
-schedule: the step minus forward+backward); and from a
-``torch.profiler`` window over a few steps the device time by kernel,
-launches per step, the device's busy share of the window and the
-fused-attention kernels' share; and the peak device memory
-(``torch.cuda.max_memory_allocated``) of one step and of one forward
-and backward alone, each above the memory held before it.
-``--fused_decoder`` runs the decoder's attention through the kernels
-too, ``--remat`` recomputes the encoder and decoder blocks in the
-backward pass (the JAX CLI's ``--fused_decoder`` and ``--remat``).
+``torch.cuda.synchronize()``), those steps run with the span recorder on
+(``utils/profiling.py``), so the same run gives each phase's host time
+per step (the self time of ``step.inputs``, ``step.forward``,
+``step.backward``, ``step.optimizer`` and ``step.train`` itself) and the
+bytes it copies from host memory (``h2d_bytes``); and
+from a ``torch.profiler`` window over a few steps, spans on, the device
+time by kernel, launches per step, the device's busy share of the
+window, the fused-attention kernels' share, and per phase the kernels
+it launched (by the time of each launch call) and the device's idle time
+inside it; and the peak device memory (``torch.cuda.max_memory_allocated``)
+of one step and of one forward and backward alone, each above the memory
+held before it. ``--fused_decoder`` runs the decoder's attention through
+the kernels too, ``--remat`` recomputes the encoder and decoder blocks
+in the backward pass (the JAX CLI's ``--fused_decoder`` and ``--remat``).
 Needs a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import json
+import os
 import subprocess
+import tempfile
 import time
 
 import torch
@@ -37,6 +43,7 @@ from vqacl_tpu_torch.profile_eval import _device_us, _pct
 from vqacl_tpu_torch.train.optim import make_transform, tree_leaves, tree_map
 from vqacl_tpu_torch.train.state import TrainState
 from vqacl_tpu_torch.train.step import make_train_step
+from vqacl_tpu_torch.utils import profiling
 from vqacl_tpu_torch.utils.config import Config
 
 
@@ -77,55 +84,47 @@ def main(argv=None) -> dict:
     torch.cuda.synchronize()
     peak_bytes = torch.cuda.max_memory_allocated()
 
+    # the timed steps, spans on: each phase's host time from the same run
     steps = []
+    profiling.take()
+    profiling.enable()
     for _ in range(args.steps):
         t0 = time.perf_counter()
         state, met = step(state, batch)
         torch.cuda.synchronize()
         steps.append((time.perf_counter() - t0) * 1e3)
-
-    # the same work split at the forward / backward boundary
-    dbatch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
-
-    def forward(live):
-        return vlt5.forward_train(
-            live, m, dbatch, state.proto, t.proto_alpha, t.proto_beta,
-            generator=state.generator, dtype=torch.bfloat16, remat=remat)
+    profiling.enable(False)
+    timed = profiling.take()
+    host_ms = {k: v / 1e6 / args.steps for k, v in
+               profiling.self_ns(timed.spans).items()}
 
     # the activation peak: one forward and backward alone (what remat
     # acts on; the whole step's peak above includes the optimizer's)
+    dbatch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     start = torch.cuda.memory_allocated()
     live = tree_map(lambda p: p.detach().requires_grad_(), state.params)
-    grads = torch.autograd.grad(forward(live).loss, tree_leaves(live),
-                                allow_unused=True)
+    loss = vlt5.forward_train(
+        live, m, dbatch, state.proto, t.proto_alpha, t.proto_beta,
+        generator=state.generator, dtype=torch.bfloat16, remat=remat).loss
+    grads = torch.autograd.grad(loss, tree_leaves(live), allow_unused=True)
     torch.cuda.synchronize()
     fwd_bwd_peak = torch.cuda.max_memory_allocated() - start
-    del live, grads
-    fwd_ms, fwd_bwd_ms = [], []
-    for _ in range(args.steps):
-        for timed in (fwd_ms, fwd_bwd_ms):
-            live = tree_map(lambda p: p.detach().requires_grad_(),
-                            state.params)
-            t0 = time.perf_counter()
-            out = forward(live)
-            if timed is fwd_bwd_ms:
-                torch.autograd.grad(out.loss, tree_leaves(live),
-                                    allow_unused=True)
-            torch.cuda.synchronize()
-            timed.append((time.perf_counter() - t0) * 1e3)
-            del out, live
+    del live, loss, grads
 
     n_prof = 3
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
+    profiling.enable()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(n_prof):
             state, met = step(state, batch)
         torch.cuda.synchronize()
         window_us = (time.perf_counter() - t0) * 1e6
+    profiling.enable(False)
+    by_span = _by_span(prof, profiling.take())
     by_kernel = {}
     launches = 0
     for avg in prof.key_averages():
@@ -145,7 +144,6 @@ def main(argv=None) -> dict:
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     p50 = _pct(steps, 0.5)
-    fwd, fwd_bwd = _pct(fwd_ms, 0.5), _pct(fwd_bwd_ms, 0.5)
     out = {
         "card": smi, "batch": args.batch, "steps": args.steps,
         "fused_decoder": args.fused_decoder, "remat": args.remat,
@@ -154,14 +152,23 @@ def main(argv=None) -> dict:
         "fwd_bwd_peak_bytes": fwd_bwd_peak,
         "train_step_ms_p50": p50,
         "train_step_ms_p90": _pct(steps, 0.9),
-        "forward_ms_p50": fwd,
-        "backward_ms_p50": fwd_bwd - fwd,
-        "optimizer_and_rest_ms": p50 - fwd_bwd,
+        "host_ms_per_step": host_ms,
+        "h2d_bytes_per_step":
+            timed.counters.get("h2d_bytes", 0) / args.steps,
         "loss_last": float(met["loss"]),
         "profiled_steps": n_prof,
         "device_busy_share": busy_us / window_us if window_us else None,
         "device_ms_per_step": busy_us / n_prof / 1e3,
         "kernel_launches_per_step": launches / n_prof,
+        "launches_per_step_by_span": {
+            k: n / n_prof for k, n in by_span["launches"].items()},
+        "idle_ms_per_step_by_span": {
+            k: v * 1e3 / n_prof for k, v in by_span["idle_s"].items()},
+        "top_kernels_by_span": {
+            k: [[name[:80], n / n_prof] for name, n in
+                collections.Counter(v).most_common(3)]
+            for k, v in by_span["kernels"].items()},
+        "no_launch_call": by_span["no_launch_call"],
         **attn,
         "fused_attention_launches": {
             "K1": fa.fused_attention.launches,
@@ -173,6 +180,20 @@ def main(argv=None) -> dict:
     }
     print(json.dumps(out))
     return out
+
+
+def _by_span(prof, taken) -> dict:
+    """``profiling.attribute`` of the profiler's Chrome trace against the
+    spans recorded over it."""
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            doc = json.load(f)
+    finally:
+        os.unlink(path)
+    return profiling.attribute(doc, taken.spans, taken.anchor)
 
 
 if __name__ == "__main__":

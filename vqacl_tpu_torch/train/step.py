@@ -5,7 +5,11 @@ attention kernels K1′/K2 → prototype EMA update + retrieval → teacher-
 forced decoder → fused head loss [+ the EWC/MAS anchor penalty]) →
 backward → clip → AdamW direction → decoupled decay → warmup schedule,
 run eagerly. Metrics stay on the device, so a step never waits for the
-card unless its caller reads one.
+card unless its caller reads one. With the recorder of
+``utils/profiling.py`` on, a step is the span ``step.train`` (or
+``step.der_replay``) around ``step.inputs`` (the batch's copy to the
+device), ``step.forward``, ``step.backward`` and ``step.optimizer`` (the
+gradient reduce and layout, norm, clip, AdamW, decay, lr, ``p − lr·u``).
 
 ``make_der_replay_step``: the same update on the DER/DER++ replay loss.
 ``make_logits_step``: teacher-forced logits (the DER capture pass).
@@ -60,6 +64,7 @@ from vqacl_tpu_torch.train.optim import (dynamic_lr, global_norm,
                                          tree_map, tree_unflatten)
 from vqacl_tpu_torch.train.state import TrainState
 from vqacl_tpu_torch.utils.device import resolve_device
+from vqacl_tpu_torch.utils.profiling import count, span
 
 _BATCH_KEYS = ("input_ids", "vis_feats", "boxes")
 _TRAIN_KEYS = _BATCH_KEYS + ("target_ids", "scores", "ques_labels",
@@ -67,26 +72,34 @@ _TRAIN_KEYS = _BATCH_KEYS + ("target_ids", "scores", "ques_labels",
 
 
 def _to_device(batch: Dict, keys, dev: torch.device) -> Dict:
-    """The named entries of ``batch`` (numpy arrays or tensors) on ``dev``."""
+    """The named entries of ``batch`` (numpy arrays or tensors) on ``dev``
+    (the span ``step.inputs``; the counter ``h2d_bytes`` adds what
+    comes from host memory to another device)."""
     out = {}
-    for k in keys:
-        x = batch[k]
-        if isinstance(x, np.ndarray):
-            x = torch.from_numpy(x)
-        out[k] = x.to(dev, non_blocking=True)
+    with span("step.inputs"):
+        for k in keys:
+            x = batch[k]
+            if isinstance(x, np.ndarray):
+                x = torch.from_numpy(x)
+            if x.device.type == "cpu" and dev.type != "cpu":
+                count("h2d_bytes", x.numel() * x.element_size())
+            out[k] = x.to(dev, non_blocking=True)
     return out
 
 
 def _grads_of(loss_fn: Callable, params) -> Tuple[torch.Tensor, object, Dict]:
     """``loss_fn(live params) -> (loss, aux)`` differentiated in every
-    parameter (zeros where it does not reach) → (loss, aux, grads)."""
+    parameter (zeros where it does not reach) → (loss, aux, grads); the
+    spans ``step.forward`` and ``step.backward``."""
     live = tree_map(lambda p: p.detach().requires_grad_(), params)
-    loss, aux = loss_fn(live)
+    with span("step.forward"):
+        loss, aux = loss_fn(live)
     leaves = tree_leaves(live)
-    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    grads = tree_unflatten(params, [
-        torch.zeros_like(p) if g is None else g
-        for p, g in zip(leaves, grads)])
+    with span("step.backward"):
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = tree_unflatten(params, [
+            torch.zeros_like(p) if g is None else g
+            for p, g in zip(leaves, grads)])
     return loss.detach(), aux, grads
 
 
@@ -177,8 +190,8 @@ def _apply_update(tx, tcfg, state: TrainState, grads, proto: ProtoState,
     """The optimizer half of a step: the ranks' gradients summed (with
     a mesh ``ctx``, ``_dp``'s, over dp × pp), put in the state's layout
     (``place``), AdamW direction, lr from the schedule, ``p − lr·u`` →
-    (new state, lr, grad norm)."""
-    with torch.no_grad():
+    (new state, lr, grad norm); the span ``step.optimizer``."""
+    with torch.no_grad(), span("step.optimizer"):
         if ctx is not None:
             grads = reduce_grads(ctx, grads)
         grads = place.grads(grads)
@@ -271,6 +284,10 @@ def make_train_step(cfg, dtype=torch.bfloat16, device="cuda",
 
     def train_step(state: TrainState, batch: Dict, reg=None
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        with span("step.train"):
+            return _train_step(state, batch, reg)
+
+    def _train_step(state, batch, reg):
         batch = _to_device(batch, _TRAIN_KEYS, dev)
         full = state._replace(params=place.forward(state.params))
         reg = None if reg is None else place.reg(reg)
@@ -330,6 +347,10 @@ def make_der_replay_step(cfg, dtype=torch.bfloat16, device="cuda",
 
     def der_step(state: TrainState, batch: Dict
                  ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        with span("step.der_replay"):
+            return _der_step(state, batch)
+
+    def _der_step(state, batch):
         b = _to_device(batch, _TRAIN_KEYS + ("der_logits",), dev)
         gen = state.generator
         params = place.forward(state.params)
