@@ -243,6 +243,29 @@ Phases, each of which exits non-zero on failure:
    finite metrics, launches equal to its counts, every one on the
    ``mma.sync bf16`` route; the card's busy share over three train
    steps (the soak's ``torch.profiler`` window).
+15. The fused optimizer (``fused_optimizer``) on the seeded t5-base
+   tree: (a) ``P15_STEPS`` steps of ``ops/adamw.py::fused_adamw`` beside
+   the eager chain (``adamw_reference``) given the eager ``global_norm``,
+   in every combination of ``adam_impl``, moment dtype, ``freeze`` and a
+   clip that triggers or not (the linear schedule where it triggers):
+   parameters, moments, count and lr equal bit for bit; the Adam counts
+   ``P15_COUNTS`` (β^t through powf, the saturation at INT32_MAX) on a
+   small leaf, equal bit for bit too; gradients given as column slices
+   of wider matrices (aligned, as a merged q/k/v projection's, or not)
+   read in place: bit for bit, by the pair's 2 kernels alone. (b) The
+   kernel's own norm within ``P15_NORM_RTOL`` of ``global_norm``, the
+   same bits over three launches. (c) ``train/step.py::_apply_update`` under
+   ``torch.cuda.set_sync_debug_mode("error")``: no synchronisation (the
+   eager chain's result in that mode is recorded); one call launches the
+   pair (its counter: 2), torch.profiler sees 2 to 4 kernels in its span
+   ``step.optimizer`` and some in the eager chain; the recorder's
+   ``optim.fused_leaves`` counts every leaf. Every train, replay and
+   remat step of phases 4, 7, 9, 10, 12, 13 and 14 launches the pair
+   once (``check_adamw``: 2 kernels, 1 where an FSDP or tp layout gives
+   ‖g‖), and the kernels line's row sums those launches. (d) CUDA-event
+   time of the kernel pair against its bytes bound, the host time per
+   call, the eager chain's and ``torch.optim.AdamW(fused=True)``'s (f32
+   moments, a yardstick only).
 
 The second-to-last lines are a JSON object of per-kernel numbers and the
 card's name and power limit; the last line is the run's verdict as JSON.
@@ -335,6 +358,18 @@ BF16_EDGES = (("ragged_bf16", 16, 33, 29, 12, 64, 5),
 K2_REFUSED = ("keys512_bf16", 4, 40, 512, 12, 64, 20)
 # set by --base: another checkout's kernel sources, timed beside these
 BASE_CSRC = None
+# the fused optimizer's launches checked per update (``check_adamw``)
+ADAMW_CHECKED = 0
+# phase 15, the fused optimizer: steps per combination, the Adam counts
+# held bit for bit (β^t = powf(β, t) at t = count + 1, and the saturation
+# at INT32_MAX), the elements of their leaf, timed calls of the kernel
+# pair, and the kernel's ‖g‖ against global_norm's (f64 against f32 sums)
+P15_STEPS = 5
+P15_COUNTS = tuple(range(64)) + (99, 999, 12345, 2 ** 24 - 1, 2 ** 24,
+                                 2 ** 31 - 2, 2 ** 31 - 1)
+P15_LEAF = 4099
+P15_TIMED = 20
+P15_NORM_RTOL = 2e-6
 # phase 7, the continual-learning loop: two tasks of SyntheticDataModule
 # data over a pool of CL_IMAGES images (t5-base: feat_dim 2048, 36 boxes),
 # items per task (train, val, test); the EWC and DER++ runs train on
@@ -1060,13 +1095,15 @@ def drive_cl(trainer, label, counters=None, train=None):
     batches: K1′ and K2 once per encoder layer in every train, replay and
     importance step, K1 once per layer in every predict and DER capture
     batch, each above zero; with ``merged_qkv`` (the trainer resolves
-    "auto" to it) every one of them on strided q/k/v. Checks finite
-    losses and a finite result matrix → record."""
+    "auto" to it) every one of them on strided q/k/v; the fused
+    optimizer's pair in every train and replay step (``check_adamw``).
+    Checks finite losses and a finite result matrix → record."""
     import numpy as np
 
     zero_counts, read_counts, num_layers = counters or (
         lambda: None, lambda: (0, 0, 0), 0)
     zero_counts()
+    zero_adamw()
     t0 = time.perf_counter()
     metrics = (train or trainer.train)()
     wall = time.perf_counter() - t0
@@ -1134,6 +1171,9 @@ def drive_cl(trainer, label, counters=None, train=None):
     if counters and merged and strided != [k1, k1p, k2]:
         fail(f"{label}: merged_qkv, but strided launches {strided} of "
              f"{[k1, k1p, k2]}")
+    if counters:    # the norm pass runs unless the layout gives ‖g‖
+        rec["adamw_launches"] = check_adamw(
+            label, steps, 1 if trainer._layout is not None else 2)
     if not losses or not all(np.isfinite(losses)):
         fail(f"{label}: a loss is not finite: {losses}")
     if not np.isfinite(np.asarray(matrix)).all() \
@@ -1188,6 +1228,56 @@ def _launches_per_step(fn, marker):
         if avg.device_type == torch.autograd.DeviceType.CUDA:
             launches += avg.count
     return launches, steps
+
+
+def _launches_in_span(fn, pad, name):
+    """Kernels that ``fn()`` launches inside the recorder's span ``name``
+    (``utils/profiling.py``), attributed by ``profiling.attribute`` over
+    one torch.profiler session of ``pad(); fn(); pad()``: a session late
+    in a long process can miss kernels at its ends, and those fall in
+    the padding. A PyTorch built without CUDA records no kernels: 0."""
+    from vqacl_tpu_torch.profile_train import _by_span
+    from vqacl_tpu_torch.utils import profiling
+
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.backends.cuda.is_built():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    torch.cuda.synchronize()
+    profiling.take()
+    profiling.enable()
+    try:
+        with torch.profiler.profile(activities=acts) as prof:
+            pad()
+            fn()
+            pad()
+            torch.cuda.synchronize()
+    finally:
+        profiling.enable(False)
+    return _by_span(prof, profiling.take())["launches"].get(name, 0)
+
+
+def zero_adamw():
+    """Sets the fused optimizer's launch counter to 0."""
+    from vqacl_tpu_torch.ops import adamw
+
+    adamw.fused_adamw.launches = 0
+
+
+def check_adamw(label, updates, per_update):
+    """The fused optimizer's launches since ``zero_adamw``: ``per_update``
+    (2: the norm and apply passes; 1 where an FSDP or tp layout gives
+    ‖g‖) for each of ``updates`` optimizer updates, else the run fails →
+    the count, added to ``ADAMW_CHECKED`` (this process's total of
+    checked launches, the kernels line's ``fused_adamw`` row)."""
+    global ADAMW_CHECKED
+    from vqacl_tpu_torch.ops import adamw
+
+    got = adamw.fused_adamw.launches
+    if got != per_update * updates:
+        fail(f"{label}: {got} fused_adamw launches, expected {per_update} "
+             f"per optimizer update x {updates}")
+    ADAMW_CHECKED += got
+    return got
 
 
 def serving_extras(params, proto, counters, greedy_step_ms, tok):
@@ -1986,6 +2076,7 @@ def model_extensions(params, proto, counters, tok, phase7_ckpt):
                 t0 = time.perf_counter()
                 (states[n], met), k, ks = counted(
                     lambda n=n: steps[n](states[n], tbatch))
+                check_adamw(f"merged_qkv {label} {n}", 1, 2)
                 if r:
                     ms[n].append((time.perf_counter() - t0) * 1e3)
                 losses[n].append(float(met["loss"]))
@@ -3315,6 +3406,7 @@ def p12_rank(ctx, spec):
             w.launches = w.strided_launches = 0
         for w in wrappers[1:]:
             w.offset_launches = 0
+        zero_adamw()
 
     def read_counts():
         return tuple(w.launches for w in wrappers)
@@ -3354,9 +3446,11 @@ def p12_rank(ctx, spec):
             times.append((time.perf_counter() - t0) * 1e3)
             losses.append(float(met["loss"]))
         launches, offsets = read_counts(), offset_counts()
+        adamw_n = check_adamw(f"rank {ctx.rank}: p12 steps", P12_STEPS,
+                              1 if layout is not None else 2)
         full = state.params if layout is None else layout.gather(state.params)
         r = {"losses": losses, "step_ms": times, "launches": launches,
-             "offset_launches": offsets,
+             "offset_launches": offsets, "adamw_launches": adamw_n,
              "all_reduce_bytes_per_step": (
                  ctx.stats["all_reduce_bytes"]
                  - stats0.get("all_reduce_bytes", 0)) / P12_STEPS,
@@ -3879,6 +3973,7 @@ def p13_rank(ctx, spec):
             w.launches = w.strided_launches = 0
         for w in wrappers[1:]:
             w.offset_launches = w.head_offset_launches = 0
+        zero_adamw()
 
     def read_counts():
         return tuple(w.launches for w in wrappers)
@@ -3929,6 +4024,9 @@ def p13_rank(ctx, spec):
                  for k in ctx.stats if k.startswith("all_reduce_")}
         full = state.params if tpl is None else tpl.gather(state.params)
         r = {"losses": losses, "step_ms": times, "launches": read_counts(),
+             "adamw_launches": check_adamw(
+                 f"{part} rank {ctx.rank}: steps", n,
+                 1 if tpl is not None else 2),
              "offset_launches": offset_counts(),
              "head_offset_launches": head_offset_counts(),
              "all_reduce_per_step": delta,
@@ -4255,6 +4353,7 @@ def attention_counters():
         for w in ws:
             w.launches = w.strided_launches = 0
             w.route_launches = dict.fromkeys(fa.ROUTE_NAMES, 0)
+        zero_adamw()
 
     return zero_counts, lambda: tuple(w.launches for w in ws)
 
@@ -4453,6 +4552,308 @@ def protocol_runs(counters):
             "cut": cut, "soak": soak}, p14_k
 
 
+def _bits(x):
+    """A tensor's bits as integers (float → int of its width)."""
+    if x.is_floating_point():
+        return x.view({4: torch.int32, 2: torch.int16}[x.element_size()])
+    return x
+
+
+def _mismatch(a, b, tree_leaves):
+    """Elements whose bits differ between two trees (or tensors), one
+    read at the end."""
+    la, lb = tree_leaves(a), tree_leaves(b)
+    if len(la) != len(lb) or any(x.dtype != y.dtype or x.shape != y.shape
+                                 for x, y in zip(la, lb)):
+        return -1
+    return int(sum((_bits(x) != _bits(y)).sum() for x, y in zip(la, lb)))
+
+
+def fused_optimizer(params, counters):
+    """Phase 15 (see the module's docstring) on the seeded t5-base
+    ``params`` of phase 4; ``counters``: (zero_counts, read_counts) of
+    the attention kernels (none may launch here) → record."""
+    import dataclasses
+
+    from vqacl_tpu_torch.models.prototype import ProtoState
+    from vqacl_tpu_torch.ops import adamw
+    from vqacl_tpu_torch.train import optim
+    from vqacl_tpu_torch.train import step as ST
+    from vqacl_tpu_torch.train.state import TrainState
+    from vqacl_tpu_torch.utils import profiling
+    from vqacl_tpu_torch.utils.config import Config
+
+    zero_counts, read_counts = counters
+    zero_counts()
+    leaves = optim.tree_leaves(params)
+    n_params = sum(p.numel() for p in leaves)
+    base = Config().train
+    gen = torch.Generator(device="cuda").manual_seed(15)
+
+    def grads(scale, tree=params):
+        return optim.tree_map(lambda p: torch.randn(
+            p.shape, generator=gen, device="cuda") * scale, tree)
+
+    sched = torch.tensor([2.0, 10.0], device="cuda")
+    # gradients of ‖g‖ ≈ 3x or 0.3x the clip's limit
+    on, off = (k * base.clip_grad_norm / n_params ** 0.5 for k in (3, 0.3))
+    rec = {"n_params": n_params, "n_leaves": len(leaves), "combos": {}}
+    # (a) the apply pass given the eager norm, every combination
+    for impl in ("hf", "torch"):
+        for dt in ("bfloat16", "float32"):
+            for freeze in (False, True):
+                for clip in (True, False):
+                    tcfg = dataclasses.replace(
+                        base, adam_impl=impl, adam_dtype=dt, freeze=freeze,
+                        schedule="linear_warmup" if clip
+                        else "constant_warmup")
+                    st_e = st_f = optim.make_transform(tcfg).init(params)
+                    p_e = p_f = params
+                    step = torch.zeros((), dtype=torch.int32,
+                                       device="cuda")
+                    bad, norms = 0, []
+                    for _ in range(P15_STEPS):
+                        g = grads(on if clip else off)
+                        gn = optim.global_norm(g)
+                        norms.append(gn)
+                        p_e, st_e, lr_e, _ = adamw.adamw_reference(
+                            tcfg, g, st_e, p_e, step, sched, gn)
+                        p_f, st_f, lr_f, _ = adamw.fused_adamw(
+                            tcfg, g, st_f, p_f, step, sched, gn)
+                        step = step + 1
+                        bad += sum(_mismatch(a, b, optim.tree_leaves)
+                                   for a, b in ((p_e, p_f),
+                                                (st_e.mu, st_f.mu),
+                                                (st_e.nu, st_f.nu),
+                                                (st_e.count, st_f.count),
+                                                (lr_e, lr_f)))
+                    name = (f"{impl}/{dt}/freeze={int(freeze)}/"
+                            f"clip={'on' if clip else 'off'}")
+                    gns = [float(x) for x in norms]
+                    triggered = [x >= tcfg.clip_grad_norm for x in gns]
+                    rec["combos"][name] = {"mismatched": bad,
+                                           "grad_norms": gns}
+                    log(f"fused_adamw {name}: {P15_STEPS} steps, "
+                        f"‖g‖ {min(gns):.4g}-{max(gns):.4g}, elements "
+                        f"differing from the eager chain: {bad}")
+                    if bad or not all(t == clip for t in triggered):
+                        fail(f"fused_adamw {name}: {bad} elements differ "
+                             f"from the eager chain (clip triggered "
+                             f"{triggered}, wanted {clip})")
+                    del st_e, st_f, p_e, p_f
+    # the Adam counts: β^t through powf at t = count + 1, and saturation
+    leaf = {"w": torch.randn(P15_LEAF, generator=gen, device="cuda")}
+    count_bad = {}
+    for impl in ("hf", "torch"):
+        tcfg = dataclasses.replace(base, adam_impl=impl)
+        for c in P15_COUNTS:
+            st = optim.AdamState(
+                torch.tensor(c, dtype=torch.int32, device="cuda"),
+                grads(1e-2, leaf), optim.tree_map(torch.abs,
+                                                  grads(1e-4, leaf)))
+            st = st._replace(mu=optim.tree_map(
+                lambda x: x.to(torch.bfloat16), st.mu), nu=optim.tree_map(
+                lambda x: x.to(torch.bfloat16), st.nu))
+            g = grads(1e-2, leaf)
+            step = torch.tensor(5, dtype=torch.int32, device="cuda")
+            gn = optim.global_norm(g)
+            e = adamw.adamw_reference(tcfg, g, st, leaf, step, sched, gn)
+            f = adamw.fused_adamw(tcfg, g, st, leaf, step, sched, gn)
+            bad = sum(_mismatch(a, b, optim.tree_leaves)
+                      for a, b in ((e[0], f[0]), (e[1].mu, f[1].mu),
+                                   (e[1].nu, f[1].nu),
+                                   (e[1].count, f[1].count)))
+            if bad:
+                count_bad[f"{impl}/{c}"] = bad
+    rec["powf_counts"] = len(P15_COUNTS)
+    rec["powf_mismatched"] = count_bad
+    log(f"fused_adamw Adam counts {P15_COUNTS[0]}..{P15_COUNTS[-1]} "
+        f"({len(P15_COUNTS)} x 2 impls, leaf of {P15_LEAF}): powf "
+        f"{'equals torch.pow' if not count_bad else 'differs'}; mismatches "
+        f"{count_bad}")
+    if count_bad:
+        fail(f"fused_adamw: Adam counts {sorted(count_bad)} differ from "
+             f"the eager chain")
+
+    # strided gradients, read in place: each 2-D leaf's a column slice of
+    # a wider matrix, 16-byte aligned (as the merged q/k/v projections'
+    # are) or not (the scalar loop)
+    def sliced(x, i):
+        if x.dim() != 2:
+            return x
+        r, c = x.shape
+        lo, width = (c, 3 * c) if i % 2 == 0 else (1, c + 3)
+        wide = torch.zeros(r, width, device="cuda")
+        wide[:, lo:lo + c] = x
+        return wide[:, lo:lo + c]
+
+    tcfg = base
+    g = grads(on)
+    gs = optim.tree_unflatten(g, [sliced(x, i) for i, x in
+                                  enumerate(optim.tree_leaves(g))])
+    n_strided = sum(not x.is_contiguous() for x in optim.tree_leaves(gs))
+    st = optim.make_transform(tcfg).init(params)
+    step = torch.tensor(3, dtype=torch.int32, device="cuda")
+    gn = optim.global_norm(g)
+    e = adamw.adamw_reference(tcfg, g, st, params, step, sched, gn)
+    f = adamw.fused_adamw(tcfg, gs, st, params, step, sched, gn)
+    bad = sum(_mismatch(a, b, optim.tree_leaves)
+              for a, b in ((e[0], f[0]), (e[1].mu, f[1].mu),
+                           (e[1].nu, f[1].nu), (e[2], f[2])))
+    own = adamw.fused_adamw(tcfg, gs, st, params, step, sched)
+    rel = abs(float(own[3]) - float(gn)) / float(gn)
+
+    def strided_call():
+        with profiling.span("p15.strided"):
+            adamw.fused_adamw(tcfg, gs, st, params, step, sched)
+
+    n_k = _launches_in_span(strided_call, lambda: adamw.adamw_reference(
+        tcfg, g, st, params, step, sched), "p15.strided")
+    rec["strided"] = {"leaves": n_strided, "mismatched": bad,
+                      "norm_rel": rel, "kernels": n_k}
+    log(f"fused_adamw strided grads: {n_strided} of {len(leaves)} leaves "
+        f"column slices; elements differing from the eager chain {bad}; "
+        f"norm rel {rel:.3e}; kernels {n_k} (torch.profiler)")
+    if not n_strided or bad or not rel <= P15_NORM_RTOL or (
+            torch.backends.cuda.is_built() and n_k != 2):
+        fail("fused_adamw: strided gradients not read in place bit for "
+             "bit by the kernel pair alone")
+    del e, f, own, gs, st
+
+    # (b) the kernel's own norm: against global_norm, and over 3 launches
+    state = TrainState.create(params, optim.make_transform(tcfg),
+                              ProtoState.create(2, 2, 8, device="cuda"),
+                              seed=0, warmup_iters=2.0, t_total=10.0)
+    g = grads(on)
+    ref = float(optim.global_norm(g))
+    outs = [adamw.fused_adamw(tcfg, g, state.opt_state, state.params,
+                              state.step, state.sched) for _ in range(3)]
+    gns = [o[3] for o in outs]
+    norm_rel = abs(float(gns[0]) - ref) / ref
+    same_bits = all(_mismatch(outs[0][i], o[i], optim.tree_leaves) == 0
+                    for o in outs[1:] for i in (0, 3)) and all(
+        _mismatch(outs[0][1].mu, o[1].mu, optim.tree_leaves) == 0
+        for o in outs[1:])
+    rec["norm"] = {"fused": float(gns[0]), "global_norm": ref,
+                   "rel": norm_rel, "same_bits_3_launches": same_bits}
+    log(f"fused_adamw norm: {float(gns[0])!r} vs global_norm {ref!r}, "
+        f"rel {norm_rel:.3e} (tol {P15_NORM_RTOL}); 3 launches "
+        f"bit-equal {same_bits}")
+    if not norm_rel <= P15_NORM_RTOL or not same_bits:
+        fail("fused_adamw: the kernel's norm is off global_norm or not "
+             "the same bits on every launch")
+    del outs, gns
+
+    # (c) _apply_update under the sync check, and its launches
+    place = ST._Placement(None)
+    apply = lambda: ST._apply_update(tcfg, state, g, state.proto, None,
+                                     place)
+    apply()                        # the plan's table, copied once
+    torch.cuda.synchronize()
+    sync_err = None
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        apply()
+    except RuntimeError as e:
+        sync_err = str(e).splitlines()[0]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    eager = lambda: adamw.adamw_reference(tcfg, g, state.opt_state,
+                                          state.params, state.step,
+                                          state.sched)
+    eager_err = None
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eager()
+    except RuntimeError as e:
+        eager_err = str(e).splitlines()[0]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    # one call, the pair's counter around it; then the kernels torch.profiler
+    # sees inside its span step.optimizer (the step counter's add follows
+    # the span), the eager chain padding the session, and the chain alone
+    zero_adamw()
+    apply()
+    pair_launches = check_adamw("_apply_update", 1, 2)
+    apply_launches = _launches_in_span(apply, eager, "step.optimizer")
+    eager_launches, _ = _launches_per_step(eager, "")
+    # the recorder's counters name the route every leaf took
+    profiling.take()
+    profiling.enable()
+    try:
+        apply()
+    finally:
+        profiling.enable(False)
+    counters_seen = profiling.take().counters
+    rec["apply_update"] = {
+        "sync_error": sync_err, "eager_chain_sync_error": eager_err,
+        "kernels": apply_launches, "kernel_pair_launches": pair_launches,
+        "eager_chain_kernels": eager_launches, "counters": counters_seen}
+    log(f"fused_adamw _apply_update: sync error {sync_err!r} (the eager "
+        f"chain: {eager_err!r}); kernels in step.optimizer "
+        f"{apply_launches} (torch.profiler; the pair's counter "
+        f"{pair_launches}), eager chain {eager_launches}; counters "
+        f"{counters_seen}")
+    if counters_seen.get("optim.fused_leaves") != len(leaves):
+        fail(f"_apply_update's counters {counters_seen}: not "
+             f"{len(leaves)} leaves on the kernel route")
+    if sync_err is not None:
+        fail(f"_apply_update synchronised with the host: {sync_err}")
+    # torch.profiler records kernels only where PyTorch has CUDA
+    if torch.backends.cuda.is_built() and not (
+            2 <= apply_launches <= 4 and eager_launches > 0):
+        fail(f"_apply_update: torch.profiler read {apply_launches} kernels "
+             f"in step.optimizer (wanted 2 to 4) and {eager_launches} in "
+             f"the eager chain (wanted some)")
+
+    # (d) times: the kernel pair (device, back to back), host per call,
+    # the eager chain, torch.optim.AdamW(fused=True) as a yardstick
+    fused = lambda: adamw.fused_adamw(tcfg, g, state.opt_state,
+                                      state.params, state.step, state.sched)
+    ms = time_ms([fused], iters=P15_TIMED, warmup=2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(P15_TIMED):
+        fused()
+    host_ms = (time.perf_counter() - t0) * 1e3 / P15_TIMED
+    torch.cuda.synchronize()
+    plain_ms = time_ms([eager], iters=3, warmup=1, spin=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eager()
+    plain_host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    library_ms = None
+    if torch.backends.cuda.is_built():
+        lp = [p.detach().clone() for p in leaves]
+        for p, x in zip(lp, optim.tree_leaves(g)):
+            p.grad = x
+        opt = torch.optim.AdamW(lp, lr=tcfg.lr, eps=tcfg.adam_eps,
+                                weight_decay=tcfg.weight_decay, fused=True)
+        library_ms = time_ms([opt.step], iters=P15_TIMED, warmup=2)
+        del lp, opt
+    m_size = 2 if tcfg.adam_dtype in ("bfloat16", "bf16") else 4
+    nbytes = n_params * (4 + 4 + 4 + 2 * m_size + 4 + 2 * m_size)
+    bound_ms, bound_by = _bound(nbytes, 0.0)
+    rec.update(ms=ms, host_ms=host_ms, plain_ms=plain_ms,
+               plain_host_ms=plain_host_ms, library_ms=library_ms,
+               bytes=nbytes, bound_ms=bound_ms, bound_by=bound_by,
+               max_abs_err=0.0)
+    log(f"kernel_time fused_adamw: t5-base {n_params} parameters, "
+        f"{tcfg.adam_impl}/{tcfg.adam_dtype}: {ms:.5f} ms (bound "
+        f"{bound_ms:.5f} ms, {nbytes / 1e9:.3f} GB: "
+        f"{ms / bound_ms:.3f}x), host {host_ms:.3f} ms per call; eager "
+        f"chain {plain_ms:.3f} ms on the card, {plain_host_ms:.3f} ms on "
+        f"the host; torch AdamW(fused=True, f32 moments) "
+        f"{'-' if library_ms is None else f'{library_ms:.5f}'} ms")
+    if any(read_counts()):
+        fail(f"phase 15 launched attention kernels {read_counts()}")
+    del state, g
+    torch.cuda.empty_cache()
+    return rec
+
+
 def main(argv=None) -> int:
     global BASE_CSRC
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -4515,6 +4916,7 @@ def main(argv=None) -> int:
             c.route_launches = dict.fromkeys(fa.ROUTE_NAMES, 0)
         for c in counters[1:]:
             c.offset_launches = c.head_offset_launches = 0
+        zero_adamw()
 
     def read_counts():
         return tuple(c.launches for c in counters)
@@ -4814,11 +5216,13 @@ def main(argv=None) -> int:
             ttimes.append((time.perf_counter() - t0) * 1e3)
             all_metrics.append({k: float(v) for k, v in met.items()})
         k1, k1p, k2 = read_counts()
+        adamw_n = check_adamw(label, TRAIN_STEPS, 2)
         losses = [mt["loss"] for mt in all_metrics]
         ms = sorted(ttimes)[len(ttimes) // 2]
         log(f"{label}: bs {TRAIN_BATCH} bf16 train_step_ms={ms:.3f} (all: "
             f"{', '.join(f'{t:.3f}' for t in ttimes)}) launches over "
-            f"{TRAIN_STEPS} steps: K1={k1} K1'={k1p} K2={k2}")
+            f"{TRAIN_STEPS} steps: K1={k1} K1'={k1p} K2={k2} "
+            f"fused_adamw={adamw_n}")
         log(f"{label} losses: {', '.join(f'{x:.4f}' for x in losses)}; last "
             f"metrics {json.dumps(all_metrics[-1])}")
         if not all(np.isfinite(v) for mt in all_metrics for v in mt.values()):
@@ -4832,7 +5236,8 @@ def main(argv=None) -> int:
         if float(state.step) != TRAIN_WARMUP + TRAIN_STEPS:
             fail(f"{label}: train state step {int(state.step)}")
         return state, {"train_step_ms": ms, "train_step_ms_all": ttimes,
-                       "losses": losses, "launches": (k1, k1p, k2)}
+                       "losses": losses, "launches": (k1, k1p, k2),
+                       "adamw_launches": adamw_n}
 
     def grad_check(params, m_kernel, m_plain, what):
         """Parameter gradients at dropout 0, kernels vs plain attention,
@@ -4971,6 +5376,7 @@ def main(argv=None) -> int:
         rstate, met = rstep(rstate, tbatch)
         torch.cuda.synchronize()
         counts = read_counts()
+        check_adamw(f"remat={mode}", 1, 2)
         step_peak = torch.cuda.max_memory_allocated() - before
         upd = tree_leaves(rstate.params)
         step_gen_state = rstate.generator.get_state()
@@ -5231,6 +5637,12 @@ def main(argv=None) -> int:
     ext14["phase_s"] = time.time() - t0
     log(f"phase 14 in {ext14['phase_s']:.1f} s")
 
+    # ---- 15. the fused optimizer ------------------------------------------
+    t0 = time.time()
+    ext15 = fused_optimizer(params, (zero_counts, read_counts))
+    ext15["phase_s"] = time.time() - t0
+    log(f"phase 15 in {ext15['phase_s']:.1f} s")
+
     def row(name, source, replaces, launches, r, offsets=None, heads=None):
         out = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces, "launches": launches,
@@ -5281,6 +5693,13 @@ def main(argv=None) -> int:
         row("greedy_nms", "vqacl_tpu_torch/csrc/nms.cu",
             "vqacl_tpu/vision/rpn.py:154, vqacl_tpu/ops/nms.py:83",
             n1_launches, n1),
+        # not a Pallas kernel: the optimizer XLA fuses into JAX's jitted
+        # train step; the launches each run checked per update in this
+        # process (check_adamw: phase 4's train and remat steps, phase
+        # 7's, 10's and 14's CL runs, phase 9's merged train steps, phase
+        # 15's _apply_update; the ranks check their own)
+        row("fused_adamw", "vqacl_tpu_torch/csrc/fused_adamw.cu",
+            "vqacl_tpu/train/optim.py:191", ADAMW_CHECKED, ext15),
     ]
     def pick(r):
         return {k: r[k] for k in ("max_abs_err", "ms", "call_ms", "plain_ms",
@@ -5338,6 +5757,7 @@ def main(argv=None) -> int:
         "tensor_pipeline_offset_launches": p13_off,
         "tensor_pipeline_head_offset_launches": p13_head,
         "protocol_runs": ext14, "protocol_runs_launches": p14_k,
+        "fused_optimizer": ext15,
         "extraction_n1_launches": n1_launches,
         "nms_kernel_times": {"rpn": pick(n1), "sweep": pick(n1_sweep)},
         "nextqa_kernel_times": {"K1": pick(nq_k1), "K1p": pick(nq_k1p),

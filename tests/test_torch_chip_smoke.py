@@ -7,7 +7,9 @@ CUDA devices mapped to the CPU (a ``TorchFunctionMode`` that rewrites
 skipped, each kernel wrapper (K1, K1′, K2, K5) replaced by its plain
 version plus the launch counter (K1 and K1′ keep the wrapper's route and
 limit check), and tiny widths (t5-base's data shapes, d_model 32 as 2
-heads of 16, 2 layers; small K5 and mm_bench shapes). It checks every
+heads of 16, 2 layers; small K5 and mm_bench shapes; each timing loop
+cut to a few calls, since host-clock times of the plain versions check
+nothing). It checks every
 phase's bookkeeping — launch counts per eval step, per train step with
 the plain and with the fused decoder, per loss-eval step, per remat
 mode, per served batch and in the probe, the kernels JSON line with all
@@ -50,7 +52,12 @@ against its counts, all on the scalar f32 route; the orderings' margins
 lowered, as only the real size can show them: ``test_phase14_orderings``
 holds the real ones), the cut row on the "card" against the CPU at both
 learning rates and a ten-task soak at tiny widths (its 55-cell matrix
-and launches); and that without CUDA the real script prints no
+and launches); in phase 15 the fused optimizer's wrapper replaced by
+its checks and plan plus the plain version and a launch counter (every
+update takes it, as every update on the card takes the kernels): its 16
+combinations, Adam counts, strided gradients, norm and
+``_apply_update`` record, the pair's launches in every train, replay
+and remat step, and its row in the kernels line; and that without CUDA the real script prints no
 result and exits non-zero.
 """
 
@@ -201,6 +208,22 @@ def counted_nms(b, v, t):
     return NM.greedy_nms_reference(b, v, t)
 counted_nms.launches = 0
 NM.greedy_nms = counted_nms
+# the fused optimizer: the wrapper's checks and plan, then the plain
+# version; every update takes that route, as every update on the card
+# takes the kernels
+from vqacl_tpu_torch.ops import adamw as AW
+from vqacl_tpu_torch.utils.profiling import count
+def counted_adamw(tcfg, grads, opt_state, params, step, sched, g_norm=None):
+    leaves = AW._inputs(tcfg, grads, opt_state, params, step, sched, g_norm)
+    AW.adamw_plan(tuple(p.numel() for p in leaves[1]),
+                  AW.leaf_flags(params, tcfg.freeze))
+    count("optim.fused_leaves", len(leaves[1]))
+    counted_adamw.launches += 1 + (g_norm is None)
+    return AW.adamw_reference(tcfg, grads, opt_state, params, step, sched,
+                              g_norm)
+counted_adamw.launches = 0
+AW.fused_adamw = ST.adamw_step = AW.adamw_step = counted_adamw
+torch.cuda.set_sync_debug_mode = lambda mode: None
 # phase 11 at reduced depth (C4 1024 and res5 2048, the 3D ResNeXt's last
 # stage 2048 wide) and a 64-px resize
 from vqacl_tpu_torch.vision import frcnn as FR, resnet as RN, resnext3d as RX
@@ -230,6 +253,10 @@ C.Config = tiny
 vqacl_tpu_torch.cli.args.Config = tiny
 import chip_smoke
 chip_smoke.card_line = lambda: "rehearsal card, 0 W"
+# host-clock times of the plain versions check nothing here: a few calls
+_time_ms = chip_smoke.time_ms
+chip_smoke.time_ms = lambda fns, iters=50, warmup=5, spin=True: _time_ms(
+    fns, min(iters, 3), min(warmup, 1), spin)
 chip_smoke.EVAL_BATCH = 4
 chip_smoke.TRAIN_BATCH = 8
 chip_smoke.TRAIN_STEPS = 4
@@ -332,17 +359,19 @@ def test_chip_smoke_rehearsal_on_cpu():
     # and phase 13's over a tp rank's heads
     offs = {"offset_launches", "head_offset_launches"}
     assert [set(k) for k in kernels] == [
-        keys, keys | offs, keys | offs, keys, keys]
+        keys, keys | offs, keys | offs, keys, keys, keys]
     assert [k["name"] for k in kernels] == [
         "fused_attention_fwd", "fused_attention_fwd_train",
-        "fused_attention_bwd", "dw_splitk", "greedy_nms"]
+        "fused_attention_bwd", "dw_splitk", "greedy_nms", "fused_adamw"]
     for k in kernels:
         assert k["route"] == "cuda" and k["bound_by"] in ("bytes",
                                                           "operations")
         assert os.path.exists(os.path.join(REPO, k["source"]))
     for k in kernels[:3]:
         assert k["replaces"].startswith("vqacl_tpu/ops/fused_attention.py:")
-    k1, k1p, k2, k5, n1 = kernels
+    k1, k1p, k2, k5, n1, opt = kernels
+    assert opt["replaces"] == "vqacl_tpu/train/optim.py:191"
+    assert opt["library_ms"] is None and opt["max_abs_err"] == 0.0
     assert k5["replaces"] == "scripts/mm_bench.py:121"
     assert k5["source"] == "vqacl_tpu_torch/csrc/dw_splitk.cu"
     assert n1["replaces"] == \
@@ -365,6 +394,8 @@ def test_chip_smoke_rehearsal_on_cpu():
             2 * (steps + c.get("importance_batches", 0)),
             2 * (steps + c.get("importance_batches", 0))], name
         assert c.get("replay_steps", 0) > 0 and min(run["launches"]) > 0
+        # the fused optimizer's pair in every train and replay step
+        assert run["adamw_launches"] == 2 * steps, name
         line = next(l for l in lines
                     if l.startswith(f"cl_{name}: wall shares"))
         k1_, k1p_, _ = run["launches"]
@@ -771,6 +802,31 @@ def test_chip_smoke_rehearsal_on_cpu():
                                 f"{name}: Avg_acc ") for l in lines), name
     assert not os.path.exists(os.path.join(REPO, "build", "chip_smoke",
                                            "phase14"))
+    # phase 15: the fused optimizer's 16 combinations and Adam counts bit
+    # for bit (here the stand-in is the plain version itself), its norm,
+    # _apply_update's two kernels of the pair, times against the bound;
+    # the kernels line sums the launches checked per update (two each):
+    # phase 4's train steps with and without the fused decoder and its
+    # three remat steps, phase 7's and the others' runs, phase 15's call
+    p15 = summary["fused_optimizer"]
+    assert len(p15["combos"]) == 16
+    for name, c in p15["combos"].items():
+        assert c["mismatched"] == 0, name
+        assert all((x >= 5.0) == name.endswith("clip=on")
+                   for x in c["grad_norms"]), name
+    assert p15["powf_mismatched"] == {} and p15["powf_counts"] == 71
+    assert p15["strided"]["leaves"] > 0 and p15["strided"]["mismatched"] == 0
+    assert p15["norm"]["rel"] <= 2e-6 and p15["norm"]["same_bits_3_launches"]
+    au = p15["apply_update"]
+    assert au["sync_error"] is None and au["kernel_pair_launches"] == 2
+    assert au["counters"]["optim.fused_leaves"] == p15["n_leaves"]
+    assert p15["bound_by"] == "bytes" and p15["bytes"] == 24 * p15["n_params"]
+    assert opt["launches"] >= 2 * (2 * 4 + 3) + 2 * sum(
+        r["counts"]["train_steps"] + r["counts"]["replay_steps"]
+        for r in cl.values()) + 2
+    assert opt["launches"] % 2 == 0
+    assert sum(l.startswith("fused_adamw ") for l in lines) == 16 + 4
+    assert any(l.startswith("kernel_time fused_adamw: ") for l in lines)
 
 
 def test_chip_smoke_without_cuda_prints_no_result():

@@ -68,6 +68,15 @@ SIGNATURES = {
         "greedy_nms": ([_P] * 5 + [_I] * 2 + [_P], _I),
         "greedy_nms_error_string": ([_I], ctypes.c_char_p),
     },
+    "fused_adamw": {
+        # ptrs, gshape, n_leaves, plan, n_chunks, partials, gnorm_in,
+        # count_in, step_in, sched, p_out, m_out, v_out, scal_out,
+        # count_out, b1, 1 - b1, b2, 1 - b2, eps, wd, lr, max_norm,
+        # linear, impl, moment_dtype, stream
+        "fused_adamw": ([_P, _P, _I, _P, _I] + [_P] * 10 + [_F] * 8
+                        + [_I] * 3 + [_P], _I),
+        "fused_adamw_error_string": ([_I], ctypes.c_char_p),
+    },
     "dw_splitk": {
         # x, g, out, K, D, F, dtype, stream, plan, workspace, n_blocks
         # (the wgmma route's; last, so that an older library without them

@@ -45,18 +45,19 @@ def tree_leaves(tree: Tree) -> List[torch.Tensor]:
     return [tree]
 
 
+def _fill(node: Tree, it) -> Tree:
+    if isinstance(node, dict):
+        filled = {k: _fill(node[k], it) for k in sorted(node)}
+        return {k: filled[k] for k in node}
+    return next(it)
+
+
 def tree_unflatten(like: Tree, leaves) -> Tree:
     """Inverse of ``tree_leaves``: a nested dict shaped like ``like``
-    from its leaves in sorted-key order."""
-    it = iter(leaves)
-
-    def build(node):
-        if isinstance(node, dict):
-            filled = {k: build(node[k]) for k in sorted(node)}
-            return {k: filled[k] for k in node}
-        return next(it)
-
-    return build(like)
+    from its leaves in sorted-key order. The recursion is a module-level
+    function, not a closure: a recursive closure is a reference cycle
+    that would hold ``leaves`` until the garbage collector runs."""
+    return _fill(like, iter(leaves))
 
 
 def _map_with_path(fn: Callable, tree: Tree, path: Tuple[str, ...] = ()

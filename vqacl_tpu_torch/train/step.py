@@ -3,9 +3,11 @@
 ``make_train_step``: forward (encode with dropout through the fused
 attention kernels K1′/K2 → prototype EMA update + retrieval → teacher-
 forced decoder → fused head loss [+ the EWC/MAS anchor penalty]) →
-backward → clip → AdamW direction → decoupled decay → warmup schedule,
-run eagerly. Metrics stay on the device, so a step never waits for the
-card unless its caller reads one. With the recorder of
+backward → clip → AdamW direction → decoupled decay → warmup schedule
+(``ops/adamw.py::adamw_step``: two kernels on the card, the plain
+functions of ``train/optim.py`` on the CPU), the rest run eagerly.
+Metrics stay on the device, so a step never waits for the card unless
+its caller reads one. With the recorder of
 ``utils/profiling.py`` on, a step is the span ``step.train`` (or
 ``step.der_replay``) around ``step.inputs`` (the batch's copy to the
 device), ``step.forward``, ``step.backward`` and ``step.optimizer`` (the
@@ -59,9 +61,9 @@ from vqacl_tpu_torch.models import vlt5
 from vqacl_tpu_torch.models.generate import beam_search, greedy_decode
 from vqacl_tpu_torch.models.prototype import ProtoState
 from vqacl_tpu_torch.parallel.mesh import data_parallel
-from vqacl_tpu_torch.train.optim import (dynamic_lr, global_norm,
-                                         make_transform, tree_leaves,
-                                         tree_map, tree_unflatten)
+from vqacl_tpu_torch.ops.adamw import adamw_step
+from vqacl_tpu_torch.train.optim import (tree_leaves, tree_map,
+                                         tree_unflatten)
 from vqacl_tpu_torch.train.state import TrainState
 from vqacl_tpu_torch.utils.device import resolve_device
 from vqacl_tpu_torch.utils.profiling import count, span
@@ -168,12 +170,14 @@ class _Placement:
             grads = self.cut.gather(grads)
         return grads if self.fsdp is None else self.fsdp.slice(grads)
 
-    def norm(self, grads) -> torch.Tensor:
-        """The whole tree's gradient norm from the state's layout."""
+    def norm(self, grads) -> Optional[torch.Tensor]:
+        """The whole tree's gradient norm from the state's layout, or
+        None when the state holds whole leaves (the optimizer takes it
+        from ``grads``)."""
         for layout in (self.fsdp, self.tp):
             if layout is not None:
                 return torch.sqrt(layout.global_sq_norm(grads))
-        return global_norm(grads)
+        return None
 
     def reg(self, reg):
         """A regularizer state (full trees) in the forward's layout →
@@ -184,23 +188,21 @@ class _Placement:
         return type(reg)(*(tpl.shard(x) for x in reg)), tpl.dims
 
 
-def _apply_update(tx, tcfg, state: TrainState, grads, proto: ProtoState,
+def _apply_update(tcfg, state: TrainState, grads, proto: ProtoState,
                   ctx, place: _Placement
                   ) -> Tuple[TrainState, torch.Tensor, torch.Tensor]:
     """The optimizer half of a step: the ranks' gradients summed (with
     a mesh ``ctx``, ``_dp``'s, over dp × pp), put in the state's layout
-    (``place``), AdamW direction, lr from the schedule, ``p − lr·u`` →
-    (new state, lr, grad norm); the span ``step.optimizer``."""
+    (``place``), then ``ops/adamw.py::adamw_step`` (clip, AdamW
+    direction, decay, lr from the schedule, ``p − lr·u``: two kernels on
+    the card) → (new state, lr, grad norm); the span ``step.optimizer``."""
     with torch.no_grad(), span("step.optimizer"):
         if ctx is not None:
             grads = reduce_grads(ctx, grads)
         grads = place.grads(grads)
-        gnorm = place.norm(grads)
-        updates, opt_state = tx.update(grads, state.opt_state, state.params,
-                                       gnorm)
-        lr = dynamic_lr(state.step.float(), state.sched, tcfg.lr,
-                        tcfg.schedule)
-        params = tree_map(lambda p, u: p - lr * u, state.params, updates)
+        params, opt_state, lr, gnorm = adamw_step(
+            tcfg, grads, state.opt_state, state.params, state.step,
+            state.sched, place.norm(grads))
     return state._replace(step=state.step + 1, params=params,
                           opt_state=opt_state, proto=proto), lr, gnorm
 
@@ -236,7 +238,6 @@ def make_train_step(cfg, dtype=torch.bfloat16, device="cuda",
     mcfg, tcfg = cfg.model, cfg.train
     if use_prototype is None:
         use_prototype = mcfg.use_prototype
-    tx = make_transform(tcfg)
     accum = int(tcfg.grad_accum)
     ctx = _dp(mesh_ctx)
     dp = ctx.dp if ctx is not None else 1
@@ -297,7 +298,7 @@ def make_train_step(cfg, dtype=torch.bfloat16, device="cuda",
             else:
                 loss, proto, aux, grads = loss_and_grads(
                     full.params, state.proto, batch, state.generator, reg)
-        new_state, lr, gnorm = _apply_update(tx, tcfg, state, grads, proto,
+        new_state, lr, gnorm = _apply_update(tcfg, state, grads, proto,
                                              ctx, place)
         if ctx is not None:
             loss, *aux = _global(ctx, loss * ctx.pp, *aux)
@@ -339,7 +340,6 @@ def make_der_replay_step(cfg, dtype=torch.bfloat16, device="cuda",
     beta = float(tcfg.der_beta) if tcfg.cl_reg == "derpp" else 0.0
     if use_prototype is None:
         use_prototype = mcfg.use_prototype
-    tx = make_transform(tcfg)
     ctx = _dp(mesh_ctx)
     dp = ctx.dp if ctx is not None else 1
     pp = ctx.pp if ctx is not None else 1
@@ -384,7 +384,7 @@ def make_der_replay_step(cfg, dtype=torch.bfloat16, device="cuda",
 
         with data_parallel(ctx):
             loss, (proto, mse), grads = _grads_of(loss_fn, params)
-        new_state, lr, gnorm = _apply_update(tx, tcfg, state, grads, proto,
+        new_state, lr, gnorm = _apply_update(tcfg, state, grads, proto,
                                              ctx, place)
         loss, mse = _global(ctx, loss * pp, mse)
         return new_state, {"loss": loss, "der_mse": mse, "grad_norm": gnorm,

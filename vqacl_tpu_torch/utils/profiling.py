@@ -3,11 +3,14 @@ clock shared with ``torch.profiler``, and the Chrome trace exporter.
 
 ``span(name)`` marks a piece of host work where it happens (the train
 step's phases, the loader's blocking wait); ``count(name, n)`` adds to a
-counter. Both are off by default: ``span`` then returns one shared no-op
-context after a single flag test, and ``count`` returns at once. When
-``enable()`` has switched them on, a span appends ``(name, id, parent id,
-start_ns, end_ns)`` to an in-memory list on ``time.perf_counter_ns()``,
-its parent the innermost open span of the same thread. A span never
+counter (``h2d_bytes``; ``optim.fused_leaves`` and
+``optim.eager_leaves``, the leaves each route of ``ops/adamw.py``
+updated). Both are off by default: ``span`` then returns one shared
+no-op context after a single flag test, and ``count`` returns at once.
+When ``enable()`` has switched them on, a span appends ``(name, id,
+parent id, start_ns, end_ns)`` to an in-memory list on
+``time.perf_counter_ns()``, its parent the innermost open span of the
+same thread. A span never
 touches the device: no CUDA events, no synchronisation, no launches.
 ``take()`` hands over what was recorded and clears it.
 
