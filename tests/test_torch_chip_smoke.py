@@ -57,8 +57,15 @@ its checks and plan plus the plain version and a launch counter (every
 update takes it, as every update on the card takes the kernels): its 16
 combinations, Adam counts, strided gradients, norm and
 ``_apply_update`` record, the pair's launches in every train, replay
-and remat step, and its row in the kernels line; and that without CUDA the real script prints no
-result and exits non-zero.
+and remat step, and its row in the kernels line; phase 16 by a
+stand-in there, whose row and record the kernels line and summary carry,
+and on its own, called as ``main()`` calls it: the grouped expert GEMMs'
+wrapper replaced by its checks and the plain version with the kernels'
+launch count (2 a forward, 4 a backward), at tiny widths (96 tokens, D =
+F = 128; a 3-layer VL-Moonlight of d_model 128): its checks, the two
+train steps' 12 launches each, the CL run's counts, the fused
+optimizer's pair in every update and its kernels row; and that without
+CUDA the real script prints no result and exits non-zero.
 """
 
 import json
@@ -72,7 +79,7 @@ pytest.importorskip("torch")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-REHEARSAL = r"""
+REHEARSAL_SETUP = r"""
 import os, sys, time
 import torch
 from torch.overrides import TorchFunctionMode
@@ -224,6 +231,25 @@ def counted_adamw(tcfg, grads, opt_state, params, step, sched, g_norm=None):
 counted_adamw.launches = 0
 AW.fused_adamw = ST.adamw_step = AW.adamw_step = counted_adamw
 torch.cuda.set_sync_debug_mode = lambda mode: None
+# the grouped expert GEMMs (phase 16): the wrapper's checks, then the
+# plain version, counting the kernels' launches (2 a forward, 4 a
+# backward, as on the card)
+from vqacl_tpu_torch.ops import moe as MO
+class Backward4(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+    @staticmethod
+    def backward(ctx, g):
+        counted_moe.launches += 4
+        return g
+def counted_moe(x, plan, wg, wu, wd):
+    MO.check_shapes(x, wg, wd)
+    counted_moe.launches += 2
+    out = MO.grouped_swiglu_reference(x, plan, wg, wu, wd)
+    return Backward4.apply(out) if out.requires_grad else out
+counted_moe.launches = 0
+MO.grouped_swiglu = counted_moe
 # phase 11 at reduced depth (C4 1024 and res5 2048, the 3D ResNeXt's last
 # stage 2048 wide) and a 64-px resize
 from vqacl_tpu_torch.vision import frcnn as FR, resnet as RN, resnext3d as RX
@@ -313,11 +339,48 @@ chip_smoke.P14_ORDERINGS = (("ours", "vanilla", "Avg_acc", -200.0),
                             ("er", "vanilla", "Avg_acc", -200.0))
 chip_smoke.P14_CUT_ARGV = ("--tasks", "2", "--n_train", "24", "--n_eval",
                            "8", "--epochs", "1")
+# phase 16 at tiny widths (multiples of the kernels' 128-wide tiles)
+chip_smoke.MOE_T, chip_smoke.MOE_D, chip_smoke.MOE_F = 96, 128, 128
+chip_smoke.P16_MODEL = dict(d_model=128, num_heads=2, vocab_size=32200,
+                            intermediate_size=256, moe_intermediate_size=128,
+                            kv_lora_rank=32, qk_nope_head_dim=16,
+                            qk_rope_head_dim=8, v_head_dim=16, feat_dim=64)
+chip_smoke.P16_ITEMS = (8, 4, 4)
+chip_smoke.P16_BATCH = (4, 4)
 import vqacl_tpu_torch.soak as SK
 SK.SCALES["small"] = dict(epochs=1, m_size=8, n_train=8, n_images=None)
 SK.N_VAL = SK.N_TEST = 4
+"""
+# the whole script: phase 16 through a stand-in that returns a record,
+# launches and a kernels row (the phase itself is rehearsed on its own,
+# test_chip_smoke_moe_rehearsal_on_cpu)
+REHEARSAL = REHEARSAL_SETUP + r"""
+def stand_in_phase16(counters):
+    return ({"stand_in": True}, 7,
+            {"max_abs_err": 0.0, "ms": 1.0, "plain_ms": 2.0,
+             "bound_ms": 0.5, "bound_by": "operations", "library_ms": None})
+chip_smoke.grouped_experts = stand_in_phase16
 with CudaOnCpu():
     sys.exit(chip_smoke.main())
+"""
+# phase 16 alone, called as main() calls it, with main()'s attention
+# counters; prints its record, launches and row, and the fused
+# optimizer's checked launches
+PHASE16 = REHEARSAL_SETUP + r"""
+import json
+ATT = (fa.fused_attention, fa.fused_attention_fwd_train,
+       fa.fused_attention_bwd)
+def zero_counts():
+    for c in ATT:
+        c.launches = 0
+    chip_smoke.zero_adamw()
+def read_counts():
+    return tuple(c.launches for c in ATT)
+with CudaOnCpu():
+    rec, launches, row = chip_smoke.grouped_experts((zero_counts,
+                                                     read_counts))
+print(json.dumps({"grouped_experts": rec, "launches": launches, "row": row,
+                  "adamw_checked": chip_smoke.ADAMW_CHECKED}))
 """
 ENV = dict(os.environ, CHIP_SMOKE_REHEARSAL=REHEARSAL)
 
@@ -344,6 +407,30 @@ def test_chip_smoke_base_rehearsal_on_cpu():
     assert '"ok"' not in r.stdout and "eval_step:" not in r.stdout
 
 
+def test_chip_smoke_moe_rehearsal_on_cpu():
+    # phase 16 (the grouped expert GEMMs' wrapper replaced as above): its
+    # checks, two train steps of 12 launches each (2 MoE layers), the CL
+    # run's counts, the fused optimizer's pair in every update, and its
+    # kernels row, with every launch of the row counted in the phase
+    r = subprocess.run([sys.executable, "-c", PHASE16], cwd=REPO,
+                       capture_output=True, text=True, timeout=300, env=ENV)
+    assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
+    out = json.loads(r.stdout.strip().splitlines()[-1])
+    p16, row = out["grouped_experts"], out["row"]
+    assert row["max_abs_err"] == 0.0
+    assert row["bound_by"] in ("bytes", "operations")
+    assert p16["all_to_one"]["rows"][3] == 96
+    assert sum(p16["cell"]["rows"]) == p16["times"]["rows"]
+    assert p16["sync_debug_step"]["launches"] == 12
+    c16 = p16["cl"]["counts"]
+    assert c16["replay_steps"] > 0 and c16["predict_batches"] > 0
+    steps = c16["train_steps"] + c16["replay_steps"]
+    assert p16["cl"]["train_step_launches"] == 12 * steps
+    assert p16["cl"]["launches"] > p16["cl"]["train_step_launches"]
+    assert out["launches"] == p16["cl"]["launches"] + 2 * 12
+    assert out["adamw_checked"] == 2 * (2 + steps)
+
+
 def test_chip_smoke_rehearsal_on_cpu():
     r = subprocess.run([sys.executable, "-c", REHEARSAL], cwd=REPO,
                        capture_output=True, text=True, timeout=400, env=ENV)
@@ -359,17 +446,22 @@ def test_chip_smoke_rehearsal_on_cpu():
     # and phase 13's over a tp rank's heads
     offs = {"offset_launches", "head_offset_launches"}
     assert [set(k) for k in kernels] == [
-        keys, keys | offs, keys | offs, keys, keys, keys]
+        keys, keys | offs, keys | offs, keys, keys, keys, keys]
     assert [k["name"] for k in kernels] == [
         "fused_attention_fwd", "fused_attention_fwd_train",
-        "fused_attention_bwd", "dw_splitk", "greedy_nms", "fused_adamw"]
+        "fused_attention_bwd", "dw_splitk", "greedy_nms", "fused_adamw",
+        "moe_grouped_gemm"]
     for k in kernels:
         assert k["route"] == "cuda" and k["bound_by"] in ("bytes",
                                                           "operations")
         assert os.path.exists(os.path.join(REPO, k["source"]))
     for k in kernels[:3]:
         assert k["replaces"].startswith("vqacl_tpu/ops/fused_attention.py:")
-    k1, k1p, k2, k5, n1, opt = kernels
+    k1, k1p, k2, k5, n1, opt, m1 = kernels
+    # phase 16 through the stand-in: its row and record in the summary
+    assert m1["source"] == "vqacl_tpu_torch/csrc/moe_grouped_gemm.cu"
+    assert m1["replaces"] == "none (no mixture of experts in vqacl_tpu)"
+    assert m1["launches"] == 7 and m1["bound_ms"] == 0.5
     assert opt["replaces"] == "vqacl_tpu/train/optim.py:191"
     assert opt["library_ms"] is None and opt["max_abs_err"] == 0.0
     assert k5["replaces"] == "scripts/mm_bench.py:121"
@@ -827,6 +919,8 @@ def test_chip_smoke_rehearsal_on_cpu():
     assert opt["launches"] % 2 == 0
     assert sum(l.startswith("fused_adamw ") for l in lines) == 16 + 4
     assert any(l.startswith("kernel_time fused_adamw: ") for l in lines)
+    assert summary["grouped_experts"]["stand_in"]
+    assert summary["grouped_experts"]["phase_s"] >= 0
 
 
 def test_chip_smoke_without_cuda_prints_no_result():

@@ -92,6 +92,11 @@ def _assert_config_equal(t, j, fused):
     for part in ("model", "train", "mesh", "data"):
         tp, jp = getattr(t, part), getattr(j, part)
         for f in dataclasses.fields(tp):
+            if not hasattr(jp, f.name):
+                # a field of the port alone (the moonlight backbone's):
+                # the CLIs leave it at its default
+                assert getattr(tp, f.name) == f.default, (part, f.name)
+                continue
             want = getattr(jp, f.name)
             if (part, f.name) == ("model", "fused_attention"):
                 want = fused

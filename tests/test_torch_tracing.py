@@ -245,6 +245,10 @@ def test_attribute_by_launch_call_and_idle_split():
     assert sum(out["launches"].values()) == 5
     assert out["no_launch_call"] == 1
     assert out["kernels"]["step.backward"] == {"bwd_k": 1}
+    # each span's kernels' device time: the kernel's duration, by launch
+    dev = {k: pytest.approx(v * 1e6) for k, v in out["device_s"].items()}
+    assert dev == {"step.forward": 5.0, "step.backward": 10.0,
+                   "step.optimizer": 20.0, "outside": 4.0}
     idle = {k: pytest.approx(v * 1e6) for k, v in out["idle_s"].items()}
     # busy: [0,2] [45,50] [60,70] [90,110] [120,125] [130,132]
     # gaps: 2→45 (train 2→10, forward 10→40, backward 40→45),

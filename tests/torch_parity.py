@@ -24,7 +24,8 @@ def torch_cfg_like(jcfg, **overrides):
     from vqacl_tpu_torch.utils.config import ModelConfig
 
     fields = ModelConfig.__dataclass_fields__
-    kw = {k: getattr(jcfg, k) for k in fields if k != "fused_attention"}
+    kw = {k: getattr(jcfg, k) for k in fields
+          if k != "fused_attention" and hasattr(jcfg, k)}
     kw.update(overrides)
     return ModelConfig(**kw)
 

@@ -97,6 +97,7 @@ from vqacl_tpu_torch.cl.tasks import CATEGORY_SPLITS, make_rng, random_dic
 from vqacl_tpu_torch.data import device_cache as DC
 from vqacl_tpu_torch.data.partition import (BatchLoader, all_loader,
                                             group_loaders)
+from vqacl_tpu_torch.models import moonlight
 from vqacl_tpu_torch.models.prototype import ProtoState
 from vqacl_tpu_torch.models.vlt5 import (cast_params_for_inference,
                                          init_vlt5_params)
@@ -108,13 +109,14 @@ from vqacl_tpu_torch.parallel.sharding import (FsdpLayout, StoredLayout,
                                                TpLayout)
 from vqacl_tpu_torch.train.checkpoint import (AsyncCheckpointer,
                                               load_checkpoint,
+                                              load_extra,
                                               load_reference_prototypes,
                                               save_checkpoint)
 from vqacl_tpu_torch.train.optim import make_transform, tree_map
 from vqacl_tpu_torch.train.state import TrainState
 from vqacl_tpu_torch.train.step import (make_der_replay_step,
                                         make_eval_step, make_logits_step,
-                                        make_train_step)
+                                        make_train_step, refuse_moonlight)
 from vqacl_tpu_torch.utils.config import resolve_merged_qkv
 from vqacl_tpu_torch.utils.device import resolve_device
 from vqacl_tpu_torch.utils.profiling import span
@@ -184,6 +186,13 @@ def _refuse_unported(cfg, ctx) -> None:
     if cfg.train.cl_reg in ("der", "derpp") and not cfg.train.memory:
         raise ValueError("cl_reg='der'/'derpp' is a replay method: it "
                          "requires train.memory")
+    if m.arch != "vlt5":
+        # VL-Moonlight runs VQACL's ER row: train and replay steps
+        refuse_moonlight(cfg, m.use_prototype, mesh_ctx=ctx,
+                         remat=cfg.mesh.remat)
+        if cfg.train.cl_reg != "none":
+            raise ValueError(f"arch={m.arch!r} runs cl_reg='none' (ER) "
+                             f"only, not {cfg.train.cl_reg!r}")
 
 
 class VQACLTrainer:
@@ -215,7 +224,9 @@ class VQACLTrainer:
         self.tasks: List[str] = list(data.tasks)
         self.dtype = dtype
         m = cfg.model
-        params = init_vlt5_params(cfg.train.seed, m, device=self.device) \
+        moon = m.arch == "moonlight"
+        init = moonlight.init_params if moon else init_vlt5_params
+        params = init(cfg.train.seed, m, device=self.device) \
             if init_params is None else \
             tree_map(lambda p: p.to(self.device, torch.float32),
                      init_params)
@@ -239,6 +250,9 @@ class VQACLTrainer:
         # ranks' generators stay in step (models/t5.py::dropout)
         state = TrainState.create(params, self._tx, proto,
                                   seed=cfg.train.seed + 1)
+        if moon:
+            state = state._replace(router_bias=moonlight.init_router_bias(
+                m, self.device))
         self.state = state._replace(
             step=replicate(self.ctx, state.step),
             proto=replicate(self.ctx, state.proto),
@@ -441,18 +455,30 @@ class VQACLTrainer:
 
     def _load(self, task: str):
         """(params, proto) of ``{task}_LAST`` on the trainer's device,
-        rank 0's broadcast, the params in this rank's layout."""
+        rank 0's broadcast, the params in this rank's layout; a
+        VL-Moonlight checkpoint's selection bias goes to the state."""
+        path = os.path.join(self.cfg.output, f"{task}_LAST")
         params, proto, _ = load_checkpoint(
-            os.path.join(self.cfg.output, f"{task}_LAST"),
-            device=self.device, mesh_ctx=self.ctx, layout=self._layout)
+            path, device=self.device, mesh_ctx=self.ctx, layout=self._layout)
+        if self.state.router_bias is not None:
+            bias = load_extra(path).get("router_bias")
+            if bias is None:
+                raise ValueError(f"{path}: no router_bias in a VL-Moonlight "
+                                 f"checkpoint")
+            self.state = self.state._replace(router_bias=torch.from_numpy(
+                bias).to(self.state.router_bias.device))
         return params, proto
 
     def _save(self, saver, suffix: str, task: str) -> None:
         """Every rank calls it (tp and FSDP slices are gathered); only the
-        main process writes."""
+        main process writes. VL-Moonlight's selection bias goes with the
+        parameters (``extra::router_bias``)."""
+        bias = self.state.router_bias
+        extra = None if bias is None else {
+            "router_bias": bias.detach().cpu().numpy()}
         saver(os.path.join(self.cfg.output, f"{task}_{suffix}"),
               self.state.params, self.state.proto, int(self.state.step),
-              layout=self._layout)
+              extra=extra, layout=self._layout)
 
     # ------------------------------------------------------------------
     def train(self, resume_task: Optional[str] = None) -> Dict:
@@ -708,11 +734,13 @@ class VQACLTrainer:
                                 self.tok.batch_decode(tokens[:n_real])):
                 quesid2ans[qid] = ans
 
+        extra = () if self.state.router_bias is None else \
+            (self.state.router_bias,)
         for batch in loader:
             with self._call("predict_batches"):
                 tokens = self.eval_step(
                     params, self.state.proto,
-                    shard_batch(self.ctx, batch["tensors"]))
+                    shard_batch(self.ctx, batch["tensors"]), *extra)
             if pending is not None:
                 drain(pending)
             pending = (tokens, batch["meta"])

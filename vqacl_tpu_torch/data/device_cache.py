@@ -254,8 +254,8 @@ def make_cached_eval_step(cfg, cache: DeviceFeatureCache,
 
     inner = make_eval_step(cfg, dtype=dtype, device=device, **kw)
 
-    def step(params, proto, batch):
-        return inner(params, proto, with_features(cache, batch))
+    def step(params, proto, batch, *extra):   # extra: the router bias
+        return inner(params, proto, with_features(cache, batch), *extra)
 
     return step
 

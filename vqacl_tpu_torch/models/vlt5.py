@@ -109,6 +109,8 @@ def init_vlt5_params(seed: int, cfg, device="cuda") -> Params:
 _F32_LEAVES = frozenset({
     "ln1", "ln2", "ln3", "final_ln", "rel_bias",
     "feat_ln", "pos_ln", "joint_ln",
+    # VL-Moonlight's norms and f32 router (models/moonlight.py)
+    "attn_norm", "mlp_norm", "kv_norm", "final_norm", "router",
 })
 
 
@@ -341,7 +343,10 @@ def _head_logits(hidden: torch.Tensor, shared: torch.Tensor,
     """f32 logits of the rescaled hidden against the table cast to the
     hidden's dtype (f32 products of the rounded operands)."""
     dt = hidden.dtype
-    h = hidden * torch.tensor(rescale, dtype=dt, device=hidden.device)
+    # a rescale of 1 (an untied head) multiplies by nothing: no scalar is
+    # copied to the device, so the step does not wait for it
+    h = hidden if rescale == 1.0 else \
+        hidden * torch.tensor(rescale, dtype=dt, device=hidden.device)
     return h.float() @ shared.to(dt).float().t()
 
 
@@ -373,10 +378,13 @@ class _FusedHeadLoss(torch.autograd.Function):
         p.scatter_add_(-1, safe[..., None], -torch.ones_like(lse)[..., None])
         dt = hidden.dtype
         dlogits = (p * w[..., None]).to(dt)
-        rs = torch.tensor(rescale, dtype=dt, device=hidden.device)
-        dh = (dlogits.float() @ shared.to(dt).float()).to(dt) * rs
+        dh = (dlogits.float() @ shared.to(dt).float()).to(dt)
+        hs = hidden
+        if rescale != 1.0:
+            rs = torch.tensor(rescale, dtype=dt, device=hidden.device)
+            dh, hs = dh * rs, hidden * rs
         dshared = (dlogits.float().flatten(0, 1).t()
-                   @ (hidden * rs).float().flatten(0, 1)).to(shared.dtype)
+                   @ hs.float().flatten(0, 1)).to(shared.dtype)
         # the real scores cotangent: d/d(score_b) = the per-sequence
         # mean NLL / B
         mask = (labels != -100).float()

@@ -77,6 +77,16 @@ SIGNATURES = {
                         + [_I] * 3 + [_P], _I),
         "fused_adamw_error_string": ([_I], ctypes.c_char_p),
     },
+    "moe_grouped_gemm": {
+        # A, a_rows, lda, B, b_stride, ldb, b_kmajor, offsets, experts,
+        # max_rows, C, C2, G, N, K, epi, stream
+        "moe_rows_gemm": ([_P, _P, _I, _P, _I, _I, _I, _P,
+                           _I, _I, _P, _P, _P, _I, _I, _I, _P], _I),
+        # A, a_rows, lda, B, ldb, offsets, experts, C, C2, M, N, epi, stream
+        "moe_dw_gemm": ([_P, _P, _I, _P, _I, _P, _I, _P, _P, _I, _I, _I,
+                         _P], _I),
+        "moe_error_string": ([_I], ctypes.c_char_p),
+    },
     "dw_splitk": {
         # x, g, out, K, D, F, dtype, stream, plan, workspace, n_blocks
         # (the wgmma route's; last, so that an older library without them

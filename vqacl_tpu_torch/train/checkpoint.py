@@ -177,6 +177,13 @@ def load_checkpoint(path: str, device="cpu", mesh_ctx=None, layout=None
     return params, proto, step
 
 
+def load_extra(path: str) -> Dict[str, np.ndarray]:
+    """The ``extra::<name>`` arrays of an archive, by name."""
+    pre = "extra" + SEP
+    with np.load(_npz_path(path), allow_pickle=False) as z:
+        return {k[len(pre):]: z[k] for k in z.files if k.startswith(pre)}
+
+
 # ---------------------------------------------------------------------------
 # the directory format: torch.distributed.checkpoint (counterpart of JAX's
 # orbax pair). The tree is the same, {"params", "proto" as a dict, "step"};

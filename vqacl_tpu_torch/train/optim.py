@@ -68,10 +68,11 @@ def _map_with_path(fn: Callable, tree: Tree, path: Tuple[str, ...] = ()
 
 
 def decay_mask(params: Tree) -> Tree:
-    """True where weight decay applies: every leaf except ``*_b`` and
-    ``rel_bias``."""
+    """True where weight decay applies: every leaf except ``*_b``,
+    ``rel_bias`` and VL-Moonlight's RMSNorm weights ``*_norm``."""
     return _map_with_path(
-        lambda path, _: not (path[-1].endswith("_b") or path[-1] == "rel_bias"),
+        lambda path, _: not (path[-1].endswith("_b") or path[-1] == "rel_bias"
+                             or path[-1].endswith("_norm")),
         params)
 
 

@@ -26,6 +26,10 @@ class TrainState(NamedTuple):
     proto: ProtoState
     generator: torch.Generator   # dropout draws, on the parameters' device
     sched: torch.Tensor          # f32 [warmup_iters, t_total]
+    # f32 [MoE layers, router experts]: VL-Moonlight's selection bias
+    # (models/moonlight.py), moved by the step after the optimizer and
+    # not a parameter of it; None for VL-T5
+    router_bias: Any = None
 
     @staticmethod
     def create(params: Any, tx: Transform, proto: ProtoState, seed: int = 0,

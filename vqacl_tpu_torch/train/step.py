@@ -13,6 +13,12 @@ its caller reads one. With the recorder of
 device), ``step.forward``, ``step.backward`` and ``step.optimizer`` (the
 gradient reduce and layout, norm, clip, AdamW, decay, lr, ``p − lr·u``).
 
+With ``cfg.model.arch == "moonlight"`` the train, eval and loss-eval
+steps run VL-Moonlight (``models/moonlight.py``) through the same
+``_grads_of`` and ``_apply_update``, then move the state's selection
+bias (``TrainState.router_bias``); it takes one device, no prototypes,
+no regularizer, remat or accumulation (``refuse_moonlight``).
+
 ``make_der_replay_step``: the same update on the DER/DER++ replay loss.
 ``make_logits_step``: teacher-forced logits (the DER capture pass).
 ``make_eval_step``: encode once (K1) → prototype retrieval without
@@ -57,7 +63,7 @@ import numpy as np
 import torch
 
 from vqacl_tpu_torch.cl.regularizers import penalty
-from vqacl_tpu_torch.models import vlt5
+from vqacl_tpu_torch.models import moonlight, vlt5
 from vqacl_tpu_torch.models.generate import beam_search, greedy_decode
 from vqacl_tpu_torch.models.prototype import ProtoState
 from vqacl_tpu_torch.parallel.mesh import data_parallel
@@ -238,6 +244,10 @@ def make_train_step(cfg, dtype=torch.bfloat16, device="cuda",
     mcfg, tcfg = cfg.model, cfg.train
     if use_prototype is None:
         use_prototype = mcfg.use_prototype
+    if mcfg.arch != "vlt5":
+        refuse_moonlight(cfg, use_prototype, use_memory_loss, remat,
+                         reg_lambda, mesh_ctx, fsdp, tp)
+        return _moonlight_train_step(cfg, dtype, dev)
     accum = int(tcfg.grad_accum)
     ctx = _dp(mesh_ctx)
     dp = ctx.dp if ctx is not None else 1
@@ -309,6 +319,67 @@ def make_train_step(cfg, dtype=torch.bfloat16, device="cuda",
             "retrieval_acc_Q": aux[2], "retrieval_acc_V": aux[3],
         }
         return new_state, metrics
+
+    return train_step
+
+
+ARCHS = ("vlt5", "moonlight")
+
+
+def refuse_moonlight(cfg, use_prototype=False, use_memory_loss=False,
+                     remat=False, reg_lambda=0.0, mesh_ctx=None, fsdp=None,
+                     tp=None) -> None:
+    """ValueError for what the VL-Moonlight step does not take: VQACL's
+    prototypes (defined on an encoder's output, which a decoder-only
+    model lacks) and the memory loss, EWC/MAS penalties, block
+    recompute, gradient accumulation and a mesh."""
+    if cfg.model.arch not in ARCHS:
+        raise ValueError(f"model.arch={cfg.model.arch!r}; pick from {ARCHS}")
+    if use_prototype or use_memory_loss:
+        raise ValueError("arch='moonlight' has no prototypes: VQACL's Q/V "
+                         "prototypes are pooled from an encoder's output, "
+                         "which the decoder-only model lacks (set "
+                         "model.use_prototype=False)")
+    if remat or reg_lambda or int(cfg.train.grad_accum) != 1 \
+            or fsdp is not None or tp is not None \
+            or (mesh_ctx is not None and mesh_ctx.world_size > 1):
+        raise ValueError("arch='moonlight' trains on one device without "
+                         "remat, EWC/MAS, grad_accum or a mesh")
+
+
+def _moonlight_train_step(cfg, dtype, dev) -> Callable:
+    """``make_train_step`` for VL-Moonlight: forward, backward and the
+    optimizer of the VL-T5 step (``_grads_of``, ``_apply_update``), then
+    the selection bias moved by the step's loads; metrics also carry
+    ``balance`` (the balance loss), ``expert_load`` (f32 [MoE layers,
+    router experts]: the tokens that chose each expert) and ``choices``
+    (each MoE layer's chosen experts, int64 [rows·positions, k])."""
+    mcfg, tcfg = cfg.model, cfg.train
+    place = _Placement(None)
+    gamma = float(mcfg.router_bias_gamma)
+
+    def train_step(state: TrainState, batch: Dict, reg=None
+                   ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        with span("step.train"):
+            b = _to_device(batch, _TRAIN_KEYS, dev)
+
+            def loss_fn(live):
+                out = moonlight.forward_train(live, mcfg, b, state.proto,
+                                              state.router_bias, dtype)
+                return out.loss, out
+
+            loss, out, grads = _grads_of(loss_fn, state.params)
+            new, lr, gnorm = _apply_update(tcfg, state, grads, state.proto,
+                                           None, place)
+            new = new._replace(router_bias=moonlight.update_bias(
+                state.router_bias, out.load, gamma))
+            aux = out.aux
+            return new, {"loss": loss, "grad_norm": gnorm, "lr": lr,
+                         "loss_memory_Q": aux[0], "loss_memory_V": aux[1],
+                         "retrieval_acc_Q": aux[2],
+                         "retrieval_acc_V": aux[3],
+                         "balance": out.balance, "expert_load": out.load,
+                         "choices": out.choices}
 
     return train_step
 
@@ -437,6 +508,22 @@ def make_eval_step(cfg, dtype=torch.bfloat16, device="cuda",
     mcfg = cfg.model
     if use_prototype is None:
         use_prototype = mcfg.use_prototype
+    if mcfg.arch != "vlt5":
+        refuse_moonlight(cfg, use_prototype)
+        if num_beams > 1:
+            raise ValueError("arch='moonlight' decodes greedily")
+
+        @torch.inference_mode()
+        def moon_eval_step(params: Dict, proto: ProtoState, batch: Dict,
+                           router_bias=None) -> torch.Tensor:
+            b = _to_device(batch, _BATCH_KEYS, dev)
+            bias = router_bias if router_bias is not None else \
+                moonlight.init_router_bias(mcfg, dev)
+            return moonlight.greedy(params, mcfg, b["input_ids"],
+                                    b["vis_feats"], b["boxes"], bias,
+                                    max_length=max_length, dtype=dtype)
+
+        return moon_eval_step
 
     @torch.inference_mode()
     def eval_step(params: Dict, proto: ProtoState, batch: Dict
@@ -467,6 +554,17 @@ def make_loss_eval_step(cfg, dtype=torch.bfloat16, device="cuda",
     mcfg = cfg.model
     if use_prototype is None:
         use_prototype = mcfg.use_prototype
+    if mcfg.arch != "vlt5":
+        refuse_moonlight(cfg, use_prototype)
+
+        def moon_eval_loss(params: Dict, proto: ProtoState, batch: Dict,
+                           router_bias=None) -> torch.Tensor:
+            b = _to_device(batch, _TRAIN_KEYS, dev)
+            bias = router_bias if router_bias is not None else \
+                moonlight.init_router_bias(mcfg, dev)
+            return moonlight.eval_loss(params, mcfg, b, bias, dtype)
+
+        return moon_eval_loss
 
     @torch.no_grad()
     def eval_loss(params: Dict, proto: ProtoState, batch: Dict

@@ -20,7 +20,8 @@ from typing import Any, Dict
 
 @dataclass
 class ModelConfig:
-    """VL-T5 architecture hyperparameters (t5-base defaults)."""
+    """Architecture hyperparameters: VL-T5 (t5-base defaults) or, with
+    ``arch="moonlight"``, VL-Moonlight."""
 
     vocab_size: int = 32200          # 32100 sentencepiece+extra ids + 100 vis ids
     d_model: int = 768
@@ -82,9 +83,39 @@ class ModelConfig:
     # JAX (an opt-in for decoders deep relative to batch·S).
     folded_cross_kv: bool = False
 
+    # --- the backbone: "vlt5" (models/vlt5.py, the fields above) or
+    # "moonlight" (models/moonlight.py: Moonlight-16B-A3B's decoder-only
+    # MLA + MoE language model after the visual embedding). The fields
+    # below are read by "moonlight" alone, under the names of its HF
+    # config; it also reads d_model, num_heads, vocab_size,
+    # layer_norm_epsilon (its RMSNorm eps) and the geometry fields.
+    arch: str = "vlt5"
+    num_hidden_layers: int = 27
+    first_k_dense_replace: int = 1   # leading dense layers
+    intermediate_size: int = 11264   # the dense layers' SwiGLU width
+    moe_intermediate_size: int = 1408
+    router_experts: int = 64         # the router's outputs (n_routed_experts)
+    experts_held: int = 64           # routed experts held here: ids 0..n-1
+    num_experts_per_tok: int = 6
+    n_shared_experts: int = 2        # one SwiGLU of n x moe width
+    routed_scaling_factor: float = 2.446
+    norm_topk_prob: bool = True
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    rope_theta: float = 50000.0
+    router_bias_gamma: float = 1e-3  # the selection bias's update speed
+    seq_aux_alpha: float = 1e-4      # the sequence-wise balance loss weight
+
     @property
     def encoder_len(self) -> int:
         return self.max_text_length + self.n_boxes
+
+
+_MODEL_FIELDS = [f.name for f in dataclasses.fields(ModelConfig)]
+# arch and the fields after it: read by arch "moonlight" alone
+MOONLIGHT_FIELDS = tuple(_MODEL_FIELDS[_MODEL_FIELDS.index("arch"):])
 
 
 @dataclass
@@ -193,7 +224,14 @@ class Config:
 
     # ---- yaml round-trip, as the JAX package's ----
     def to_dict(self) -> Dict[str, Any]:
-        return dataclasses.asdict(self)
+        """The fields as nested dicts; a VL-T5 configuration leaves out
+        ``arch`` and the fields only VL-Moonlight reads, so that the JAX
+        package reads the file (they load back at their defaults)."""
+        out = dataclasses.asdict(self)
+        if self.model.arch == "vlt5":
+            for name in MOONLIGHT_FIELDS:
+                out["model"].pop(name)
+        return out
 
     def save(self, path: str) -> None:
         import yaml

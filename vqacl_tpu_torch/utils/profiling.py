@@ -109,6 +109,11 @@ def count(name: str, n: int = 1) -> None:
         _counters[name] = _counters.get(name, 0) + n
 
 
+def recording() -> bool:
+    """Whether the recorder is on."""
+    return _on
+
+
 def enable(on: bool = True) -> None:
     """Switches the recorder on (reading the anchor pair) or off. What
     was recorded stays until ``take``."""
@@ -219,6 +224,7 @@ def attribute(trace: Dict, spans: List[Span], anchor: Tuple[int, int]
     """A Chrome trace (``export_chrome_trace``'s JSON: ``traceEvents``,
     ``baseTimeNanoseconds``) against the spans recorded over it →
     ``{"launches": {name: kernels}, "idle_s": {name: seconds},
+    "device_s": {name: seconds of its kernels on the device},
     "kernels": {name: {kernel: launches}}, "no_launch_call": n}``. Each
     kernel goes to the span innermost at its launch call, or to
     ``OUTSIDE``, as does a kernel whose launch call the trace lacks
@@ -240,16 +246,18 @@ def attribute(trace: Dict, spans: List[Span], anchor: Tuple[int, int]
             s = float(e["ts"])
             busy.append((s, s + float(e["dur"])))
             if cat == "kernel":
-                kernels.append((e["name"], corr))
+                kernels.append((e["name"], corr, float(e["dur"])))
     launches: Dict[str, int] = collections.Counter()
+    device: Dict[str, float] = collections.Counter()
     by_kernel: Dict[str, Dict[str, int]] = collections.defaultdict(
         collections.Counter)
     missing = 0
-    for name, corr in kernels:
+    for name, corr, dur in kernels:
         t = calls.get(corr)
         where = OUTSIDE if t is None else segs.at(t)
         missing += t is None
         launches[where] += 1
+        device[where] += dur / 1e6
         by_kernel[where][name] += 1
     idle: Dict[str, float] = collections.Counter()
     busy = _union(busy)
@@ -257,6 +265,7 @@ def attribute(trace: Dict, spans: List[Span], anchor: Tuple[int, int]
         for name, us in segs.split(e0, s1).items():
             idle[name] += us / 1e6
     return {"launches": dict(launches), "idle_s": dict(idle),
+            "device_s": dict(device),
             "kernels": {k: dict(v) for k, v in by_kernel.items()},
             "no_launch_call": missing}
 
