@@ -278,6 +278,17 @@ Phases, each of which exits non-zero on failure:
    train, replay and validation, with the kernels' launches counted in
    every step (6 a MoE layer) and the fused optimizer's pair checked in
    every update.
+17. The train step's CUDA graphs (``graph_replay``, ``train/graph.py``)
+   at t5-base, batch 80, merged q/k/v, dropout 0.1: ``P17_STEPS`` train
+   and replay batches in turns through the step run eagerly and through
+   the graphed step (one capture, then replays, each under
+   ``torch.cuda.set_sync_debug_mode("error")``), from the same state:
+   after each step the metrics, every parameter, both moments, the
+   step and Adam counts, the prototype banks and the generator's state
+   bit for bit equal; K1′ and K2 12 each a step and the fused
+   optimizer's pair, counted on replays as on eager steps; then the host
+   ms to issue a step and the wall ms a step over ``P17_TIMED`` more
+   steps of each.
 
 The second-to-last lines are a JSON object of per-kernel numbers and the
 card's name and power limit; the last line is the run's verdict as JSON.
@@ -301,6 +312,7 @@ from __future__ import annotations
 
 import argparse
 import gc
+import itertools
 import json
 import math
 import os
@@ -373,6 +385,10 @@ K2_REFUSED = ("keys512_bf16", 4, 40, 512, 12, 64, 20)
 BASE_CSRC = None
 # the fused optimizer's launches checked per update (``check_adamw``)
 ADAMW_CHECKED = 0
+# phase 17, the train step's CUDA graphs: steps compared bit for bit, then
+# steps timed of each
+P17_STEPS = 8
+P17_TIMED = 20
 # phase 15, the fused optimizer: steps per combination, the Adam counts
 # held bit for bit (β^t = powf(β, t) at t = count + 1, and the saturation
 # at INT32_MAX), the elements of their leaf, timed calls of the kernel
@@ -5115,6 +5131,108 @@ def grouped_experts(counters):
     return rec, launches + sum(step_launches), row
 
 
+def graph_replay(params, proto, counters):
+    """Phase 17 (see the module's docstring) from phase 3's t5-base
+    ``params`` and prototype banks ``proto``; ``counters``: (zero_counts,
+    read_counts) of the attention kernels → (record, launches (K1, K1′,
+    K2) of its steps)."""
+    from vqacl_tpu_torch.data.synthetic import SyntheticVQA
+    from vqacl_tpu_torch.train.optim import make_transform, tree_leaves
+    from vqacl_tpu_torch.train.state import TrainState
+    from vqacl_tpu_torch.train.step import make_train_step
+    from vqacl_tpu_torch.utils.config import Config
+
+    zero_counts, read_counts = counters
+    cfg = Config()
+    cfg.model.merged_qkv = True           # as VQACLTrainer runs the model
+    tx = make_transform(cfg.train)
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in b["tensors"].items()}
+               for b in itertools.islice(SyntheticVQA(
+                   2 * TRAIN_BATCH, seed=17).batches(TRAIN_BATCH, seed=17), 2)]
+    steps, states, met = {}, {}, {}
+    for name in ("eager", "graphed"):
+        steps[name] = make_train_step(cfg, dtype=torch.bfloat16,
+                                      device="cuda")
+        steps[name].eligible = name == "graphed"
+        states[name] = TrainState.create(params, tx, proto, seed=17,
+                                         warmup_iters=1.0, t_total=1000.0)
+
+    def pairs(a, b):
+        oa, ob = a.opt_state, b.opt_state
+        return ((a.params, b.params), (oa.mu, ob.mu), (oa.nu, ob.nu),
+                (oa.count, ob.count), (a.step, b.step),
+                (a.proto._asdict(), b.proto._asdict()))
+
+    zero_counts()
+    zero_adamw()
+    bad = []
+    for i in range(P17_STEPS):
+        b = batches[i % 2]
+        for name in ("eager", "graphed"):
+            replay = name == "graphed" and i > 0
+            if replay:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                states[name], met[name] = steps[name](states[name], b)
+            except RuntimeError as e:     # a sync under the debug mode
+                fail(f"phase 17: {name} step {i} raised {e}")
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        e, g = states["eager"], states["graphed"]
+        n = sum(_mismatch(x, y, tree_leaves) for x, y in pairs(e, g))
+        n += sum(_mismatch(met["eager"][k], met["graphed"][k], tree_leaves)
+                 for k in met["eager"])
+        same_rng = torch.equal(e.generator.get_state(),
+                               g.generator.get_state())
+        bad.append(n + (not same_rng))
+    losses = {k: [float(v["loss"])] for k, v in met.items()}
+    k = read_counts()
+    g = steps["graphed"]
+    per_step = cfg.model.num_layers * 2 * P17_STEPS     # both runs
+    log(f"graph_replay: bs {TRAIN_BATCH} bf16, {P17_STEPS} train/replay "
+        f"steps eager vs graphed: elements differing after each step {bad}; "
+        f"captures {g.captures} replays {g.replays} eager steps "
+        f"{g.eager_steps}; launches K1={k[0]} K1'={k[1]} K2={k[2]} "
+        f"(expected 0/{per_step}/{per_step}); last loss {losses}")
+    if any(bad):
+        fail(f"phase 17: the graphed steps differ from the eager ones {bad}")
+    if g.captures != 1 or g.replays < P17_STEPS - 1 or g.eager_steps != 1:
+        fail(f"phase 17: captures {g.captures}, replays {g.replays}, eager "
+             f"steps {g.eager_steps}")
+    if k != (0, per_step, per_step):
+        fail(f"phase 17: launches {k}, expected (0, {per_step}, "
+             f"{per_step})")
+    check_adamw("phase 17", 2 * P17_STEPS, 2)
+    zero_adamw()
+
+    # the host's ms to issue a step, and the wall ms a step, of each
+    timed = {}
+    for name in ("eager", "graphed"):
+        issue = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(P17_TIMED):
+            t1 = time.perf_counter()
+            states[name], met[name] = steps[name](states[name],
+                                                  batches[i % 2])
+            issue.append((time.perf_counter() - t1) * 1e3)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / P17_TIMED
+        timed[name] = {"issue_ms_median": sorted(issue)[len(issue) // 2],
+                       "wall_ms_per_step": wall}
+        log(f"graph_replay timed {name}: {P17_TIMED} steps, host ms to "
+            f"issue a step (median) {timed[name]['issue_ms_median']:.3f}, "
+            f"wall ms a step {wall:.3f}")
+    check_adamw("phase 17 timed", 2 * P17_TIMED, 2)
+    rec = {"steps": P17_STEPS, "mismatched": bad, "captures": g.captures,
+           "replays": g.replays, "eager_steps": g.eager_steps,
+           "launches": list(k), "timed": timed}
+    launches = read_counts()
+    del steps, states, met
+    torch.cuda.empty_cache()
+    return rec, launches
+
+
 def main(argv=None) -> int:
     global BASE_CSRC
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -5910,6 +6028,12 @@ def main(argv=None) -> int:
     ext16["phase_s"] = time.time() - t0
     log(f"phase 16 in {ext16['phase_s']:.1f} s")
 
+    # ---- 17. the train step's CUDA graphs ---------------------------------
+    t0 = time.time()
+    ext17, p17_k = graph_replay(params, proto, (zero_counts, read_counts))
+    ext17["phase_s"] = time.time() - t0
+    log(f"phase 17 in {ext17['phase_s']:.1f} s")
+
     def row(name, source, replaces, launches, r, offsets=None, heads=None):
         out = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces, "launches": launches,
@@ -5945,14 +6069,14 @@ def main(argv=None) -> int:
         row("fused_attention_fwd_train", fwd_src,
             "vqacl_tpu/ops/fused_attention.py:199",
             train_k1p + fd_k1p + cl_k[1] + p8_k[1] + p9_k[1] + p10_k[1]
-            + p12_k[1] + p13_k[1] + p14_k[1], k1p, p12_off[0] + p13_off[0],
-            p13_head[0]),
+            + p12_k[1] + p13_k[1] + p14_k[1] + p17_k[1], k1p,
+            p12_off[0] + p13_off[0], p13_head[0]),
         row("fused_attention_bwd",
             "vqacl_tpu_torch/csrc/fused_attention_bwd.cu",
             "vqacl_tpu/ops/fused_attention.py:272",
             train_k2 + fd_k2 + cl_k[2] + p8_k[2] + p9_k[2] + p10_k[2]
-            + p12_k[2] + p13_k[2] + p14_k[2], k2, p12_off[1] + p13_off[1],
-            p13_head[1]),
+            + p12_k[2] + p13_k[2] + p14_k[2] + p17_k[2], k2,
+            p12_off[1] + p13_off[1], p13_head[1]),
         row("dw_splitk", "vqacl_tpu_torch/csrc/dw_splitk.cu",
             "scripts/mm_bench.py:121", dw_launches, k5),
         # not a Pallas kernel: the two greedy suppressions JAX runs as a
@@ -6029,6 +6153,7 @@ def main(argv=None) -> int:
         "tensor_pipeline_head_offset_launches": p13_head,
         "protocol_runs": ext14, "protocol_runs_launches": p14_k,
         "fused_optimizer": ext15, "grouped_experts": ext16,
+        "graph_replay": ext17, "graph_replay_launches": list(p17_k),
         "extraction_n1_launches": n1_launches,
         "nms_kernel_times": {"rpn": pick(n1), "sweep": pick(n1_sweep)},
         "nextqa_kernel_times": {"K1": pick(nq_k1), "K1p": pick(nq_k1p),

@@ -220,14 +220,15 @@ NM.greedy_nms = counted_nms
 # takes the kernels
 from vqacl_tpu_torch.ops import adamw as AW
 from vqacl_tpu_torch.utils.profiling import count
-def counted_adamw(tcfg, grads, opt_state, params, step, sched, g_norm=None):
+def counted_adamw(tcfg, grads, opt_state, params, step, sched, g_norm=None,
+                  out=None):
     leaves = AW._inputs(tcfg, grads, opt_state, params, step, sched, g_norm)
     AW.adamw_plan(tuple(p.numel() for p in leaves[1]),
                   AW.leaf_flags(params, tcfg.freeze))
     count("optim.fused_leaves", len(leaves[1]))
     counted_adamw.launches += 1 + (g_norm is None)
     return AW.adamw_reference(tcfg, grads, opt_state, params, step, sched,
-                              g_norm)
+                              g_norm, out)
 counted_adamw.launches = 0
 AW.fused_adamw = ST.adamw_step = AW.adamw_step = counted_adamw
 torch.cuda.set_sync_debug_mode = lambda mode: None
@@ -360,6 +361,9 @@ def stand_in_phase16(counters):
             {"max_abs_err": 0.0, "ms": 1.0, "plain_ms": 2.0,
              "bound_ms": 0.5, "bound_by": "operations", "library_ms": None})
 chip_smoke.grouped_experts = stand_in_phase16
+def stand_in_phase17(params, proto, counters):
+    return {"stand_in": True}, (0, 5, 5)
+chip_smoke.graph_replay = stand_in_phase17
 with CudaOnCpu():
     sys.exit(chip_smoke.main())
 """
@@ -380,6 +384,35 @@ with CudaOnCpu():
     rec, launches, row = chip_smoke.grouped_experts((zero_counts,
                                                      read_counts))
 print(json.dumps({"grouped_experts": rec, "launches": launches, "row": row,
+                  "adamw_checked": chip_smoke.ADAMW_CHECKED}))
+"""
+# phase 17 alone, as main() calls it, with the train step's graphs through
+# tests/torch_graph_fake.py (a capture that leaves no trace, replays that
+# count nothing themselves) on the CPU
+PHASE17 = REHEARSAL_SETUP + r"""
+import json
+sys.path.insert(0, os.path.join(os.getcwd(), "tests"))
+import torch_graph_fake
+torch_graph_fake.install()
+ATT = (fa.fused_attention, fa.fused_attention_fwd_train,
+       fa.fused_attention_bwd)
+def zero_counts():
+    for c in ATT:
+        c.launches = 0
+    chip_smoke.zero_adamw()
+def read_counts():
+    return tuple(c.launches for c in ATT)
+g = torch.Generator().manual_seed(1)
+with CudaOnCpu():
+    from vqacl_tpu_torch.models import vlt5
+    from vqacl_tpu_torch.models.prototype import ProtoState
+    m = C.Config().model
+    params = vlt5.init_vlt5_params(0, m, device="cuda")
+    proto = ProtoState.create(m.n_ques_types, m.n_categories, m.d_model,
+                              device="cuda")
+    rec, launches = chip_smoke.graph_replay(params, proto,
+                                            (zero_counts, read_counts))
+print(json.dumps({"graph_replay": rec, "launches": launches,
                   "adamw_checked": chip_smoke.ADAMW_CHECKED}))
 """
 ENV = dict(os.environ, CHIP_SMOKE_REHEARSAL=REHEARSAL)
@@ -429,6 +462,27 @@ def test_chip_smoke_moe_rehearsal_on_cpu():
     assert p16["cl"]["launches"] > p16["cl"]["train_step_launches"]
     assert out["launches"] == p16["cl"]["launches"] + 2 * 12
     assert out["adamw_checked"] == 2 * (2 + steps)
+
+
+def test_chip_smoke_graph_rehearsal_on_cpu():
+    # phase 17: eager and graphed steps in turns, bit for bit after each,
+    # one capture and replays, K1'/K2 2 each a step (2 layers) counted on
+    # replays as on eager steps, the fused optimizer's pair in every
+    # update, then the timed steps of each
+    r = subprocess.run([sys.executable, "-c", PHASE17], cwd=REPO,
+                       capture_output=True, text=True, timeout=300, env=ENV)
+    assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
+    out = json.loads(r.stdout.strip().splitlines()[-1])
+    p17 = out["graph_replay"]
+    steps, timed = p17["steps"], 20
+    assert p17["mismatched"] == [0] * steps
+    assert (p17["captures"], p17["eager_steps"]) == (1, 1)
+    assert p17["replays"] == steps - 1 + timed
+    assert p17["launches"] == [0, 2 * 2 * steps, 2 * 2 * steps]
+    assert out["launches"] == [0] + [2 * 2 * (steps + timed)] * 2
+    assert out["adamw_checked"] == 2 * 2 * steps + 2 * 2 * timed
+    assert set(p17["timed"]) == {"eager", "graphed"}
+    assert "graph_replay: bs 8 bf16, 8 train/replay steps" in r.stdout
 
 
 def test_chip_smoke_rehearsal_on_cpu():
@@ -590,7 +644,10 @@ def test_chip_smoke_rehearsal_on_cpu():
     # K1'/K2: 4 train steps x 2 encoder layers, and 4 fused-decoder
     # steps x (2 encoder + 2 x 2 decoder) attentions, plus the CL loops
     assert k1p["launches"] == k2["launches"] == 2 * 4 + 6 * 4 + cl_k[1] \
-        + p8_k[1] + p9_k[1] + p10_k[1] + p12_k[1] + p13_k[1] + p14_k[1]
+        + p8_k[1] + p9_k[1] + p10_k[1] + p12_k[1] + p13_k[1] + p14_k[1] \
+        + summary["graph_replay_launches"][1]
+    assert summary["graph_replay_launches"] == [0, 5, 5]
+    assert summary["graph_replay"]["stand_in"]
     assert cl_k[1] == cl_k[2]
     assert "train_step: bs 8 bf16" in r.stdout
     assert "launches over 4 steps: K1=0 K1'=8 K2=8" in r.stdout

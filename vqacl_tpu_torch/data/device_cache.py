@@ -238,13 +238,10 @@ def make_cached_train_step(cfg, cache: DeviceFeatureCache,
     place of vis_feats/boxes: ``(state, batch, reg=None)``."""
     from vqacl_tpu_torch.train.step import make_train_step
 
-    inner = make_train_step(cfg, dtype=dtype, device=device, **kw)
-
-    @functools.wraps(inner)
-    def step(state, batch, *extra):      # extra: the EWC/MAS RegState
-        return inner(state, with_features(cache, batch), *extra)
-
-    return step
+    # the gather runs inside the step, so a replayed step graph holds it
+    return make_train_step(cfg, dtype=dtype, device=device,
+                           prepare=functools.partial(with_features, cache),
+                           **kw)
 
 
 def make_cached_eval_step(cfg, cache: DeviceFeatureCache,

@@ -20,6 +20,7 @@ training paths:
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -338,15 +339,21 @@ def _token_weights(labels: torch.Tensor, scores: torch.Tensor
     return mask * scores.float()[:, None] / (denom * labels.shape[0])
 
 
+@functools.lru_cache(maxsize=None)
+def rounded(x: float, dtype: torch.dtype) -> float:
+    """The value of ``torch.tensor(x, dtype=dtype)`` as a Python float. A
+    tensor of ``dtype`` times it gives the bits of the tensor times that
+    0-dim tensor (both multiply in f32, then round), and no scalar is
+    copied to the device."""
+    return float(torch.tensor(x, dtype=dtype))
+
+
 def _head_logits(hidden: torch.Tensor, shared: torch.Tensor,
                  rescale: float) -> torch.Tensor:
     """f32 logits of the rescaled hidden against the table cast to the
     hidden's dtype (f32 products of the rounded operands)."""
     dt = hidden.dtype
-    # a rescale of 1 (an untied head) multiplies by nothing: no scalar is
-    # copied to the device, so the step does not wait for it
-    h = hidden if rescale == 1.0 else \
-        hidden * torch.tensor(rescale, dtype=dt, device=hidden.device)
+    h = hidden if rescale == 1.0 else hidden * rounded(rescale, dt)
     return h.float() @ shared.to(dt).float().t()
 
 
@@ -381,7 +388,7 @@ class _FusedHeadLoss(torch.autograd.Function):
         dh = (dlogits.float() @ shared.to(dt).float()).to(dt)
         hs = hidden
         if rescale != 1.0:
-            rs = torch.tensor(rescale, dtype=dt, device=hidden.device)
+            rs = rounded(rescale, dt)
             dh, hs = dh * rs, hidden * rs
         dshared = (dlogits.float().flatten(0, 1).t()
                    @ hs.float().flatten(0, 1)).to(shared.dtype)

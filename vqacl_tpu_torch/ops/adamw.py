@@ -38,7 +38,9 @@ The new parameters and moments are views of fresh flat buffers (one
 f32 buffer; the bf16 moments in a second), never the old state's
 tensors, rebuilt into trees by ``tree_unflatten``; a leaf whose place
 there is not 16-byte aligned (after a leaf of a size that is not a
-multiple of 4) takes the kernel's scalar loop. Counters of
+multiple of 4) takes the kernel's scalar loop. ``out`` names the two
+buffers instead (``train/graph.py``: the next state's place, which a
+replayed step must write); they may not overlap the inputs. Counters of
 ``utils/profiling.py``: ``optim.fused_leaves`` and
 ``optim.eager_leaves``, the leaves each route updated.
 """
@@ -69,13 +71,17 @@ _SCHEDULE_CODE = {"constant_warmup": 0, "linear_warmup": 1}
 _INT_MAX = 2 ** 31 - 1
 
 Result = Tuple[dict, AdamState, torch.Tensor, torch.Tensor]
+# (f32 [T], moments' dtype [2·T]): where the new parameters and moments go
+Out = Optional[Tuple[torch.Tensor, torch.Tensor]]
 
 
 def adamw_reference(tcfg, grads, opt_state: AdamState, params, step,
-                    sched, g_norm: Optional[torch.Tensor] = None) -> Result:
+                    sched, g_norm: Optional[torch.Tensor] = None,
+                    out: Out = None) -> Result:
     """Plain version: ``make_transform(tcfg).update`` (clip with ‖g‖,
     ``global_norm`` unless given), ``dynamic_lr`` at ``step``, then
-    ``p − lr·u`` → (params, opt_state, lr, ‖g‖)."""
+    ``p − lr·u`` → (params, opt_state, lr, ‖g‖); with ``out``, the new
+    parameters and moments copied into its buffers (``_views``)."""
     count("optim.eager_leaves", len(tree_leaves(params)))
     if g_norm is None:
         g_norm = global_norm(grads)
@@ -83,7 +89,36 @@ def adamw_reference(tcfg, grads, opt_state: AdamState, params, step,
                                                      params, g_norm)
     lr = dynamic_lr(step.float(), sched, tcfg.lr, tcfg.schedule)
     params = tree_map(lambda p, u: p - lr * u, params, updates)
+    if out is not None:
+        new = (params, opt_state.mu, opt_state.nu)
+        params, mu, nu = _views(params, out, opt_state.mu, opt_state.nu)
+        for tree, got in zip((params, mu, nu), new):
+            for a, b in zip(tree_leaves(tree), tree_leaves(got)):
+                a.copy_(b)
+        opt_state = opt_state._replace(mu=mu, nu=nu)
     return params, opt_state, lr, g_norm
+
+
+def _views(params, out, mu, nu) -> Tuple[dict, dict, dict]:
+    """The trees of parameters and moments as views of ``out`` = (f32
+    [T], moments [2·T]): the leaves in sorted-leaf order, back to back;
+    the first moments in the first half. ValueError for buffers of
+    another size, dtype or device, or not contiguous."""
+    p_l, m_l = tree_leaves(params), tree_leaves(mu)
+    T = sum(p.numel() for p in p_l)
+    P, M = out
+    if not (P.dtype == torch.float32 and M.dtype == m_l[0].dtype
+            and P.numel() == T and M.numel() == 2 * T
+            and P.is_contiguous() and M.is_contiguous()
+            and P.device == M.device == p_l[0].device):
+        raise ValueError(
+            f"adamw out: f32 [{T}] and {m_l[0].dtype} [{2 * T}] on "
+            f"{p_l[0].device}, got {P.dtype} {list(P.shape)} and {M.dtype} "
+            f"{list(M.shape)} on {P.device}")
+    from torch._utils import _unflatten_dense_tensors as views
+    return (tree_unflatten(params, views(P, p_l)),
+            tree_unflatten(mu, views(M[:T], p_l)),
+            tree_unflatten(nu, views(M[T:], p_l)))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -224,13 +259,15 @@ def _inputs(tcfg, grads, opt_state: AdamState, params, step, sched,
 
 
 def fused_adamw(tcfg, grads, opt_state: AdamState, params, step, sched,
-                g_norm: Optional[torch.Tensor] = None) -> Result:
+                g_norm: Optional[torch.Tensor] = None,
+                out: Out = None) -> Result:
     """The kernels of ``csrc/fused_adamw.cu`` on CUDA tensors: f32 grads
     and parameters, moments both f32 or both bf16, ``step`` and
     ``opt_state.count`` int32, ``sched`` f32 [warmup, t_total]; ``g_norm``
-    (f32, 0-dim) skips the norm pass → (params, opt_state, lr, ‖g‖) as
-    ``adamw_reference`` returns them. Raises ValueError for anything
-    else (``_inputs``, ``adamw_plan``)."""
+    (f32, 0-dim) skips the norm pass; ``out`` the buffers the new
+    parameters and moments are written to → (params, opt_state, lr, ‖g‖)
+    as ``adamw_reference`` returns them. Raises ValueError for anything
+    else (``_inputs``, ``adamw_plan``, ``_views``)."""
     dev = opt_state.count.device
     if dev.type != "cuda":
         raise ValueError(f"fused_adamw: CUDA tensors only, got {dev}")
@@ -249,9 +286,15 @@ def fused_adamw(tcfg, grads, opt_state: AdamState, params, step, sched,
     gshape = np.array([[c for _, c, _ in rows], [s for _, _, s in rows]],
                       dtype=np.int32)
     T = plan.total
-    f32m = mdt == torch.float32
-    flat = torch.empty(3 * T if f32m else T, dtype=torch.float32, device=dev)
-    mom = flat[T:] if f32m else torch.empty(2 * T, dtype=mdt, device=dev)
+    if out is not None:
+        _views(params, out, opt_state.mu, opt_state.nu)   # checks only
+        flat, mom = out
+    elif mdt == torch.float32:
+        flat = torch.empty(3 * T, dtype=torch.float32, device=dev)
+        mom = flat[T:]
+    else:
+        flat = torch.empty(T, dtype=torch.float32, device=dev)
+        mom = torch.empty(2 * T, dtype=mdt, device=dev)
     scal = torch.empty(2, dtype=torch.float32, device=dev)
     cnt = torch.empty((), dtype=torch.int32, device=dev)
     partials = None if g_norm is not None else torch.empty(
@@ -289,15 +332,17 @@ fused_adamw.launches = 0
 
 
 def adamw_step(tcfg, grads, opt_state: AdamState, params, step, sched,
-               g_norm: Optional[torch.Tensor] = None) -> Result:
+               g_norm: Optional[torch.Tensor] = None,
+               out: Out = None) -> Result:
     """One optimizer update → (params, opt_state, lr, ‖g‖): the kernels on
     CUDA tensors (``fused_adamw``), the plain version on CPU tensors
-    (the state's Adam count tells which)."""
+    (the state's Adam count tells which); ``out`` as ``fused_adamw``
+    takes it."""
     kind = opt_state.count.device.type
     if kind == "cuda":
         return fused_adamw(tcfg, grads, opt_state, params, step, sched,
-                           g_norm)
+                           g_norm, out)
     if kind == "cpu":
         return adamw_reference(tcfg, grads, opt_state, params, step, sched,
-                               g_norm)
+                               g_norm, out)
     raise ValueError(f"adamw_step: unsupported device {kind}")

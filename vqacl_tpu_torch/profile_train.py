@@ -20,7 +20,10 @@ of one step and of one forward and backward alone, each above the memory
 held before it. ``--fused_decoder`` runs the decoder's attention through
 the kernels too, ``--remat`` recomputes the encoder and decoder blocks
 in the backward pass (the JAX CLI's ``--fused_decoder`` and ``--remat``).
-Needs a CUDA device.
+Without ``--remat`` the step after the first replays its CUDA graph
+(``train/graph.py``), so its phases are the spans ``step.train`` and
+``step.graph_replay``, and the peak memory holds the graphs' pool and
+the two state slots. Needs a CUDA device.
 """
 
 from __future__ import annotations

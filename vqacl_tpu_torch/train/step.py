@@ -12,6 +12,9 @@ its caller reads one. With the recorder of
 ``step.der_replay``) around ``step.inputs`` (the batch's copy to the
 device), ``step.forward``, ``step.backward`` and ``step.optimizer`` (the
 gradient reduce and layout, norm, clip, AdamW, decay, lr, ``p − lr·u``).
+On the card the VL-T5 train step is captured as CUDA graphs and
+replayed (``train/graph.py``): a replayed step is the span
+``step.train`` around ``step.graph_replay``.
 
 With ``cfg.model.arch == "moonlight"`` the train, eval and loss-eval
 steps run VL-Moonlight (``models/moonlight.py``) through the same
@@ -68,6 +71,7 @@ from vqacl_tpu_torch.models.generate import beam_search, greedy_decode
 from vqacl_tpu_torch.models.prototype import ProtoState
 from vqacl_tpu_torch.parallel.mesh import data_parallel
 from vqacl_tpu_torch.ops.adamw import adamw_step
+from vqacl_tpu_torch.train.graph import GraphedStep
 from vqacl_tpu_torch.train.optim import (tree_leaves, tree_map,
                                          tree_unflatten)
 from vqacl_tpu_torch.train.state import TrainState
@@ -195,20 +199,22 @@ class _Placement:
 
 
 def _apply_update(tcfg, state: TrainState, grads, proto: ProtoState,
-                  ctx, place: _Placement
+                  ctx, place: _Placement, out=None
                   ) -> Tuple[TrainState, torch.Tensor, torch.Tensor]:
     """The optimizer half of a step: the ranks' gradients summed (with
     a mesh ``ctx``, ``_dp``'s, over dp × pp), put in the state's layout
     (``place``), then ``ops/adamw.py::adamw_step`` (clip, AdamW
     direction, decay, lr from the schedule, ``p − lr·u``: two kernels on
-    the card) → (new state, lr, grad norm); the span ``step.optimizer``."""
+    the card; ``out``: the flat buffers it writes the new parameters and
+    moments to) → (new state, lr, grad norm); the span
+    ``step.optimizer``."""
     with torch.no_grad(), span("step.optimizer"):
         if ctx is not None:
             grads = reduce_grads(ctx, grads)
         grads = place.grads(grads)
         params, opt_state, lr, gnorm = adamw_step(
             tcfg, grads, state.opt_state, state.params, state.step,
-            state.sched, place.norm(grads))
+            state.sched, place.norm(grads), out=out)
     return state._replace(step=state.step + 1, params=params,
                           opt_state=opt_state, proto=proto), lr, gnorm
 
@@ -217,7 +223,9 @@ def make_train_step(cfg, dtype=torch.bfloat16, device="cuda",
                     use_prototype: Optional[bool] = None,
                     use_memory_loss: bool = False,
                     remat=False, reg_lambda: float = 0.0,
-                    mesh_ctx=None, fsdp=None, tp=None) -> Callable:
+                    mesh_ctx=None, fsdp=None, tp=None,
+                    prepare: Optional[Callable[[Dict], Dict]] = None
+                    ) -> Callable:
     """Returns ``(state, batch, reg=None) -> (state, metrics)``.
 
     ``state`` is a ``TrainState`` on ``device`` (made with the transform
@@ -239,7 +247,18 @@ def make_train_step(cfg, dtype=torch.bfloat16, device="cuda",
     ``fsdp`` and ``tp``: data, tensor and pipeline parallelism, FSDP and
     the tp layout (the module's note; ``tp`` a ``TpLayout`` when the
     state holds tp slices); ``batch`` is then this rank's rows
-    (``parallel.mesh.shard_batch``)."""
+    (``parallel.mesh.shard_batch``). ``prepare`` maps the batch first,
+    inside the step (``data/device_cache.py``: ``slots`` to features).
+
+    On the card the VL-T5 step is a ``train/graph.py::GraphedStep``:
+    captured once per batch signature as CUDA graphs and replayed, its
+    metrics bit for bit the eager step's, and eager off the card, with a
+    mesh, FSDP or tp layouts, ``grad_accum`` > 1, ``remat`` or a ``reg``.
+    Aliasing: a replayed step returns one of two fixed state slots and
+    writes the other, so the state one call returns is overwritten by
+    the call after next; a state that is not a slot is copied in and
+    left as it was. Keep a copy of a state that must outlive the next
+    steps."""
     dev = resolve_device(device)
     mcfg, tcfg = cfg.model, cfg.train
     if use_prototype is None:
@@ -247,7 +266,7 @@ def make_train_step(cfg, dtype=torch.bfloat16, device="cuda",
     if mcfg.arch != "vlt5":
         refuse_moonlight(cfg, use_prototype, use_memory_loss, remat,
                          reg_lambda, mesh_ctx, fsdp, tp)
-        return _moonlight_train_step(cfg, dtype, dev)
+        return _moonlight_train_step(cfg, dtype, dev, prepare)
     accum = int(tcfg.grad_accum)
     ctx = _dp(mesh_ctx)
     dp = ctx.dp if ctx is not None else 1
@@ -293,12 +312,9 @@ def make_train_step(cfg, dtype=torch.bfloat16, device="cuda",
         aux = tuple(torch.stack(a).mean() for a in zip(*auxes))
         return torch.stack(losses).mean(), proto, aux, grads
 
-    def train_step(state: TrainState, batch: Dict, reg=None
-                   ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        with span("step.train"):
-            return _train_step(state, batch, reg)
-
-    def _train_step(state, batch, reg):
+    def train_step(state, batch, reg=None, out=None):
+        if prepare is not None:
+            batch = prepare(batch)
         batch = _to_device(batch, _TRAIN_KEYS, dev)
         full = state._replace(params=place.forward(state.params))
         reg = None if reg is None else place.reg(reg)
@@ -309,7 +325,7 @@ def make_train_step(cfg, dtype=torch.bfloat16, device="cuda",
                 loss, proto, aux, grads = loss_and_grads(
                     full.params, state.proto, batch, state.generator, reg)
         new_state, lr, gnorm = _apply_update(tcfg, state, grads, proto,
-                                             ctx, place)
+                                             ctx, place, out)
         if ctx is not None:
             loss, *aux = _global(ctx, loss * ctx.pp, *aux)
             aux = [a / dp for a in aux]
@@ -320,7 +336,9 @@ def make_train_step(cfg, dtype=torch.bfloat16, device="cuda",
         }
         return new_state, metrics
 
-    return train_step
+    eligible = ctx is None and fsdp is None and tp is None and accum == 1 \
+        and not remat
+    return GraphedStep(train_step, _TRAIN_KEYS + ("slots",), eligible)
 
 
 ARCHS = ("vlt5", "moonlight")
@@ -347,13 +365,14 @@ def refuse_moonlight(cfg, use_prototype=False, use_memory_loss=False,
                          "remat, EWC/MAS, grad_accum or a mesh")
 
 
-def _moonlight_train_step(cfg, dtype, dev) -> Callable:
+def _moonlight_train_step(cfg, dtype, dev, prepare=None) -> Callable:
     """``make_train_step`` for VL-Moonlight: forward, backward and the
     optimizer of the VL-T5 step (``_grads_of``, ``_apply_update``), then
     the selection bias moved by the step's loads; metrics also carry
     ``balance`` (the balance loss), ``expert_load`` (f32 [MoE layers,
     router experts]: the tokens that chose each expert) and ``choices``
-    (each MoE layer's chosen experts, int64 [rows·positions, k])."""
+    (each MoE layer's chosen experts, int64 [rows·positions, k]).
+    ``prepare`` as ``make_train_step`` takes it."""
     mcfg, tcfg = cfg.model, cfg.train
     place = _Placement(None)
     gamma = float(mcfg.router_bias_gamma)
@@ -361,7 +380,8 @@ def _moonlight_train_step(cfg, dtype, dev) -> Callable:
     def train_step(state: TrainState, batch: Dict, reg=None
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         with span("step.train"):
-            b = _to_device(batch, _TRAIN_KEYS, dev)
+            b = _to_device(batch if prepare is None else prepare(batch),
+                           _TRAIN_KEYS, dev)
 
             def loss_fn(live):
                 out = moonlight.forward_train(live, mcfg, b, state.proto,

@@ -5,14 +5,19 @@ clock shared with ``torch.profiler``, and the Chrome trace exporter.
 step's phases, the loader's blocking wait); ``count(name, n)`` adds to a
 counter (``h2d_bytes``; ``optim.fused_leaves`` and
 ``optim.eager_leaves``, the leaves each route of ``ops/adamw.py``
-updated). Both are off by default: ``span`` then returns one shared
+updated; ``graph.captures``, ``graph.replays`` and
+``graph.eager_steps``, how the train step of ``train/graph.py`` ran).
+Both are off by default: ``span`` then returns one shared
 no-op context after a single flag test, and ``count`` returns at once.
 When ``enable()`` has switched them on, a span appends ``(name, id,
 parent id, start_ns, end_ns)`` to an in-memory list on
 ``time.perf_counter_ns()``, its parent the innermost open span of the
 same thread. A span never
 touches the device: no CUDA events, no synchronisation, no launches.
-``take()`` hands over what was recorded and clears it.
+``take()`` hands over what was recorded and clears it. Inside
+``diverted()`` (a CUDA-graph capture, which launches nothing) spans
+record nothing and every ``count`` goes to the dict it yields, recorder
+on or off, so that each replay can count what the captured work counted.
 
 The profiler's Chrome trace gives each event's ``ts`` in µs after its
 top-level ``baseTimeNanoseconds``, on the wall clock. ``enable`` keeps one
@@ -68,6 +73,7 @@ _count_lock = threading.Lock()
 _ids = itertools.count(1)
 _local = threading.local()
 _anchor = (0, 0)
+_divert: Optional[Dict[str, int]] = None
 
 
 class _Span:
@@ -95,18 +101,33 @@ class _Span:
 
 def span(name: str):
     """A context manager that records the block as the span ``name`` when
-    the recorder is on; the shared no-op context when it is off."""
-    if not _on:
+    the recorder is on; the shared no-op context when it is off or
+    diverted."""
+    if not _on or _divert is not None:
         return _NOOP
     return _Span(name)
 
 
 def count(name: str, n: int = 1) -> None:
-    """Adds ``n`` to the counter ``name`` when the recorder is on."""
-    if not _on:
+    """Adds ``n`` to the counter ``name`` when the recorder is on (to
+    the diverted dict inside ``diverted``)."""
+    if not _on and _divert is None:
         return
     with _count_lock:
-        _counters[name] = _counters.get(name, 0) + n
+        into = _counters if _divert is None else _divert
+        into[name] = into.get(name, 0) + n
+
+
+@contextlib.contextmanager
+def diverted() -> Iterator[Dict[str, int]]:
+    """Within the block no span is recorded and ``count`` adds to the dict
+    yielded, whether the recorder is on or not."""
+    global _divert
+    _divert = {}
+    try:
+        yield _divert
+    finally:
+        _divert = None
 
 
 def recording() -> bool:
