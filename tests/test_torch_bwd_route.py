@@ -157,7 +157,7 @@ def test_bf16_operands_stay_within_the_chip_tolerance(B, Tq, Sk, H, dk, L,
     # the card at the decoder's self-attention shape) by far more than the
     # output's own bf16 rounding
     sys.path.insert(0, REPO)
-    import chip_smoke
+    from smoke import kernels
 
     rng = np.random.default_rng(B + Tq + Sk)
     bf = torch.bfloat16
@@ -179,7 +179,7 @@ def test_bf16_operands_stay_within_the_chip_tolerance(B, Tq, Sk, H, dk, L,
     exact = _bwd_bf16_operands(q, k, v, p, seed, do, H, L, rate, terms=3)
     one = _bwd_bf16_operands(q, k, v, p, seed, do, H, L, rate, terms=1)
     two = _bwd_bf16_operands(q, k, v, p, seed, do, H, L, rate, terms=2)
-    atol, rtol = chip_smoke.TOL["bfloat16"]
+    atol, rtol = kernels.TOL["bfloat16"]
     for name, a, b, e1, e2, e3 in zip(("dq", "dk", "dv"), two, ref, one,
                                       two, exact):
         a = a.to(bf).float()

@@ -307,16 +307,17 @@ def test_k1_wrapper_refuses_a_bad_stride_before_building(monkeypatch):
             fa.fused_attention.strided_launches) == before
 
 
-def test_strided_entries_keep_the_dense_ones():
-    """The strided entries sit beside the dense ones, whose C signatures
-    are unchanged (another checkout's libraries still load), with three
-    more int arguments (ldq, ldk, ldv)."""
-    fwd = _build.SIGNATURES["fused_attention_fwd"]
-    bwd = _build.SIGNATURES["fused_attention_bwd"]
-    for table, name in ((fwd, "fused_attention_fwd"),
-                        (fwd, "fused_attention_fwd_train"),
-                        (bwd, "fused_attention_bwd")):
-        dense, strided = table[name][0], table[name + "_strided"][0]
-        assert len(strided) == len(dense) + 3
-        assert [t.__name__ for t in strided].count("c_int") == \
-            [t.__name__ for t in dense].count("c_int") + 3
+@pytest.mark.parametrize("stem,name,ints", [
+    ("fused_attention_fwd", "fused_attention_fwd", 10),
+    ("fused_attention_fwd", "fused_attention_fwd_train", 14),
+    ("fused_attention_bwd", "fused_attention_bwd", 14)])
+def test_attention_kernels_have_only_strided_entries(stem, name, ints):
+    """K1, K1′ and K2 each have one C entry, the strided one (a dense
+    operand passes the stride H·dk): no dense entry is declared, and the
+    entry takes ldq, ldk and ldv after B, Tq, Sk, H, dk and L."""
+    table = _build.SIGNATURES[stem]
+    assert name not in table and name + "_strided" in table
+    argtypes = [t.__name__ for t in table[name + "_strided"][0]]
+    assert argtypes.count("c_int") == ints
+    first = argtypes.index("c_int")
+    assert argtypes[first:first + 9] == ["c_int"] * 9

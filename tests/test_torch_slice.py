@@ -273,11 +273,11 @@ def test_tokenizer_and_collate_match_jax():
 
 
 def test_port_imports_nothing_of_jax():
-    """Every module of the port, and chip_smoke.py, imports with ``jax``,
-    ``vqacl_tpu``, ``h5py``, ``ml_dtypes``, ``transformers``,
-    ``safetensors``, ``orbax``, ``yaml``, ``pyarrow``, ``nltk``,
-    ``tokenizers``, ``PIL``, ``cv2``, ``matplotlib`` and ``torchvision``
-    blocked (a None entry in sys.modules makes any import of them raise);
+    """Every module of the port, and chip_smoke.py with its phase modules
+    (``smoke/``), imports with ``jax``, ``vqacl_tpu``, ``h5py``,
+    ``ml_dtypes``, ``transformers``, ``safetensors``, ``orbax``, ``yaml``,
+    ``pyarrow``, ``nltk``, ``tokenizers``, ``PIL``, ``cv2``,
+    ``matplotlib`` and ``torchvision`` blocked (a None entry in sys.modules makes any import of them raise);
     the weight files and the directory checkpoint are written and read
     with them blocked too, and so are the detector's weights (npz) and a
     pack of extracted records made from a decoded array. The parallel
@@ -301,7 +301,7 @@ assert {"vqacl_tpu_torch.parallel.mesh", "vqacl_tpu_torch.parallel.multihost",
         "vqacl_tpu_torch.soak"} <= set(mods)
 from vqacl_tpu_torch import make_mesh
 assert make_mesh(device="cpu").dp == 1
-runpy.run_path("chip_smoke.py", run_name="chip_smoke_import_check")
+runpy.run_path("chip_smoke.py", run_name="chip_smoke_import_check")["phases"]()
 from vqacl_tpu_torch.models import hf_import, vlt5
 from vqacl_tpu_torch.models.prototype import ProtoState
 from vqacl_tpu_torch.train import checkpoint

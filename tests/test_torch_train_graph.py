@@ -24,6 +24,7 @@ from vqacl_tpu_torch.data.synthetic import SyntheticVQA  # noqa: E402
 from vqacl_tpu_torch.models import vlt5 as V  # noqa: E402
 from vqacl_tpu_torch.models.prototype import ProtoState  # noqa: E402
 from vqacl_tpu_torch.ops import adamw as AW  # noqa: E402
+from vqacl_tpu_torch.ops import launches  # noqa: E402
 from vqacl_tpu_torch.train import graph as G  # noqa: E402
 from vqacl_tpu_torch.train import step as ST  # noqa: E402
 from vqacl_tpu_torch.train.optim import make_transform, tree_leaves  # noqa: E402
@@ -281,6 +282,44 @@ def test_metrics_are_fresh_each_step(monkeypatch):
 
 
 # -- counters and spans ----------------------------------------------------
+
+def test_launch_registry_reads_adds_and_resets_every_counter(monkeypatch):
+    # every attribute ending in "launches" of every counted wrapper, the
+    # dict-valued routes by route, through read / add / since / reset
+    from vqacl_tpu_torch.ops import fused_attention as fa
+
+    n = 0
+    for fn in launches.wrappers():
+        for attr, v in list(vars(fn).items()):
+            if not attr.endswith("launches"):
+                continue
+            if isinstance(v, dict):
+                v = {k: (n := n + 1) for k in v}
+            else:
+                v = (n := n + 1)
+            monkeypatch.setattr(fn, attr, v)
+    snap = launches.read()
+    assert sorted(snap.values()) == list(range(1, n + 1))
+    assert {(a, r) for f, a, r in snap if f is fa.fused_attention_bwd} == {
+        ("launches", None), ("strided_launches", None),
+        ("offset_launches", None), ("head_offset_launches", None),
+        ("route_launches", "mma"), ("route_launches", "scalar")}
+    assert {f.__name__ for f, _, _ in snap} == {
+        "fused_attention", "fused_attention_fwd_train", "fused_attention_bwd",
+        "fused_adamw", "dw_splitk", "grouped_swiglu", "greedy_nms"}
+    launches.add(snap)
+    assert launches.read() == {k: 2 * v for k, v in snap.items()}
+    assert launches.since(snap) == snap
+    launches.add(snap, -1)
+    assert launches.read() == snap and launches.since(snap) == {}
+    launches.reset()
+    assert set(launches.read().values()) == {0}
+    launches.add(snap)
+    assert launches.read() == snap
+    assert fa.fused_attention_bwd.route_launches == {
+        k: snap[(fa.fused_attention_bwd, "route_launches", k)]
+        for k in ("mma", "scalar")}
+
 
 def test_replays_count_what_the_eager_step_counts(monkeypatch, rec):
     # the fused optimizer's launch counter and the recorder's counts, as a

@@ -31,7 +31,7 @@ pytest.importorskip("h5py")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from chip_smoke import write_obj_tsv  # noqa: E402
+from smoke.clis import write_obj_tsv  # noqa: E402
 from torch_parity import (jax_tiny_params, record_trainer,  # noqa: E402
                           torch_cfg_like)
 from vqacl_tpu.cl.trainer import VQACLTrainer as JTrainer  # noqa: E402

@@ -13,6 +13,7 @@ it makes discarded, writing the body's output into the tensor that
 
 import torch
 
+from vqacl_tpu_torch.ops import launches
 from vqacl_tpu_torch.train import graph as G
 from vqacl_tpu_torch.utils import profiling as P
 
@@ -35,12 +36,10 @@ class FakeGraphs:
         generator.set_state(rng)
 
         def replay():
-            before = G.read_launches()
+            before = launches.read()
             with P.diverted():
                 v = fn()
-            after = G.read_launches()
-            G.add_launches({k: n - before.get(k, 0) for k, n in after.items()},
-                           -1)
+            launches.add(launches.since(before), -1)
             out.copy_(v)
             self.replays += 1
 

@@ -874,22 +874,6 @@ extern "C" int fused_attention_bwd_strided(
   return (int)cudaErrorInvalidValue;
 }
 
-// K2 on dense operands [B, S, H*dk]: the strided entry at stride H*dk.
-extern "C" int fused_attention_bwd(const void* q, const void* k,
-                                   const void* v, const void* p,
-                                   const void* seed, const void* dout,
-                                   void* dq, void* dk, void* dv,
-                                   void* dbias_part, void* dbias, int B,
-                                   int Tq, int Sk, int H, int dkv, int L,
-                                   int dtype, int dropout,
-                                   unsigned int thresh, float keep_div,
-                                   void* stream, int bh0, int Hc, int h0) {
-  return fused_attention_bwd_strided(
-      q, k, v, p, seed, dout, dq, dk, dv, dbias_part, dbias, B, Tq, Sk, H,
-      dkv, L, H * dkv, H * dkv, H * dkv, dtype, dropout, thresh, keep_div,
-      stream, bh0, Hc, h0);
-}
-
 // The Philox keep mask [BH, Tq, Sk] (uint8, 1 = kept) that K1' and K2
 // apply, for checking the PyTorch copy of the streams on the card; row bh
 // = b*H + h takes the counter bh0 + b*Hc + h0 + h.

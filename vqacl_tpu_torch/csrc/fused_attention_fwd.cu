@@ -6,13 +6,13 @@
 // Replaces the Pallas TPU kernels of vqacl_tpu/ops/fused_attention.py:
 //   K1  `_fwd_kernel_batched` (and its serial twin `_fwd_kernel`, same math)
 //       through `_call_fwd(save_p=False)`: the inference forward, entry
-//       `fused_attention_fwd` (dropout 0, no saved probabilities);
+//       `fused_attention_fwd_strided` (dropout 0, no saved probabilities);
 //   K1' `_fwd_kernel_batched_save_p` / `_fwd_kernel_save_p` through
 //       `_call_fwd(save_p=True)`: the training forward, entry
-//       `fused_attention_fwd_train`. It also writes the PRE-dropout
-//       probabilities p [B, H*Tq, Sk] f32 for the backward kernel K2
-//       (fused_attention_bwd.cu) and applies dropout from the Philox
-//       streams of philox.cuh, which K2 regenerates.
+//       `fused_attention_fwd_train_strided`. It also writes the
+//       PRE-dropout probabilities p [B, H*Tq, Sk] f32 for the backward
+//       kernel K2 (fused_attention_bwd.cu) and applies dropout from the
+//       Philox streams of philox.cuh, which K2 regenerates.
 //
 // Per (batch b, head h), for every query row i:
 //   s[j] = q[i]·k[j] in f32 (UNSCALED T5 attention)
@@ -30,9 +30,10 @@
 // [B, Sk, 2*H*dk]) GEMM output, taken without a copy. Only the global
 // addresses change with the stride; the shared-memory layouts and the
 // arithmetic do not, so a strided launch gives the bits of a launch on
-// dense copies. o is always dense. bias is [H, L, L] f32 (the relative bias
-// of the text-text block, or the decoder's whole causal + relative block;
-// the rest is zero and never moves). mask is [B, Sk] f32, 1 = attend.
+// dense copies; a dense operand is rows of H*dk. o is always dense. bias
+// is [H, L, L] f32 (the relative bias of the text-text block, or the
+// decoder's whole causal + relative block; the rest is zero and never
+// moves). mask is [B, Sk] f32, 1 = attend.
 // Ragged Tq/Sk are handled here, so the wrapper pads nothing.
 //
 // What bounds it on the card. At the eval shape (B=100, Tq=Sk=56, H=12,
@@ -827,16 +828,6 @@ extern "C" int fused_attention_fwd_strided(const void* q, const void* k,
   return (int)cudaErrorInvalidValue;
 }
 
-// K1 on dense q/k/v [B, S, H*dk]: the strided entry at stride H*dk.
-extern "C" int fused_attention_fwd(const void* q, const void* k,
-                                   const void* v, const void* bias,
-                                   const void* mask, void* o, int B, int Tq,
-                                   int Sk, int H, int dk, int L, int dtype,
-                                   void* stream) {
-  return fused_attention_fwd_strided(q, k, v, bias, mask, o, B, Tq, Sk, H, dk,
-                                     L, H * dk, H * dk, H * dk, dtype, stream);
-}
-
 // K1' over strided q/k/v: as above, and also p [B, H*Tq, Sk] f32
 // (pre-dropout). With dropout != 0, element (b, h, i, j) is kept when its
 // Philox bits (key seed[0], a device int32) are below `thresh`, and kept p
@@ -872,21 +863,6 @@ extern "C" int fused_attention_fwd_train_strided(
                                  L, ldq, ldk, ldv, p_f, seed_i, dropout,
                                  thresh, keep_div, bh0, Hc, h0, s);
   return (int)cudaErrorInvalidValue;
-}
-
-// K1' on dense q/k/v: the strided entry at stride H*dk.
-extern "C" int fused_attention_fwd_train(const void* q, const void* k,
-                                         const void* v, const void* bias,
-                                         const void* mask, const void* seed,
-                                         void* o, void* p, int B, int Tq,
-                                         int Sk, int H, int dk, int L,
-                                         int dtype, int dropout,
-                                         unsigned int thresh, float keep_div,
-                                         void* stream, int bh0, int Hc,
-                                         int h0) {
-  return fused_attention_fwd_train_strided(
-      q, k, v, bias, mask, seed, o, p, B, Tq, Sk, H, dk, L, H * dk, H * dk,
-      H * dk, dtype, dropout, thresh, keep_div, stream, bh0, Hc, h0);
 }
 
 // Message for a cudaError_t returned above.

@@ -34,17 +34,11 @@ _F = ctypes.c_float
 # C signatures of the entry points, per source file
 SIGNATURES = {
     "fused_attention_fwd": {
-        # q, k, v, bias, mask, o, B, Tq, Sk, H, dk, L, dtype, stream
-        "fused_attention_fwd": ([_P] * 6 + [_I] * 7 + [_P], _I),
-        # q, k, v, bias, mask, seed, o, p, B, Tq, Sk, H, dk, L, dtype,
-        # dropout, thresh, keep_div, stream, bh0, Hc, h0 (last, so that an
-        # older library without them still lines up: ``chip_smoke.py
-        # --base``)
-        "fused_attention_fwd_train": ([_P] * 8 + [_I] * 8
-                                      + [_U, _F, _P, _I, _I, _I], _I),
-        # as fused_attention_fwd, with ldq, ldk, ldv before dtype
+        # q, k, v, bias, mask, o, B, Tq, Sk, H, dk, L, ldq, ldk, ldv,
+        # dtype, stream (a dense operand: ld = H·dk)
         "fused_attention_fwd_strided": ([_P] * 6 + [_I] * 10 + [_P], _I),
-        # as fused_attention_fwd_train, with ldq, ldk, ldv before dtype
+        # q, k, v, bias, mask, seed, o, p, B, Tq, Sk, H, dk, L, ldq, ldk,
+        # ldv, dtype, dropout, thresh, keep_div, stream, bh0, Hc, h0
         "fused_attention_fwd_train_strided": ([_P] * 8 + [_I] * 11
                                               + [_U, _F, _P, _I, _I, _I],
                                               _I),
@@ -52,10 +46,8 @@ SIGNATURES = {
     },
     "fused_attention_bwd": {
         # q, k, v, p, seed, do, dq, dk, dv, dbias_part, dbias, B, Tq, Sk,
-        # H, dk, L, dtype, dropout, thresh, keep_div, stream, bh0, Hc, h0
-        "fused_attention_bwd": ([_P] * 11 + [_I] * 8
-                                + [_U, _F, _P, _I, _I, _I], _I),
-        # as fused_attention_bwd, with ldq, ldk, ldv before dtype
+        # H, dk, L, ldq, ldk, ldv, dtype, dropout, thresh, keep_div,
+        # stream, bh0, Hc, h0
         "fused_attention_bwd_strided": ([_P] * 11 + [_I] * 11
                                         + [_U, _F, _P, _I, _I, _I], _I),
         # seed, out, B*H, Tq, Sk, thresh, stream, bh0, H, Hc, h0

@@ -54,9 +54,8 @@ route, "mma" or "scalar", in ``.route_launches``). A
 tensor-parallel rank runs K1′/K2 over its heads h0 … h0 + H − 1 of rows
 of ``Hc`` heads: the Philox counter of (b, h) is then bh0 + b·Hc + h0 +
 h, so its heads draw the same heads' streams of a one-process call
-(defaults Hc = H, h0 = 0: bh0 + b·H + h, as before). Strided
-calls go to the ``*_strided`` C entries; dense ones keep the original
-entries, which pass the stride H·dk.
+(defaults Hc = H, h0 = 0: bh0 + b·H + h, as before). Every call goes
+to the ``*_strided`` C entries, a dense operand at the stride H·dk.
 """
 
 from __future__ import annotations
@@ -445,14 +444,10 @@ def _launch_k1(q, k, v, bias, mask, num_heads) -> torch.Tensor:
     strided = lds != (num_heads * dk,) * 3
     lib = _build.load("fused_attention_fwd")
     o = torch.empty((B, Tq, num_heads * dk), dtype=q.dtype, device=q.device)
-    head = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            bias.data_ptr() if L else None, mask.data_ptr(), o.data_ptr(),
-            B, Tq, Sk, num_heads, dk, L)
-    tail = (_DTYPE_CODE[q.dtype], _stream(q))
-    if strided:
-        err = lib.fused_attention_fwd_strided(*head, *lds, *tail)
-    else:
-        err = lib.fused_attention_fwd(*head, *tail)
+    err = lib.fused_attention_fwd_strided(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        bias.data_ptr() if L else None, mask.data_ptr(), o.data_ptr(), B, Tq,
+        Sk, num_heads, dk, L, *lds, _DTYPE_CODE[q.dtype], _stream(q))
     _raise_on(err, lib, "fused_attention_fwd", "fused_attention_error_string")
     fused_attention.launches += 1
     fused_attention.strided_launches += strided
@@ -527,16 +522,13 @@ def fused_attention_fwd_train(q: torch.Tensor, k: torch.Tensor,
     p = torch.empty((B, num_heads * Tq, Sk), dtype=torch.float32,
                     device=q.device)
     drop = dropout_rate > 0.0
-    head = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            bias.data_ptr() if L else None, mask.data_ptr(), seed.data_ptr(),
-            o.data_ptr(), p.data_ptr(), B, Tq, Sk, num_heads, dk, L)
-    tail = (_DTYPE_CODE[q.dtype], int(drop),
-            dropout_threshold(dropout_rate) if drop else 0,
-            1.0 - dropout_rate, _stream(q), int(bh0), Hc, int(h0))
-    if strided:
-        err = lib.fused_attention_fwd_train_strided(*head, *lds, *tail)
-    else:
-        err = lib.fused_attention_fwd_train(*head, *tail)
+    err = lib.fused_attention_fwd_train_strided(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        bias.data_ptr() if L else None, mask.data_ptr(), seed.data_ptr(),
+        o.data_ptr(), p.data_ptr(), B, Tq, Sk, num_heads, dk, L, *lds,
+        _DTYPE_CODE[q.dtype], int(drop),
+        dropout_threshold(dropout_rate) if drop else 0, 1.0 - dropout_rate,
+        _stream(q), int(bh0), Hc, int(h0))
     _raise_on(err, lib, "fused_attention_fwd_train",
               "fused_attention_error_string")
     fused_attention_fwd_train.launches += 1
@@ -626,17 +618,14 @@ def fused_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            device=q.device)
         dbias = torch.empty((H, L, L), dtype=torch.float32, device=q.device)
     drop = dropout_rate > 0.0
-    head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), p.data_ptr(),
-            seed.data_ptr(), do.data_ptr(), dq.data_ptr(), dk_.data_ptr(),
-            dv.data_ptr(), part.data_ptr() if L else None,
-            dbias.data_ptr() if L else None, B, Tq, Sk, H, dk, L)
-    tail = (_DTYPE_CODE[q.dtype], int(drop),
-            dropout_threshold(dropout_rate) if drop else 0,
-            1.0 - dropout_rate, _stream(q), int(bh0), Hc, int(h0))
-    if strided:
-        err = lib.fused_attention_bwd_strided(*head, *lds, *tail)
-    else:
-        err = lib.fused_attention_bwd(*head, *tail)
+    err = lib.fused_attention_bwd_strided(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), p.data_ptr(),
+        seed.data_ptr(), do.data_ptr(), dq.data_ptr(), dk_.data_ptr(),
+        dv.data_ptr(), part.data_ptr() if L else None,
+        dbias.data_ptr() if L else None, B, Tq, Sk, H, dk, L, *lds,
+        _DTYPE_CODE[q.dtype], int(drop),
+        dropout_threshold(dropout_rate) if drop else 0, 1.0 - dropout_rate,
+        _stream(q), int(bh0), Hc, int(h0))
     _raise_on(err, lib, "fused_attention_bwd",
               "fused_attention_bwd_error_string")
     fused_attention_bwd.launches += 1

@@ -45,11 +45,11 @@ stream as warm-up (also an eager step) and then captures both graphs
 (``graph.captures``); later calls replay (``graph.replays``).
 
 Counters. A capture launches nothing, so the kernel wrappers' host-side
-launch counters (``<wrapper>.launches`` and the like) are put back after
-it and, with the recorder's ``count``s made inside it
-(``profiling.diverted``), added again at each replay: the counts read as
-if the step had run eagerly. With the recorder on, a replay is the span
-``step.train`` around ``step.graph_replay``.
+launch counters (``ops/launches.py``) are put back after it and, with
+the recorder's ``count``s made inside it (``profiling.diverted``), added
+again at each replay: the counts read as if the step had run eagerly.
+With the recorder on, a replay is the span ``step.train`` around
+``step.graph_replay``.
 """
 
 from __future__ import annotations
@@ -60,6 +60,7 @@ import numpy as np
 import torch
 
 from vqacl_tpu_torch.models.prototype import ProtoState
+from vqacl_tpu_torch.ops import launches
 from vqacl_tpu_torch.train.optim import AdamState, tree_leaves, tree_unflatten
 from vqacl_tpu_torch.train.state import TrainState
 from vqacl_tpu_torch.utils import profiling as P
@@ -108,39 +109,6 @@ class CudaGraphs:
                               capture_error_mode="thread_local"):
             out = fn()
         return g.replay, out
-
-
-def _wrappers() -> tuple:
-    """The kernel wrappers that count their launches on the host."""
-    from vqacl_tpu_torch.ops import adamw, dw, moe, nms
-    from vqacl_tpu_torch.ops import fused_attention as fa
-
-    return (fa.fused_attention, fa.fused_attention_fwd_train,
-            fa.fused_attention_bwd, adamw.fused_adamw, dw.dw_splitk,
-            moe.grouped_swiglu, nms.greedy_nms)
-
-
-def read_launches() -> Dict[tuple, int]:
-    """Every launch counter of the wrappers: (wrapper, attribute, route
-    or None) → count."""
-    out = {}
-    for fn in _wrappers():
-        for attr, v in vars(fn).items():
-            if not attr.endswith("launches"):
-                continue
-            if isinstance(v, dict):
-                out.update({(fn, attr, k): n for k, n in v.items()})
-            else:
-                out[(fn, attr, None)] = v
-    return out
-
-
-def add_launches(delta: Dict[tuple, int], sign: int = 1) -> None:
-    for (fn, attr, k), n in delta.items():
-        if k is None:
-            setattr(fn, attr, getattr(fn, attr) + sign * n)
-        else:
-            getattr(fn, attr)[k] += sign * n
 
 
 def state_leaves(s: TrainState) -> List[torch.Tensor]:
@@ -285,16 +253,13 @@ class GraphedStep:
         self.eager_steps += 1
         P.count("graph.eager_steps")
         for q in (0, 1):
-            before = read_launches()
+            before = launches.read()
             with P.diverted() as counts:
                 entry.replay[q], entry.out[q] = self.backend.capture(
                     lambda q=q: self._body(q, static),
                     self.slots[0].state.generator)
-            after = read_launches()
-            entry.launches[q] = {k: n - before.get(k, 0)
-                                 for k, n in after.items()
-                                 if n != before.get(k, 0)}
-            add_launches(entry.launches[q], -1)   # nothing was launched
+            entry.launches[q] = launches.since(before)
+            launches.add(entry.launches[q], -1)   # nothing was launched
             entry.counts[q] = counts
         self.entries[key] = entry
         self.captures += 1
@@ -316,7 +281,7 @@ class GraphedStep:
             self._fill(entry, batch)
             entry.replay[p]()
             vals = entry.out[p].clone()
-        add_launches(entry.launches[p])
+        launches.add(entry.launches[p])
         for name, n in entry.counts[p].items():
             P.count(name, n)
         self.replays += 1
