@@ -427,10 +427,12 @@ FWD_SRC = "vqacl_tpu_torch/csrc/fused_attention_fwd.cu"
 # served and DER capture batches; K1′/K2 in train, replay and importance
 # steps, at a row offset (``offset_launches``: phase 12's second rank,
 # phase 13's microbatches past the first) or over a tp rank's heads
-# (``head_offset_launches``: phase 13); K5 in the probe (phase 6); N1 in
+# (``head_offset_launches``: phase 13); K5 in the head loss's backward
+# (phase 17's train steps, 2 a step) and the probe (phase 6); N1 in
 # phase 11's extraction runs; the fused optimizer's pair as each run
 # checked it per update (the ranks check their own); the grouped expert
-# GEMMs in phase 16's main-path runs
+# GEMMs in phase 16's main-path runs; H1 and H2 in phase 17's train steps.
+# K5's timed row is its two head-loss products at VL-Moonlight's shape
 KERNELS = (
     ("fused_attention_fwd", 0, FWD_SRC,
      "vqacl_tpu/ops/fused_attention.py:159"),
@@ -438,8 +440,10 @@ KERNELS = (
      "vqacl_tpu/ops/fused_attention.py:199"),
     ("fused_attention_bwd", 2, "vqacl_tpu_torch/csrc/fused_attention_bwd.cu",
      "vqacl_tpu/ops/fused_attention.py:272"),
+    # on the main path the head loss's d(logits) products, which XLA runs
+    # as einsums in JAX's jitted step; in the probe the Pallas dw kernel
     ("dw_splitk", 4, "vqacl_tpu_torch/csrc/dw_splitk.cu",
-     "scripts/mm_bench.py:121"),
+     "vqacl_tpu/models/vlt5.py:313-350, scripts/mm_bench.py:121"),
     # not a Pallas kernel: the two greedy suppressions JAX runs as a
     # lax.scan; its time is the RPN shape's
     ("greedy_nms", 6, "vqacl_tpu_torch/csrc/nms.cu",
@@ -449,7 +453,13 @@ KERNELS = (
      "vqacl_tpu/train/optim.py:191"),
     # not a Pallas kernel: vqacl_tpu has no mixture of experts
     ("moe_grouped_gemm", 5, "vqacl_tpu_torch/csrc/moe_grouped_gemm.cu",
-     "none (no mixture of experts in vqacl_tpu)"))
+     "none (no mixture of experts in vqacl_tpu)"),
+    # not Pallas kernels: the head loss's products and log-sum-exp that
+    # XLA fuses in JAX's jitted step
+    ("head_lse", 7, "vqacl_tpu_torch/csrc/head_loss.cu",
+     "vqacl_tpu/models/vlt5.py:313-350"),
+    ("head_dlogits", 8, "vqacl_tpu_torch/csrc/head_loss.cu",
+     "vqacl_tpu/models/vlt5.py:313-350"))
 
 
 def kernels_line(ctx) -> list:

@@ -13,8 +13,9 @@ from smoke import harness as h
 from smoke.harness import (DROPOUT, EVAL_BATCH, TRAIN_BATCH, _bound, fail, log,
                            put_ab, time_ab, time_ms)
 from vqacl_tpu_torch import mm_bench
-from vqacl_tpu_torch.ops import (_build, dw, fused_attention as fa, launches,
-                                 nms)
+from vqacl_tpu_torch.models import vlt5
+from vqacl_tpu_torch.ops import (_build, dw, fused_attention as fa,
+                                 head_loss as HL, launches, nms)
 from vqacl_tpu_torch.utils.config import Config, tiny_model_config
 
 # H100 SXM dense peaks (NVIDIA data sheet), FLOP/s by type
@@ -34,6 +35,21 @@ DW_LADDER = ((16, 64, 128), (64, 128, 256), (1000, 768, 3072),
 DW_PROBE = (4480, 768, 3072)
 DW_ODD = ((100, 40, 72), (97, 131, 257))
 DW_RTOL = 1e-5
+# the LM head's loss (H1, H2 and its two K5 products) at both cells'
+# shapes, (name, B, T, D, V, tied): VL-T5's tied head (80 x 10 answer rows,
+# d 768, 32,200 words, rescale d^-0.5) and VL-Moonlight's untied one (d
+# 2048, 163,840 words). Kernel vs plain: both sum the same bf16 products in
+# f32 in other orders, so the loss and the scores' cotangent differ in the
+# last f32 bits (relative); d(logits) is rounded to bf16 on each side from
+# f32 values that differ in those bits, so an element may land one bf16 ulp
+# (2^-8 relative) apart, and dh is rounded to bf16 last: dh and dshared are
+# held by the norm of the difference over the plain one's norm, the loss and
+# dscores by the largest difference over the largest plain value. An H100
+# read loss 1.7e-7, dscores 3.6e-7, dh 6.2e-4 (the bf16 roundings) and
+# dshared 1.4e-6 at Moonlight's shape.
+HEAD_SHAPES = (("head_vlt5", 80, 10, 768, 32200, True),
+               ("head_moonlight", 80, 10, 2048, 163840, False))
+HEAD_TOL = {"loss": 1e-5, "dscores": 1e-5, "dh": 5e-3, "dshared": 1e-4}
 MM_BENCH_SHAPES = None       # None: the probe's own
 MM_BENCH_REPS = 5
 # (name, B, Tq, Sk, H, dk, L): the edges of the bf16 tensor-core routes
@@ -109,11 +125,15 @@ def kernel_checks(ctx):
     RPN and the 36-box sweep) at the RPN's shape (6000 score-sorted boxes at IoU 0.7, a tail
     of invalid rows), the sweep's (300 boxes x 5 thresholds), all rows
     invalid and a scarce sweep, every keep mask bit-equal to its plain
-    version and a second launch bit-equal. CUDA-event times of each kernel, its plain version and one
-    library call (a yardstick only), queued behind a spin kernel so that
-    they time the card's work and not the host's launch rate; K1 and K1′
-    also with the host's enqueue included (``call_ms``). A bf16 training
-    call that K2 cannot take (Sk = 512) is refused before K1′ launches.
+    version and a second launch bit-equal; the head loss (H1, H2 and K5)
+    at VL-T5's and VL-Moonlight's shapes (``HEAD_SHAPES``) against the
+    plain version, timed (K5's row of the kernels line: its two products
+    at VL-Moonlight's shape, as the train step runs them). CUDA-event times of each kernel, its plain
+    version and one library call (a yardstick only), queued behind a spin
+    kernel so that they time the card's work and not the host's launch
+    rate; K1 and K1′ also with the host's enqueue included (``call_ms``).
+    A bf16 training call that K2 cannot take (Sk = 512) is refused before
+    K1′ launches.
 
     With ``--base`` the ``ab`` line. Keeps the timed rows of the kernels
     line, the decoder shapes' times (phase 4's summary) and the
@@ -217,6 +237,10 @@ def kernel_checks(ctx):
         for dname in ("bfloat16", "float32"):
             check_dw(dw, "dw_odd", *shape, dname)
     check_dw(dw, "dw_probe_f32", *DW_PROBE, "float32")
+    # the head loss at both cells' shapes (H1, H2, K5), timed
+    head = {name: check_head_loss(name, *shape, timed=True)
+            for name, *shape in HEAD_SHAPES}
+    main = head[HEAD_SHAPES[-1][0]]
     # N1 at the RPN's and the sweep's shapes, with nothing valid, and a
     # sweep that even IoU 0.9 leaves short of 36 boxes
     n1 = check_nms(nms, "nms_rpn", *NMS_RPN, timed=True)
@@ -247,8 +271,9 @@ def kernel_checks(ctx):
             "K5 probe": pick_ab(k5)}))
     ctx.rows.update({"fused_attention_fwd": k1,
                      "fused_attention_fwd_train": k1p,
-                     "fused_attention_bwd": k2, "dw_splitk": k5,
-                     "greedy_nms": n1})
+                     "fused_attention_bwd": k2, "dw_splitk": main["k5"],
+                     "greedy_nms": n1, "head_lse": main["h1"],
+                     "head_dlogits": main["h2"]})
     ctx.dec_times = {
         "self": {"K1p": _pick(dec_rows["self"][0]),
                  "K2": _pick(dec_rows["self"][1])},
@@ -265,6 +290,7 @@ def kernel_checks(ctx):
             "route", "ms", "base_ms", "plain_ms", "library_ms",
             "library_bf16_ms", "bound_ms", "bound_by") if k in k5},
         "nms_kernel_times": {"rpn": _pick(n1), "sweep": _pick(n1_sweep)},
+        "head_loss": head,
         "nextqa_kernel_times": {"K1": _pick(nq_k1), "K1p": _pick(nq_k1p),
                                 "K2": _pick(nq_k2)}}
 
@@ -689,6 +715,199 @@ def check_dw(dw, name, K, D, F, dtype, timed=False):
         f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']}: {nbytes} B, "
         f"{flops} FLOP)")
     return row
+
+
+def head_inputs(B, T, D, V, tied, seed):
+    """bf16 hidden [B, T, D], an f32 head [V, D] (T5's embedding N(0, 1),
+    Moonlight's head N(0, 0.02): logits of O(1) either way), labels with
+    padding, a row of all -100 and a label in the ragged last chunk, and
+    scores."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    hidden = torch.randn(B, T, D, generator=g, device="cuda").to(
+        torch.bfloat16)
+    shared = torch.randn(V, D, generator=g, device="cuda") * (
+        1.0 if tied else 0.02)
+    labels = torch.randint(0, V, (B, T), generator=g, device="cuda")
+    labels[::2, T - 3:] = -100
+    labels[1] = -100
+    labels[2, 0] = V - 1
+    scores = torch.rand(B, generator=g, device="cuda")
+    return hidden, shared, labels, scores
+
+
+def head_grads(hidden, shared, labels, scores, rescale, route=None):
+    """(loss, dh, dshared, dscores) through ``fused_head_loss``'s op on
+    ``route`` (None: the route it picks)."""
+    h, s, sc = (t.detach().requires_grad_() for t in (hidden, shared,
+                                                       scores))
+    loss = vlt5._FusedHeadLoss.apply(h, s, labels, sc, rescale, route)
+    return (loss.detach(),) + torch.autograd.grad(loss, (h, s, sc))
+
+
+def head_plain(hidden, shared, labels, scores, rescale):
+    """The same through the plain version."""
+    return head_grads(hidden, shared, labels, scores, rescale, "plain")
+
+
+def check_head_loss(name, B, T, D, V, tied, timed=False):
+    """The head loss on its kernels (H1, H2, two K5 products) vs the plain
+    version: the loss, dh, dshared and dscores within ``HEAD_TOL``, a
+    second run equal bit for bit, H1's lse and label logit and H2's
+    d(logits) against their plain versions, K5's two products against
+    theirs within K5's tolerance, the launches counted; with ``timed`` the
+    times of H1, H2, the two products and the whole forward + backward
+    beside the plain version, the library yardstick (cuBLAS's bf16
+    products with f32 out, ``torch.logsumexp``) and the bounds: the four
+    products this design runs, and three (no recomputed logits) with the
+    f32 logits written and read once."""
+    rows = B * T
+    rescale = D ** -0.5 if tied else 1.0
+    route = HL.head_loss_route("cuda", torch.bfloat16, rows, D, V)
+    if route != "wgmma":
+        fail(f"{name}: the head loss took the {route} route")
+    inputs = head_inputs(B, T, D, V, tied, seed=D + V)
+    before = launches.read()
+    out = head_grads(*inputs, rescale)
+    torch.cuda.synchronize()
+    w = h.since(before)
+    again = head_grads(*inputs, rescale)
+    ref = head_plain(*inputs, rescale)
+    torch.cuda.synchronize()
+    err = {}
+    for k, a, b in zip(("loss", "dh", "dshared", "dscores"), out, ref):
+        a, b = a.float(), b.float()
+        if k in ("dh", "dshared"):
+            err[k] = float((a - b).norm() / b.norm())
+        else:
+            err[k] = float((a - b).abs().max() / b.abs().max())
+    same = all(torch.equal(a, b) for a, b in zip(out, again))
+    finite = all(bool(torch.isfinite(t).all()) for t in out)
+    n = {"head_lse": w.of(HL.head_lse), "head_dlogits": w.of(HL.head_dlogits),
+         "dw_splitk wgmma": w.of(dw.dw_splitk, "route_launches", "wgmma")}
+    # H1 and H2 alone against the module's plain versions
+    hs = (inputs[0] * vlt5.rounded(rescale, torch.bfloat16)
+          if tied else inputs[0]).reshape(rows, D).contiguous()
+    wb = inputs[1].to(torch.bfloat16)
+    safe = vlt5._safe_labels(inputs[2], V).to(torch.int32).reshape(-1)
+    wts = vlt5._token_weights(inputs[2], inputs[3]).reshape(-1)
+    lse, ll = HL.head_lse(hs, wb, safe)
+    lse_p, ll_p = HL.lse_reference(hs, wb, safe)
+    dl, dl_t = HL.dlogits_reference(hs, wb, safe, lse_p, wts)
+    dk, dk_t = HL.head_dlogits(hs, wb, safe, lse_p, wts)
+    # K5's two products (dh from the transpose, dshared) vs their plain
+    # versions, within K5's tolerance
+    k5_pairs = {"dh": (dk_t, wb), "dshared": (dk, hs)}
+    k5_err = {}
+    for k, (x, g) in k5_pairs.items():
+        diff = (dw.dw_splitk(x, g) - dw.dw_splitk_reference(x, g)).abs()
+        tol = DW_RTOL * (x.float().abs().t() @ g.float().abs()) + 1e-6
+        k5_err[k] = (float(diff.max()), bool((diff <= tol).all()))
+        del diff, tol
+    torch.cuda.synchronize()
+    lse_err = float(torch.maximum((lse - lse_p).abs().max(),
+                                  (ll - ll_p).abs().max()))
+    dl_err = float((dk.float() - dl.float()).abs().max())
+    dl_ulps = float(((dk.float() - dl.float()).abs()
+                     / dl.float().abs().clamp_min(1e-30)).max())
+    t_ok = torch.equal(dk.t(), dk_t[:, :rows]) and not bool(
+        dk_t[:, rows:].any())
+    k5_ok = all(v[1] for v in k5_err.values())
+    ok = (finite and same and t_ok and k5_ok
+          and all(err[k] <= HEAD_TOL[k] for k in err)
+          and n == {"head_lse": 2, "head_dlogits": 1, "dw_splitk wgmma": 2})
+    plan = HL.head_plan(rows, D, V)
+    log(f"kernel_check {name}: route={route} rows={rows} D={D} V={V} "
+        f"rescale={rescale:.6g} ({plan.m_tiles} x {plan.chunks} tiles, last "
+        f"chunk {plan.ragged} columns) errors {json.dumps(err)} tol "
+        f"{json.dumps(HEAD_TOL)}; H1 lse/label logit max_abs_err "
+        f"{lse_err:.3e}; H2 d(logits) max_abs_err {dl_err:.3e} (relative "
+        f"{dl_ulps:.3e}), transpose equal: {t_ok}; K5 dh/dshared "
+        f"max_abs_err {k5_err['dh'][0]:.3e}/{k5_err['dshared'][0]:.3e} "
+        f"within tol={DW_RTOL:g}*sum|x*g| + 1e-6: {k5_ok}; launches "
+        f"{json.dumps(n)}; "
+        f"second launch equal: {same} -> {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        fail(f"{name}: the head loss's kernels disagree with the plain "
+             f"version or with themselves")
+    rec = {"route": route, "errors": err, "lse_max_abs_err": lse_err,
+           "dlogits_max_abs_err": dl_err, "launches": n,
+           "k5_max_abs_err": {k: v[0] for k, v in k5_err.items()}}
+    if not timed:
+        return rec
+    sets = [inputs, head_inputs(B, T, D, V, tied, seed=D + V + 1)]
+    def library():
+        lg = mm_f32_out(hs, wb.t())
+        lse_l = torch.logsumexp(lg, dim=-1)
+        p = torch.exp(lg - lse_l[:, None])
+        p.scatter_add_(1, safe.long()[:, None],
+                       -torch.ones((rows, 1), device="cuda"))
+        d = (p * wts[:, None]).to(torch.bfloat16)
+        return mm_f32_out(d, wb), mm_f32_out(d.t(), hs)
+
+    rs = vlt5.rounded(rescale, torch.bfloat16)
+    one = torch.ones((), device="cuda")
+
+    def op(s, fwd, bwd):
+        """The op's forward and backward as ``_FusedHeadLoss`` runs them on
+        a route, without autograd's host work (the card's time)."""
+        hidden, shared, labels, scores = s
+        lse, ll, res = fwd(hidden, shared, vlt5._safe_labels(labels, V), rs)
+        w = vlt5._token_weights(labels, scores)
+        return (((lse - ll) * w).sum(), bwd(res, lse, w * one, rs),
+                vlt5._dscores(one, lse, ll, labels, scores))
+
+    rec["ms"] = time_ms([lambda s=s: op(s, HL.head_loss_forward,
+                                        HL.head_loss_backward)
+                         for s in sets])
+    rec["plain_ms"] = time_ms([lambda s=s: op(s, vlt5._plain_forward,
+                                              vlt5._plain_backward)
+                               for s in sets])
+    rec["library_ms"] = time_ms([library])
+    flops = 2 * rows * V * D
+    rec["bound_ms"], rec["bound_by"] = _bound(
+        4 * rows * D + 8 * V * D, 4 * flops / PEAK_FLOPS["bfloat16"])
+    rec["bound3_ms"], rec["bound3_by"] = _bound(
+        4 * rows * D + 8 * V * D + 8 * rows * V,
+        3 * flops / PEAK_FLOPS["bfloat16"])
+    rec["h1"] = {"ms": time_ms([lambda: HL.head_lse(hs, wb, safe)]),
+                 "plain_ms": time_ms([lambda: HL.lse_reference(hs, wb, safe)]),
+                 "library_ms": time_ms([lambda: torch.logsumexp(
+                     mm_f32_out(hs, wb.t()), dim=-1)]),
+                 "max_abs_err": lse_err}
+    rec["h2"] = {"ms": time_ms([lambda: HL.head_dlogits(hs, wb, safe, lse,
+                                                        wts)]),
+                 "plain_ms": time_ms([lambda: HL.dlogits_reference(
+                     hs, wb, safe, lse, wts)]),
+                 "library_ms": time_ms([lambda: (torch.exp(
+                     mm_f32_out(hs, wb.t()) - lse[:, None]) * wts[:, None]
+                     ).to(torch.bfloat16)]),
+                 "max_abs_err": dl_err}
+    for key, nbytes in (("h1", 2 * (rows * D + V * D) + 8 * rows),
+                        ("h2", 2 * (rows * D + V * D) + 4 * rows * V)):
+        rec[key]["bound_ms"], rec[key]["bound_by"] = _bound(
+            nbytes, flops / PEAK_FLOPS["bfloat16"])
+    rec["k5_ms"] = {k: time_ms([lambda x=x, g=g: dw.dw_splitk(x, g)])
+                    for k, (x, g) in k5_pairs.items()}
+    # K5's row of the kernels line: its two products as a step runs them
+    k5_bytes = sum((x.numel() + g.numel()) * 2 + x.shape[1] * g.shape[1] * 4
+                   for x, g in k5_pairs.values())
+    k5 = {"ms": sum(rec["k5_ms"].values()),
+          "max_abs_err": max(v[0] for v in k5_err.values()),
+          "plain_ms": time_ms([lambda: [dw.dw_splitk_reference(*xg)
+                                        for xg in k5_pairs.values()]]),
+          "library_ms": time_ms([lambda: (mm_f32_out(dk, wb),
+                                          mm_f32_out(dk.t(), hs))])}
+    k5["bound_ms"], k5["bound_by"] = _bound(
+        k5_bytes, 2 * flops / PEAK_FLOPS["bfloat16"])
+    rec["k5"] = k5
+    log(f"kernel_time {name}: forward + backward kernels_ms={rec['ms']:.5f} "
+        f"plain_ms={rec['plain_ms']:.5f} library_ms={rec['library_ms']:.5f} "
+        f"bound_ms={rec['bound_ms']:.5f} ({rec['bound_by']}: 4 x {flops} "
+        f"FLOP), three products with the f32 logits' round trip "
+        f"bound3_ms={rec['bound3_ms']:.5f} ({rec['bound3_by']}); H1 "
+        f"{json.dumps(rec['h1'])}; H2 {json.dumps(rec['h2'])}; K5 "
+        f"{json.dumps(rec['k5_ms'])}, both {json.dumps(k5)}")
+    return rec
 
 
 def nms_inputs(N, n_invalid, seed, clusters=0):

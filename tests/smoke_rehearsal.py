@@ -4,8 +4,9 @@ chip_smoke.py needs a CUDA device and nvcc, so the tests cannot run it
 as it is. ``install()`` maps CUDA devices to the CPU (``CudaOnCpu``, a
 ``TorchFunctionMode`` that rewrites ``device="cuda"``), times CUDA
 events on the host clock, skips the build, replaces each counted kernel
-wrapper (K1, K1′, K2, K5, N1, the fused AdamW, the grouped expert GEMMs)
-by its checks and plain version plus the wrapper's launch counters, and
+wrapper (K1, K1′, K2, K5, N1, the fused AdamW, the grouped expert GEMMs,
+the head loss's H1 and H2) by its checks and plain version plus the
+wrapper's launch counters, and
 cuts every phase to tiny widths (t5-base's data shapes, d_model 32 as 2
 heads of 16, 2 layers; a few calls per timing loop, since host-clock
 times of the plain versions check nothing). It pins one intra-op thread
@@ -235,6 +236,31 @@ def _counted_wrappers():
     counted_moe.launches = 0
     MO.grouped_swiglu = counted_moe
 
+    # the head loss's H1 and H2: bf16 takes their route, as it does on the
+    # card at the widths the rehearsal's tiny ones stand for (d_model 32 is
+    # below their 64-wide steps); the wrappers' checks and plan, then the
+    # plain versions, counting as on the card (2 launches for H1, 1 for H2)
+    from vqacl_tpu_torch.ops import head_loss as HL
+
+    HL.head_loss_route = lambda device, dtype, *a: (
+        "wgmma" if dtype == torch.bfloat16 else "plain")
+
+    def counted_head(fn, reference):
+        def counted(hs, wb, labels, *rowwise):
+            HL._validate(hs, wb, labels, *rowwise)
+            HL.head_plan(hs.shape[0], hs.shape[1], wb.shape[0])
+            counted.launches += fn.per_call
+            counted.route_launches["wgmma"] += fn.per_call
+            return reference(hs, wb, labels, *rowwise)
+
+        counted.__name__, counted.per_call = fn.__name__, fn.per_call
+        counted.launches = 0
+        counted.route_launches = dict.fromkeys(HL.ROUTES, 0)
+        return counted
+
+    HL.head_lse = counted_head(HL.head_lse, HL.lse_reference)
+    HL.head_dlogits = counted_head(HL.head_dlogits, HL.dlogits_reference)
+
 
 def _tiny_models():
     """Phase 11's detector and 3D ResNeXt at reduced depth (C4 1024 and
@@ -281,6 +307,8 @@ def _tiny_models():
 TINY = dict(
     EVAL_BATCH=4, TRAIN_BATCH=8, TRAIN_STEPS=4,
     DW_PROBE=(64, 16, 24), DW_LADDER=((16, 64, 128), (24, 16, 40)),
+    HEAD_SHAPES=(("head_vlt5", 4, 5, 64, 600, True),
+                 ("head_moonlight", 4, 5, 128, 520, False)),
     MM_BENCH_SHAPES=dict(B=2, S=6, D=16, F=24, H=2, dk=8), MM_BENCH_REPS=2,
     CL_ITEMS=(24, 8, 8), CL_REG_TRAIN=16, CL_IMAGES=16, CL_M_SIZE=10,
     CL_TINY=(24, 8, 8), CL_TINY_BATCH=8,

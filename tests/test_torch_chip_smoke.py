@@ -59,22 +59,26 @@ def test_chip_smoke_rehearsal_on_cpu():
     # rank, phase 13's microbatches) and over a tp rank's heads
     offs = {"offset_launches", "head_offset_launches"}
     assert [set(k) for k in kernels] == [
-        keys, keys | offs, keys | offs, keys, keys, keys, keys]
+        keys, keys | offs, keys | offs, keys, keys, keys, keys, keys, keys]
     assert [k["name"] for k in kernels] == [
         "fused_attention_fwd", "fused_attention_fwd_train",
         "fused_attention_bwd", "dw_splitk", "greedy_nms", "fused_adamw",
-        "moe_grouped_gemm"]
+        "moe_grouped_gemm", "head_lse", "head_dlogits"]
     for k in kernels:
         assert k["route"] == "cuda" and k["bound_by"] in ("bytes",
                                                           "operations")
         assert os.path.exists(os.path.join(REPO, k["source"]))
     for k in kernels[:3]:
         assert k["replaces"].startswith("vqacl_tpu/ops/fused_attention.py:")
-    k1, k1p, k2, k5, n1, opt, m1 = kernels
+    k1, k1p, k2, k5, n1, opt, m1, h1, h2 = kernels
+    for k in (h1, h2):
+        assert k["source"] == "vqacl_tpu_torch/csrc/head_loss.cu"
+        assert k["replaces"] == "vqacl_tpu/models/vlt5.py:313-350"
     assert m1["source"] == "vqacl_tpu_torch/csrc/moe_grouped_gemm.cu"
     assert m1["replaces"] == "none (no mixture of experts in vqacl_tpu)"
     assert opt["replaces"] == "vqacl_tpu/train/optim.py:191"
-    assert k5["replaces"] == "scripts/mm_bench.py:121"
+    assert k5["replaces"] == \
+        "vqacl_tpu/models/vlt5.py:313-350, scripts/mm_bench.py:121"
     assert k5["source"] == "vqacl_tpu_torch/csrc/dw_splitk.cu"
     assert n1["replaces"] == \
         "vqacl_tpu/vision/rpn.py:154, vqacl_tpu/ops/nms.py:83"

@@ -3,8 +3,9 @@
 ``tests/torch_graph_fake.py`` (a capture that leaves no trace, replays
 that count nothing themselves): eager and graphed steps in turns, bit
 for bit after each, one capture and replays, K1'/K2 2 each a step (2
-layers) counted on replays as on eager steps, the fused optimizer's pair
-in every update, then the timed steps of each."""
+layers) and the head loss's H1, H2 and two K5 products counted on replays
+as on eager steps, the fused optimizer's pair in every update, then the
+timed steps of each."""
 
 import pytest
 
@@ -28,5 +29,12 @@ def test_chip_smoke_graph_rehearsal_on_cpu():
         "fused_attention_fwd", "fused_attention_fwd_train",
         "fused_attention_bwd")]
     assert k["fused_adamw"]["launches"] == 2 * 2 * steps + 2 * 2 * timed
+    # the head loss's H1 (2 launches), H2 (1) and its two K5 products on
+    # the wgmma route a step in each run, replays included
+    assert p17["head_launches"] == {"eager": [2 * steps, steps, 2 * steps],
+                                    "graphed": [2 * steps, steps, 2 * steps]}
+    assert k["head_lse"]["launches"] == 2 * 2 * (steps + timed)
+    assert k["head_dlogits"]["launches"] == 2 * (steps + timed)
+    assert k["dw_splitk"]["launches"] == 2 * 2 * (steps + timed)
     assert set(p17["timed"]) == {"eager", "graphed"}
     assert "graph_replay: bs 8 bf16, 8 train/replay steps" in r.stdout

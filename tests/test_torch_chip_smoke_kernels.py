@@ -17,6 +17,7 @@ def test_chip_smoke_kernels_rehearsal_on_cpu():
     # bits
     checks = [l for l in lines if l.startswith("kernel_check ")
               and not l.startswith("kernel_check dw_")
+              and not l.startswith("kernel_check head_")
               and not l.startswith("kernel_check refused")]
     assert all("second launch equal: True" in l for l in checks
                if "rate=" not in l)
@@ -91,9 +92,27 @@ def test_chip_smoke_kernels_rehearsal_on_cpu():
                in l for l in n1_checks)
     assert sum(l.startswith("kernel_time nms_") for l in lines) == 2
     assert set(summary["nms_kernel_times"]) == {"rpn", "sweep"}
+    # the head loss at VL-T5's tied and VL-Moonlight's untied shapes: its
+    # route, each launch counted, a second run equal, timed
+    head = [l for l in lines if l.startswith("kernel_check head_")]
+    assert [l.split(":")[0] for l in head] == [
+        "kernel_check head_vlt5", "kernel_check head_moonlight"]
+    assert all("route=wgmma" in l and l.endswith("-> ok") and
+               "second launch equal: True" in l and '"head_lse": 2, '
+               '"head_dlogits": 1, "dw_splitk wgmma": 2' in l and
+               "K5 dh/dshared max_abs_err " in l and "+ 1e-6: True;" in l
+               for l in head)
+    assert sum(l.startswith("kernel_time head_") for l in lines) == 2
+    # K5's row of the kernels line: its two products at the last shape
+    moon = summary["head_loss"]["head_moonlight"]
+    assert rows["dw_splitk"] == moon["k5"]
+    assert rows["dw_splitk"]["ms"] == sum(moon["k5_ms"].values())
+    assert moon["bound3_by"] in ("bytes", "operations")
+    assert set(summary["head_loss"]) == {"head_vlt5", "head_moonlight"}
     # the kernels line's timed rows; nothing of phase 2 is counted
     assert set(rows) == {"fused_attention_fwd", "fused_attention_fwd_train",
-                         "fused_attention_bwd", "dw_splitk", "greedy_nms"}
+                         "fused_attention_bwd", "dw_splitk", "greedy_nms",
+                         "head_lse", "head_dlogits"}
     for row in rows.values():
         assert row["bound_by"] in ("bytes", "operations")
     assert rows["greedy_nms"]["library_ms"] is None

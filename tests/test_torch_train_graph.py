@@ -111,7 +111,8 @@ def test_ineligible_steps_stay_eager(monkeypatch, rec, kw):
     assert (step.eager_steps, step.captures, step.replays) == (2, 0, 0)
     assert rec.take().counters == {"graph.eager_steps": 2,
                                    "optim.eager_leaves": 2 * len(
-                                       tree_leaves(state.params))}
+                                       tree_leaves(state.params)),
+                                   "head_loss.plain": 2 * cfg.train.grad_accum}
 
 
 def test_a_regularizer_keeps_the_call_eager(monkeypatch):
@@ -306,7 +307,8 @@ def test_launch_registry_reads_adds_and_resets_every_counter(monkeypatch):
         ("route_launches", "mma"), ("route_launches", "scalar")}
     assert {f.__name__ for f, _, _ in snap} == {
         "fused_attention", "fused_attention_fwd_train", "fused_attention_bwd",
-        "fused_adamw", "dw_splitk", "grouped_swiglu", "greedy_nms"}
+        "fused_adamw", "dw_splitk", "grouped_swiglu", "greedy_nms",
+        "head_lse", "head_dlogits"}
     launches.add(snap)
     assert launches.read() == {k: 2 * v for k, v in snap.items()}
     assert launches.since(snap) == snap
@@ -349,11 +351,13 @@ def test_replays_count_what_the_eager_step_counts(monkeypatch, rec):
     assert got[False][0] == got[True][0] == 8
     assert got[False][1] == {"graph.eager_steps": 4,
                              "optim.fused_leaves": 4 * n,
-                             "optim.eager_leaves": 4 * n}
+                             "optim.eager_leaves": 4 * n,
+                             "head_loss.plain": 4}
     assert got[True][1] == {"graph.eager_steps": 1, "graph.captures": 1,
                             "graph.replays": 3,
                             "optim.fused_leaves": 4 * n,
-                            "optim.eager_leaves": 4 * n}
+                            "optim.eager_leaves": 4 * n,
+                            "head_loss.plain": 4}
 
 
 def test_a_replay_is_one_span_in_the_train_span(monkeypatch, rec):
@@ -363,7 +367,7 @@ def test_a_replay_is_one_span_in_the_train_span(monkeypatch, rec):
     state, _ = step(_state(cfg), _batch(cfg))
     first = [s[0] for s in rec.take().spans]
     assert set(first) == {"step.train", "step.inputs", "step.forward",
-                          "step.backward", "step.optimizer"}
+                          "step.backward", "step.optimizer", "head_loss"}
     step(state, _batch(cfg))
     spans = sorted(rec.take().spans, key=lambda s: s[3])
     assert [s[0] for s in spans] == ["step.train", "step.graph_replay"]

@@ -85,6 +85,7 @@
 
 namespace {
 
+using sm90::box_map;
 using sm90::ldsm_x4_trans;
 using sm90::mma_bf16;
 
@@ -571,59 +572,6 @@ cudaError_t launch_mma(const void* x, const void* g, float* out, int K,
       static_cast<const __nv_bfloat16*>(x),
       static_cast<const __nv_bfloat16*>(g), out, K, D, F);
   return cudaGetLastError();
-}
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-struct EncodeEntry {
-  EncodeTiled fn;
-  cudaError_t err;
-};
-
-// The driver's cuTensorMapEncodeTiled, looked up once.
-const EncodeEntry& encode_entry() {
-  static const EncodeEntry entry = [] {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
-                                              cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess &&
-        (found != cudaDriverEntryPointSuccess || fn == nullptr))
-      err = cudaErrorSymbolNotFound;
-    return EncodeEntry{reinterpret_cast<EncodeTiled>(fn), err};
-  }();
-  return entry;
-}
-
-// A row-major [rows, cols] tensor (bf16 or f32) moved in boxes of box_rows x
-// box_cols (128 bytes wide) with the 128-byte swizzle; out-of-range elements
-// read as zeros and are not written.
-cudaError_t box_map(CUtensorMap* map, const void* base, int rows, int cols,
-                    bool f32, int box_rows) {
-  const EncodeEntry& e = encode_entry();
-  if (e.err != cudaSuccess) return e.err;
-  const int elem = f32 ? 4 : 2;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * elem};
-  const cuuint32_t box[2] = {(cuuint32_t)(128 / elem), (cuuint32_t)box_rows};
-  const cuuint32_t unit[2] = {1, 1};
-  const CUresult r = e.fn(
-      map,
-      f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-      2, const_cast<void*>(base), dims, strides, box, unit,
-      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 // The launch of a unit's cluster: two blocks, dynamic shared memory set.

@@ -1,17 +1,24 @@
 // Hopper (sm_90a) helpers for kernels that stage tiles with the Tensor
 // Memory Accelerator and multiply them with warpgroup MMA (wgmma): mbarrier
 // rings (arrivals also from the other blocks of a thread-block cluster), 2-D
-// TMA loads (also multicast to a cluster) and stores, bulk copies, wgmma
-// descriptors for operands that are MN-major in shared memory (the dimension
-// of M or N contiguous, 128-byte swizzle), m64n256k16 bf16 wgmma with f32
-// accumulators, register hand-over between warpgroups (setmaxnreg), named
-// barriers, an L2 eviction hint and the acquire/release flags of a
-// cross-block sum. Used by the weight gradient (dw_splitk.cu).
+// TMA loads (also multicast to a cluster) and stores, the host's encoding of
+// a row-major tensor's map, bulk copies, wgmma descriptors for operands that
+// are MN-major or K-major in shared memory (128-byte swizzle), m64n256k16
+// bf16 wgmma with f32 accumulators, register hand-over between warpgroups
+// (setmaxnreg), named barriers, an L2 eviction hint and the acquire/release
+// flags of a cross-block sum. Used by the weight gradient (dw_splitk.cu) and
+// the LM-head loss (head_loss.cu).
 //
 // Shared-memory tiles come from TMA boxes of 64 rows (k) x 64 bf16 (128
 // bytes, m or n) with CU_TENSOR_MAP_SWIZZLE_128B: row r of a box lies at
 // byte r * 128, its 16-byte chunk c at chunk c ^ (r % 8), and the pattern
 // repeats every 8 rows (1024 bytes), so a box must start 1024-byte aligned.
+// A K-major operand is such a box with k along its 128-byte rows (m or n
+// down the box): its descriptor's stride byte offset is again the step
+// between groups of 8 rows (1024 bytes), the leading byte offset is unused
+// (one wgmma's 16 k lie inside a row), and the next 16 k start 32 bytes
+// further on; the swizzle is applied to the address, so advancing the start
+// address is again all a k step needs.
 // For such MN-major operands the wgmma descriptor's stride byte offset is the
 // step between groups of 8 k rows (1024 bytes) and its leading byte offset the
 // step between 64-element columns of boxes along M or N (PTX ISA, "Matrix
@@ -62,6 +69,13 @@ __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
 
 // Wait until the phase of parity `parity` has completed. A barrier starts in
 // phase 0; waiting on parity 1 of a fresh barrier returns at once.
+// One arrival of this thread on a barrier of its own block.
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
   const unsigned a = smem_u32(bar);
   unsigned done;
@@ -204,6 +218,12 @@ __device__ __forceinline__ uint64_t desc_mn_sw128(unsigned addr, unsigned lbo,
          (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
 }
 
+// Descriptor of a K-major bf16 operand at shared address `addr` with the
+// 128-byte swizzle (see the note at the top).
+__device__ __forceinline__ uint64_t desc_k_sw128(unsigned addr) {
+  return desc_mn_sw128(addr, 16, 8 * 128);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -227,9 +247,11 @@ __device__ __forceinline__ void fence_operands(float (&d)[R]) {
 }
 
 // d (+)= a * b over 64 x 256 x 16: a and b bf16 in shared memory, both
-// MN-major (transpose flags 1, 1); scale_d 0 discards d's old value.
-__device__ __forceinline__ void wgmma_mn(float (&d)[128], uint64_t a,
-                                         uint64_t b, int scale_d) {
+// MN-major (kTrans 1: transpose flags 1, 1) or both K-major (kTrans 0);
+// scale_d 0 discards d's old value.
+template <int kTrans>
+__device__ __forceinline__ void wgmma_256(float (&d)[128], uint64_t a,
+                                          uint64_t b, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
@@ -244,7 +266,7 @@ __device__ __forceinline__ void wgmma_mn(float (&d)[128], uint64_t a,
       "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
       "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
       "%120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, 1, 1;\n}\n"
+      "}, %128, %129, p, 1, 1, %131, %131;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -267,7 +289,17 @@ __device__ __forceinline__ void wgmma_mn(float (&d)[128], uint64_t a,
         "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
         "+f"(d[126]), "+f"(d[127])
-      : "l"(a), "l"(b), "r"(scale_d));
+      : "l"(a), "l"(b), "r"(scale_d), "n"(kTrans));
+}
+
+__device__ __forceinline__ void wgmma_mn(float (&d)[128], uint64_t a,
+                                         uint64_t b, int scale_d) {
+  wgmma_256<1>(d, a, b, scale_d);
+}
+
+__device__ __forceinline__ void wgmma_k(float (&d)[128], uint64_t a,
+                                        uint64_t b, int scale_d) {
+  wgmma_256<0>(d, a, b, scale_d);
 }
 
 // ---- warpgroup registers, named barriers, flags ----------------------------
@@ -299,6 +331,61 @@ __device__ __forceinline__ int ld_acquire(const int* p) {
 __device__ __forceinline__ void st_release(int* p, int v) {
   asm volatile("st.release.gpu.global.s32 [%0], %1;\n" ::"l"(p), "r"(v)
                : "memory");
+}
+
+// ---- host: tensor maps -----------------------------------------------------
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+struct EncodeEntry {
+  EncodeTiled fn;
+  cudaError_t err;
+};
+
+// The driver's cuTensorMapEncodeTiled, looked up once.
+inline const EncodeEntry& encode_entry() {
+  static const EncodeEntry entry = [] {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
+                                              cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess &&
+        (found != cudaDriverEntryPointSuccess || fn == nullptr))
+      err = cudaErrorSymbolNotFound;
+    return EncodeEntry{reinterpret_cast<EncodeTiled>(fn), err};
+  }();
+  return entry;
+}
+
+// A row-major [rows, cols] tensor (bf16 or f32) moved in boxes of box_rows x
+// box_cols (128 bytes wide) with the 128-byte swizzle; out-of-range elements
+// read as zeros and are not written.
+inline cudaError_t box_map(CUtensorMap* map, const void* base, int rows,
+                           int cols, bool f32, int box_rows) {
+  const EncodeEntry& e = encode_entry();
+  if (e.err != cudaSuccess) return e.err;
+  const int elem = f32 ? 4 : 2;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * elem};
+  const cuuint32_t box[2] = {(cuuint32_t)(128 / elem), (cuuint32_t)box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = e.fn(
+      map,
+      f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      2, const_cast<void*>(base), dims, strides, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 }  // namespace sm90

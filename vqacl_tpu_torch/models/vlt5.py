@@ -31,7 +31,9 @@ from vqacl_tpu_torch.models.prototype import (ProtoState, batch_class_means,
                                               cosine_retrieve, memory_loss,
                                               proto_update)
 from vqacl_tpu_torch.models.visual_embedding import apply_visual_embedding
+from vqacl_tpu_torch.ops import head_loss as HL
 from vqacl_tpu_torch.utils.device import resolve_device
+from vqacl_tpu_torch.utils.profiling import count, span
 
 Params = Dict[str, Any]
 
@@ -349,57 +351,88 @@ def rounded(x: float, dtype: torch.dtype) -> float:
 
 
 def _head_logits(hidden: torch.Tensor, shared: torch.Tensor,
-                 rescale: float) -> torch.Tensor:
-    """f32 logits of the rescaled hidden against the table cast to the
+                 rs: float) -> torch.Tensor:
+    """f32 logits of the hidden times ``rs`` against the table cast to the
     hidden's dtype (f32 products of the rounded operands)."""
+    h = hidden if rs == 1.0 else hidden * rs
+    return h.float() @ shared.to(hidden.dtype).float().t()
+
+
+def _dscores(g, lse, ll, labels, scores):
+    """The real scores cotangent: d/d(score_b) = the per-sequence mean
+    NLL / B."""
+    mask = (labels != -100).float()
+    nll = (lse - ll) * mask
+    valid = mask.sum(dim=1).clamp_min(1.0)
+    return (g * nll.sum(dim=1) / valid / labels.shape[0]).to(scores.dtype)
+
+
+# The plain version: f32 [B, T, V] logits, recomputed in the backward.
+# Each route's forward takes (hidden, shared, safe labels, the rounded
+# rescale) → (lse, label logit, residuals); its backward (residuals, lse,
+# per-token weight × g, the rounded rescale) → (dh, dshared). The
+# kernels' route is ``ops/head_loss.py::head_loss_forward/_backward``.
+
+def _plain_forward(hidden, shared, safe, rs):
+    logits = _head_logits(hidden, shared, rs)
+    ll = logits.gather(-1, safe[..., None])[..., 0]
+    return torch.logsumexp(logits, dim=-1), ll, (hidden, shared, safe)
+
+
+def _plain_backward(res, lse, w, rs):
+    hidden, shared, safe = res
+    logits = _head_logits(hidden, shared, rs)                     # recompute
+    p = torch.exp(logits - lse[..., None])
+    p.scatter_add_(-1, safe[..., None], -torch.ones_like(lse)[..., None])
     dt = hidden.dtype
-    h = hidden if rescale == 1.0 else hidden * rounded(rescale, dt)
-    return h.float() @ shared.to(dt).float().t()
+    dlogits = (p * w[..., None]).to(dt)
+    dh = (dlogits.float() @ shared.to(dt).float()).to(dt)
+    hs = hidden
+    if rs != 1.0:
+        dh, hs = dh * rs, hidden * rs
+    dshared = dlogits.float().flatten(0, 1).t() @ hs.float().flatten(0, 1)
+    return dh, dshared
 
 
 class _FusedHeadLoss(torch.autograd.Function):
-    """Tied LM head + weighted CE as one op. Its residuals are (hidden,
-    lse): the logits are recomputed in backward, so neither the f32
-    log-softmax nor f32 d(logits) is kept; d(logits) goes into the two
-    gradient products in the hidden's dtype."""
+    """Tied LM head + weighted CE as one op: the logits are recomputed in
+    backward, so neither the f32 log-softmax nor f32 d(logits) is kept;
+    d(logits) goes into the two gradient products in the hidden's dtype.
+    ``ops/head_loss.py::head_loss_route`` picks the route unless ``route``
+    names one: the kernels for bf16 on the card, the plain version for CPU
+    tensors and f32. With the recorder on, the op is the span
+    ``head_loss`` in the forward and again in the backward, and the
+    counter ``head_loss.kernel`` or ``head_loss.plain`` counts each
+    forward by route."""
 
     @staticmethod
-    def forward(ctx, hidden, shared, labels, scores, rescale):
-        logits = _head_logits(hidden, shared, rescale)
-        lse = torch.logsumexp(logits, dim=-1)                     # [B,T]
-        safe = _safe_labels(labels, logits.shape[-1])
-        ll = logits.gather(-1, safe[..., None])[..., 0]
-        loss = ((lse - ll) * _token_weights(labels, scores)).sum()
-        ctx.save_for_backward(hidden, shared, labels, scores, lse)
-        ctx.rescale = rescale
+    def forward(ctx, hidden, shared, labels, scores, rescale, route=None):
+        if route is None:
+            route = HL.head_loss_route(
+                hidden.device.type, hidden.dtype, labels.numel(),
+                hidden.shape[-1], shared.shape[0])
+        count("head_loss.plain" if route == "plain" else "head_loss.kernel")
+        fwd = _plain_forward if route == "plain" else HL.head_loss_forward
+        rs = rounded(rescale, hidden.dtype)
+        with span("head_loss"):
+            safe = _safe_labels(labels, shared.shape[0])
+            lse, ll, res = fwd(hidden, shared, safe, rs)
+            loss = ((lse - ll) * _token_weights(labels, scores)).sum()
+        ctx.save_for_backward(labels, scores, lse, ll, *res)
+        ctx.route, ctx.rs = route, rs
+        ctx.shared_dtype = shared.dtype
         return loss
 
     @staticmethod
     def backward(ctx, g):
-        hidden, shared, labels, scores, lse = ctx.saved_tensors
-        rescale = ctx.rescale
-        logits = _head_logits(hidden, shared, rescale)            # recompute
-        p = torch.exp(logits - lse[..., None])
-        safe = _safe_labels(labels, logits.shape[-1])
-        w = _token_weights(labels, scores) * g
-        p.scatter_add_(-1, safe[..., None], -torch.ones_like(lse)[..., None])
-        dt = hidden.dtype
-        dlogits = (p * w[..., None]).to(dt)
-        dh = (dlogits.float() @ shared.to(dt).float()).to(dt)
-        hs = hidden
-        if rescale != 1.0:
-            rs = rounded(rescale, dt)
-            dh, hs = dh * rs, hidden * rs
-        dshared = (dlogits.float().flatten(0, 1).t()
-                   @ hs.float().flatten(0, 1)).to(shared.dtype)
-        # the real scores cotangent: d/d(score_b) = the per-sequence
-        # mean NLL / B
-        mask = (labels != -100).float()
-        nll = (lse - logits.gather(-1, safe[..., None])[..., 0]) * mask
-        valid = mask.sum(dim=1).clamp_min(1.0)
-        dscores = (g * nll.sum(dim=1) / valid / labels.shape[0]
-                   ).to(scores.dtype)
-        return dh, dshared, None, dscores, None
+        labels, scores, lse, ll, *res = ctx.saved_tensors
+        bwd = (_plain_backward if ctx.route == "plain"
+               else HL.head_loss_backward)
+        with span("head_loss"):
+            w = _token_weights(labels, scores) * g
+            dh, dshared = bwd(res, lse, w, ctx.rs)
+            dscores = _dscores(g, lse, ll, labels, scores)
+        return dh, dshared.to(ctx.shared_dtype), None, dscores, None, None
 
 
 def fused_head_loss(hidden: torch.Tensor, shared: torch.Tensor,

@@ -79,6 +79,14 @@ SIGNATURES = {
                          _P], _I),
         "moe_error_string": ([_I], ctypes.c_char_p),
     },
+    "head_loss": {
+        # hs, wb, labels, part, lse, ll, rows, D, V, stream
+        "head_lse": ([_P] * 6 + [_I] * 3 + [_P], _I),
+        # hs, wb, labels, lse, w, dlogits, dlogits_t, rows, rows_pad, D, V,
+        # stream
+        "head_dlogits": ([_P] * 7 + [_I] * 4 + [_P], _I),
+        "head_loss_error_string": ([_I], ctypes.c_char_p),
+    },
     "dw_splitk": {
         # x, g, out, K, D, F, dtype, stream, plan, workspace, n_blocks
         # (the wgmma route's; last, so that an older library without them

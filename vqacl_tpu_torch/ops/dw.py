@@ -33,8 +33,9 @@ one the card runs.
 ``dw_splitk_reference`` for CPU tensors, and on CUDA tensors launches
 the kernel of its route or raises, counting each launch in
 ``dw_splitk.launches`` and per route in ``dw_splitk.route_launches``.
-Nothing of the training path calls it; ``vqacl_tpu_torch.mm_bench``
-times it beside the library's matrix products.
+The head loss's backward (``models/vlt5.py``) runs its two gradient
+products on it; ``vqacl_tpu_torch.mm_bench`` times it beside the
+library's matrix products.
 """
 
 from __future__ import annotations

@@ -23,13 +23,15 @@ Key = Tuple[object, str, object]
 
 def wrappers() -> tuple:
     """The kernel wrappers that count their launches: K1, K1′, K2, the
-    fused AdamW, K5, the grouped expert GEMMs and N1."""
-    from vqacl_tpu_torch.ops import adamw, dw, moe, nms
+    fused AdamW, K5, the grouped expert GEMMs, N1 and the head loss's H1
+    and H2."""
+    from vqacl_tpu_torch.ops import adamw, dw, head_loss, moe, nms
     from vqacl_tpu_torch.ops import fused_attention as fa
 
     return (fa.fused_attention, fa.fused_attention_fwd_train,
             fa.fused_attention_bwd, adamw.fused_adamw, dw.dw_splitk,
-            moe.grouped_swiglu, nms.greedy_nms)
+            moe.grouped_swiglu, nms.greedy_nms, head_loss.head_lse,
+            head_loss.head_dlogits)
 
 
 def read() -> Dict[Key, int]:
